@@ -1,0 +1,460 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one GPU and check it.
+
+    python3 chip_smoke.py
+
+Needs one CUDA device and the CUDA toolkit (``nvcc``); exits non-zero
+without them, and when run without the rest of the checkout. Phases,
+each printing one JSON line; any mismatch raises and the script exits
+non-zero:
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build: every kernel built from ``src/repro_torch/csrc`` (one ``nvcc``
+   per source, all at once);
+3. kernels vs their plain PyTorch versions, on the card, at the main
+   path's shapes: the codec on a 96-plane common-region unit
+   (96, 1152, 1152) at 12 and 16 planes and a ragged (50, 1150, 1149)
+   unit, the single step on one fetched block (240, 1152, 1152), the
+   multistep kernel at 12 steps on the same block. Each must be bit for
+   bit equal; median kernel and plain times (CUDA events) and the bound
+   (bytes over 3.35 TB/s, or float32 operations over 67 TFLOP/s);
+4. the slice at the paper's size: 1152^3, ndiv=8, bt=12, one sweep for
+   code 4 and for code 1 through ``OutOfCoreWave``; code 1 bit for bit
+   equal to the in-core ``fused_temporal_steps(backend="cuda")``, code 4
+   within 5e-2 relative error of it; transfer summary against the
+   ``BlockPlan`` arithmetic; wall time split into device compute
+   (CUDA events around the codec and stencil calls), crc32 and the rest;
+5. the single-step dispatch through the engine: bt=1 on a Z-reduced
+   volume (96, 1152, 1152), code 4, bit for bit against the same engine
+   with ``backend="ref"`` on the card;
+6. the kernels line: every kernel with its launches on the main path
+   (phases 4 and 5, counted from zero), its error and times.
+
+The last line is ``{"ok": true, "device": {...}}``.
+"""
+
+from __future__ import annotations
+
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from repro_torch import _build  # noqa: E402
+from repro_torch import device as device_mod  # noqa: E402
+from repro_torch.core import outofcore  # noqa: E402
+from repro_torch.core.outofcore import (  # noqa: E402
+    OOCConfig, OutOfCoreWave, paper_code_fields, to_host,
+)
+from repro_torch.kernels.stencil import kernel as stencil_kernel  # noqa: E402
+from repro_torch.kernels.stencil import ops as stencil_ops  # noqa: E402
+from repro_torch.kernels.stencil import ref as stencil_ref  # noqa: E402
+from repro_torch.kernels.zfp import kernel as zfp_kernel  # noqa: E402
+from repro_torch.kernels.zfp import ops as zfp_ops  # noqa: E402
+from repro_torch.kernels.zfp import ref as zfp_ref  # noqa: E402
+
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+STENCIL_FLOPS = 33  # float32 operations per point per step
+SEED = 0
+PAPER = (1152, 1152, 1152)
+NDIV, BT = 8, 12
+UNIT = (96, 1152, 1152)  # a common region C_i at the paper's size
+RAGGED = (50, 1150, 1149)
+BLOCK = (240, 1152, 1152)  # one fetched block, B + 2H planes
+SMALL_Z = 96  # phase 5's volume depth (bt=1)
+
+
+class SmokeFailure(AssertionError):
+    """A phase found a mismatch."""
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def median_ms(fn, reps: int) -> float:
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, flops: float = 0.0):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    return t.contiguous().view(torch.int32)
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and bool(torch.equal(bits(a), bits(b)))
+
+
+def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    if a.dtype in (torch.uint32, torch.int32):
+        a, b = bits(a).to(torch.int64), bits(b).to(torch.int64)
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def normal(shape, gen, scale=7.3) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device="cuda") * scale
+
+
+# ----------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ----------------------------------------------------------------------
+
+
+def codec_case(shape, planes, gen, results):
+    x = normal(shape, gen)
+    payload, emax = zfp_kernel.encode(x, planes)
+    xb = zfp_ref.blockify(x, 3)
+    rp, re = zfp_ref.encode_blocks(xb, planes, 3)
+    enc_ok = same_bits(payload, rp) and same_bits(emax, re)
+    y = zfp_kernel.decode(payload, emax, shape, planes)
+    ry = zfp_ref.unblockify(zfp_ref.decode_blocks(rp, re, planes, 3), shape, 3)
+    dec_ok = same_bits(y, ry)
+    nb = emax.numel()
+    in_bytes = x.numel() * 4
+    out_bytes = payload.numel() * 4 + nb * 4
+    enc = {
+        "max_abs_err": max(max_abs(payload, rp), max_abs(emax, re)),
+        "ms": median_ms(lambda: zfp_kernel.encode(x, planes), 10),
+        "plain_ms": median_ms(
+            lambda: zfp_ref.encode_blocks(zfp_ref.blockify(x, 3), planes, 3), 3),
+        "bound": bound_ms(in_bytes + out_bytes),
+    }
+    dec = {
+        "max_abs_err": max_abs(y, ry),
+        "ms": median_ms(
+            lambda: zfp_kernel.decode(payload, emax, shape, planes), 10),
+        "plain_ms": median_ms(lambda: zfp_ref.unblockify(
+            zfp_ref.decode_blocks(payload, emax, planes, 3), shape, 3), 3),
+        "bound": bound_ms(in_bytes + out_bytes),
+    }
+    for name, r, ok in (("zfp_encode", enc, enc_ok),
+                        ("zfp_decode", dec, dec_ok)):
+        emit({"phase": "kernel_vs_plain", "kernel": name,
+              "shape": list(shape), "planes": planes, "bitwise": ok,
+              "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+              "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+              "bound_by": r["bound"][1]})
+        check(ok, f"{name} differs from its plain version at {shape}, "
+                  f"{planes} planes")
+        results.setdefault((name, shape, planes), r)
+
+
+def stencil_cases(gen, results):
+    z, y, x = BLOCK
+    n = z * y * x
+    pad = tuple(s + 2 * stencil_ref.HALO for s in BLOCK)
+    pp, pc = normal(pad, gen, 1.0), normal(pad, gen, 1.0)
+    v2 = 0.05 + 0.01 * normal(BLOCK, gen, 1.0)
+    kn, kl = stencil_kernel.wave_step(pp, pc, v2)
+    rn, rl = stencil_ref.wave_step(pp, pc, v2)
+    ok = same_bits(kn, rn) and same_bits(kl, rl)
+    r = {
+        "max_abs_err": max(max_abs(kn, rn), max_abs(kl, rl)),
+        "ms": median_ms(lambda: stencil_kernel.wave_step(pp, pc, v2), 10),
+        "plain_ms": median_ms(lambda: stencil_ref.wave_step(pp, pc, v2), 3),
+        "bound": bound_ms(2 * pp.numel() * 4 + 3 * n * 4, STENCIL_FLOPS * n),
+    }
+    results[("wave_step", BLOCK, 1)] = r
+    emit({"phase": "kernel_vs_plain", "kernel": "wave_step",
+          "shape": list(BLOCK), "bitwise": ok, "max_abs_err": r["max_abs_err"],
+          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+          "bound_by": r["bound"][1]})
+    check(ok, "wave_step differs from its plain version")
+    del pp, pc, kn, kl, rn, rl
+
+    steps = BT
+    pp, pc = normal(BLOCK, gen, 1.0), normal(BLOCK, gen, 1.0)
+    kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, steps)
+    rp, rc = stencil_ref.ladder_steps(pp, pc, v2, steps)
+    ok = same_bits(kp, rp) and same_bits(kc, rc)
+    r = {
+        "max_abs_err": max(max_abs(kp, rp), max_abs(kc, rc)),
+        "ms": median_ms(
+            lambda: stencil_kernel.wave_multistep(pp, pc, v2, steps), 5),
+        "plain_ms": median_ms(
+            lambda: stencil_ref.ladder_steps(pp, pc, v2, steps), 3),
+        "bound": bound_ms(5 * n * 4, STENCIL_FLOPS * n * steps),
+    }
+    results[("wave_multistep", BLOCK, steps)] = r
+    emit({"phase": "kernel_vs_plain", "kernel": "wave_multistep",
+          "shape": list(BLOCK), "steps": steps, "bitwise": ok,
+          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+          "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+          "bound_by": r["bound"][1]})
+    check(ok, "wave_multistep differs from its plain version")
+
+
+# ----------------------------------------------------------------------
+# phase 4-5: the engine
+# ----------------------------------------------------------------------
+
+
+class DeviceClock:
+    """CUDA events around the engine's codec and stencil calls, and a
+    host clock around its crc32 digests, by wrapping the module
+    attributes ``outofcore`` calls through; ``restore`` undoes it."""
+
+    def __init__(self):
+        self.events = []
+        self.crc_s = 0.0
+        self._saved = []
+        for mod, name in ((zfp_ops, "compress"), (zfp_ops, "decompress"),
+                          (stencil_ops, "fused_temporal_steps")):
+            self._wrap_device(mod, name)
+        self._wrap_crc()
+
+    def _wrap_device(self, mod, name):
+        fn = getattr(mod, name)
+        self._saved.append((mod, name, fn))
+
+        def timed(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            return out
+
+        setattr(mod, name, timed)
+
+    def _wrap_crc(self):
+        fn = outofcore.unit_checksum
+        self._saved.append((outofcore, "unit_checksum", fn))
+
+        def timed(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            self.crc_s += time.perf_counter() - t0
+            return out
+
+        outofcore.unit_checksum = timed
+
+    def device_s(self) -> float:
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.events) / 1e3
+
+    def restore(self):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def expected_summary(cfg: OOCConfig):
+    """The transfer summary of one sweep from ``BlockPlan`` arithmetic:
+    every unit fetched once per field and written back once per
+    read-write field; compressed units carry W words and a 2-byte emax
+    header per 4^3 block."""
+    plan = cfg.plan
+    z, y, x = cfg.shape
+    plane = y * x * 4
+    blocks_of = lambda planes: (-(-planes // 4)) * (-(-y // 4)) * (-(-x // 4))
+    tot = {"h2d_raw": 0, "h2d_wire": 0, "d2h_raw": 0, "d2h_wire": 0,
+           "h2d_count": 0, "d2h_count": 0}
+    h2d_planes = sum(plan.h2d_planes(i) for i in range(plan.ndiv))
+    d2h_planes = sum(plan.d2h_planes(i) for i in range(plan.ndiv))
+    check(h2d_planes == z and d2h_planes == z, "plan does not cover Z")
+    for name, spec in cfg.fields.items():
+        wire = 0
+        for _, _, (lo, hi) in plan.units():
+            if spec.compressed:
+                w = zfp_ref.payload_words(3, spec.planes)
+                wire += blocks_of(hi - lo) * (4 * w + 2)
+            else:
+                wire += (hi - lo) * plane
+        dirs = ("h2d", "d2h") if spec.role == "rw" else ("h2d",)
+        for d, planes in (("h2d", h2d_planes), ("d2h", d2h_planes)):
+            if d not in dirs:
+                continue
+            tot[f"{d}_raw"] += planes * plane
+            tot[f"{d}_wire"] += wire
+            tot[f"{d}_count"] += len(plan.units())
+    return tot
+
+
+def initial_fields(shape):
+    """The example's initial condition, built on the card and brought
+    to the host: Ricker p_cur, p_prev = 0.97 p_cur, vel2 = 0.06."""
+    p_cur = stencil_ref.ricker_source(shape, device="cuda")
+    host = {"p_cur": to_host(p_cur)}
+    host["p_prev"] = to_host(0.97 * p_cur)
+    host["vel2"] = np.full(shape, 0.06, np.float32)
+    return host
+
+
+def run_engine(cfg, fields, label):
+    clock = DeviceClock()
+    try:
+        t0 = time.perf_counter()
+        eng = OutOfCoreWave(cfg, fields["p_prev"], fields["p_cur"],
+                            fields["vel2"])
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dev0, crc0 = clock.device_s(), clock.crc_s
+        eng.sweep()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        dev1, crc1 = clock.device_s() - dev0, clock.crc_s - crc0
+    finally:
+        clock.restore()
+    wall = t2 - t1
+    emit({"phase": label, "seed_s": t1 - t0, "sweep_wall_s": wall,
+          "sweep_device_compute_s": dev1, "sweep_crc32_s": crc1,
+          "sweep_host_other_s": wall - dev1 - crc1,
+          "transfer_summary": eng.transfer_summary()})
+    return eng
+
+
+def paper_slice():
+    fields = initial_fields(PAPER)
+    # the in-core ground truth, before the launch counts are zeroed
+    dev_in = {k: torch.from_numpy(v).cuda() for k, v in fields.items()}
+    ref_pp, ref_pc = stencil_ops.fused_temporal_steps(
+        dev_in["p_prev"], dev_in["p_cur"], dev_in["vel2"], steps=BT,
+        backend="cuda")
+    del dev_in
+    torch.cuda.synchronize()
+    emit({"phase": "incore_reference", "shape": list(PAPER), "steps": BT,
+          "finite": bool(torch.isfinite(ref_pc).all())})
+    zfp_kernel.reset_launches()
+    stencil_kernel.reset_launches()
+    for code in (4, 1):
+        cfg = OOCConfig(PAPER, NDIV, BT, paper_code_fields(code))
+        eng = run_engine(cfg, fields, f"paper_code{code}")
+        summary = eng.transfer_summary()
+        want = expected_summary(cfg)
+        got = {k: summary[k] for k in want}
+        check(got == want, f"code {code} transfer summary {got} != {want}")
+        out = {}
+        for name, ref in (("p_cur", ref_pc), ("p_prev", ref_pp)):
+            g = torch.from_numpy(eng.gather(name)).cuda()
+            check(tuple(g.shape) == PAPER and bool(torch.isfinite(g).all()),
+                  f"code {code} {name} not finite or misshapen")
+            scale = float(ref.abs().max())
+            out[name] = {"bitwise": same_bits(g, ref),
+                         "max_rel_err": float((g - ref).abs().max()) / scale}
+            del g
+        emit({"phase": f"paper_code{code}_check", **out,
+              "summary_matches_plan": True})
+        if code == 1:
+            check(out["p_cur"]["bitwise"] and out["p_prev"]["bitwise"],
+                  "code 1 is not bit for bit the in-core run")
+        else:
+            check(out["p_cur"]["max_rel_err"] < 5e-2,
+                  f"code {code} rel err {out['p_cur']['max_rel_err']}")
+        del eng
+
+
+def single_step_dispatch():
+    shape = (SMALL_Z,) + PAPER[1:]
+    fields = initial_fields(shape)
+    engines = {}
+    for backend in ("cuda", "ref"):
+        cfg = OOCConfig(shape, NDIV, 1, paper_code_fields(4),
+                        backend=backend)
+        before = dict(stencil_kernel.launches)
+        engines[backend] = run_engine(cfg, fields, f"bt1_{backend}")
+        engines[backend].sweep()
+        if backend == "cuda":
+            launched = (stencil_kernel.launches["wave_step"]
+                        - before["wave_step"])
+            check(launched == 2 * NDIV,
+                  f"bt=1 engine launched wave_step {launched} times")
+            counts = {**{f"zfp_{k}": v for k, v in zfp_kernel.launches.items()},
+                      **stencil_kernel.launches}
+    same = {name: bool(np.array_equal(engines["cuda"].gather(name),
+                                      engines["ref"].gather(name)))
+            for name in ("p_prev", "p_cur", "vel2")}
+    emit({"phase": "bt1_cuda_vs_ref", "shape": list(shape), "sweeps": 2,
+          "bitwise": same})
+    check(all(same.values()), "bt=1 engine: cuda and ref backends differ")
+    return counts
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    card = device_mod.card_line()
+    print(card, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    emit({"phase": "device", "card": card, "kind": kind,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+
+    t0 = time.perf_counter()
+    logs = _build.build_all()
+    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+          "built": sorted(k for k, v in logs.items() if v)})
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    results = {}
+    for planes in (12, 16):
+        codec_case(UNIT, planes, gen, results)
+    codec_case(RAGGED, 12, gen, results)
+    stencil_cases(gen, results)
+    torch.cuda.empty_cache()
+
+    paper_slice()
+    torch.cuda.empty_cache()
+    counts = single_step_dispatch()
+    emit({"phase": "launches", **counts})
+
+    rows = [
+        ("zfp_encode", "zfp_encode", "src/repro/kernels/zfp/kernel.py:90",
+         "src/repro_torch/csrc/zfp.cu", (UNIT, 12)),
+        ("zfp_decode", "zfp_decode", "src/repro/kernels/zfp/kernel.py:133",
+         "src/repro_torch/csrc/zfp.cu", (UNIT, 12)),
+        ("wave_step", "wave_step", "src/repro/kernels/stencil/kernel.py:69",
+         "src/repro_torch/csrc/stencil.cu", (BLOCK, 1)),
+        ("wave_multistep", "wave_multistep",
+         "src/repro/kernels/stencil/kernel.py:149",
+         "src/repro_torch/csrc/stencil.cu", (BLOCK, BT)),
+    ]
+    kernels = []
+    for name, counter, replaces, source, (shape, arg) in rows:
+        r = results[(name, shape, arg)]
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": counts[counter],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+            "bound_by": r["bound"][1], "library_ms": None,
+        })
+    for k in kernels:
+        check(k["launches"] > 0, f"{k['name']} was not launched on the path")
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

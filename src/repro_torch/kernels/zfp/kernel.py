@@ -1,0 +1,121 @@
+"""Wrappers of the CUDA codec kernels in ``csrc/zfp.cu``.
+
+``encode`` replaces ``repro.kernels.zfp.kernel.encode_pallas`` and
+``decode`` replaces ``decode_pallas``. Unlike the TPU kernels they take
+the unit itself, ``(..., s1..s_ndim)``: blockify, its edge padding and
+unblockify's crop are folded into the kernels' indexing, so there is no
+tile padding (``ops.bucket_tile`` stays only for parity).
+
+On a CPU tensor each wrapper runs the plain version (``ref``); on a
+CUDA tensor it launches the kernel or raises. ``launches`` counts kernel
+launches, one per call that reaches the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+from typing import Tuple
+
+import numpy as np
+import torch
+
+from repro_torch import _build
+from repro_torch.kernels.zfp import ref
+
+launches = {"encode": 0, "decode": 0}
+
+_P = ctypes.c_void_p
+_ARGS = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+         ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int,
+         _P]
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _tables(planes: int, ndim: int):
+    """Host-side static tables of one (planes, ndim): keep-masks,
+    stream order, plane prefix counts, and the payload word count."""
+    perm, _, counts = ref.level_order(planes, ndim, 32)
+    masks = np.asarray(ref.plane_masks(planes, ndim, 32), np.uint32)
+    return (masks, np.asarray(perm, np.int32), np.asarray(counts, np.int32),
+            len(counts), ref.payload_words(ndim, planes))
+
+
+def _geometry(shape: Tuple[int, ...], ndim: int):
+    if ndim not in (1, 2, 3) or len(shape) < ndim:
+        raise ValueError(f"ndim={ndim} does not fit a tensor of shape {shape}")
+    spatial = (1,) * (3 - ndim) + tuple(shape[-ndim:])
+    batch = math.prod(shape[: len(shape) - ndim])
+    nb = batch * math.prod(-(-s // 4) for s in shape[-ndim:])
+    return batch, spatial, nb
+
+
+def _launch(symbol: str, a, b, c, shape, ndim: int, planes: int) -> None:
+    masks, perm, counts, nplanes, nwords = _tables(int(planes), ndim)
+    batch, (d0, d1, d2), _ = _geometry(shape, ndim)
+    fn = _build.bind("zfp", symbol, _ARGS)
+    err = fn(a, b, c, batch, d0, d1, d2, ndim,
+             masks.ctypes.data, perm.ctypes.data, counts.ctypes.data,
+             nplanes, nwords, torch.cuda.current_stream().cuda_stream)
+    _build.check("zfp", err, symbol)
+
+
+def _require(x: torch.Tensor, dtype: torch.dtype, what: str) -> None:
+    if x.dtype != dtype:
+        raise TypeError(f"{what} must be {dtype}, got {x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+
+
+def encode(x: torch.Tensor, planes: int, ndim: int = 3):
+    """Fixed-rate encode of the trailing ``ndim`` axes of ``x``:
+    ``(payload (nb, W) uint32, emax (nb,) int32)``, bit for bit
+    ``ref.encode_blocks(ref.blockify(x, ndim), planes, ndim)``."""
+    if x.device.type == "cpu":
+        return ref.encode_blocks(ref.blockify(x, ndim), planes, ndim)
+    if x.dtype == torch.float64:
+        raise NotImplementedError(ref.FLOAT64_TODO)
+    _require(x, torch.float32, "encode input")
+    _, _, nb = _geometry(tuple(x.shape), ndim)
+    nwords = ref.payload_words(ndim, int(planes))
+    payload = torch.empty((nb, nwords), dtype=torch.int32, device=x.device)
+    emax = torch.empty((nb,), dtype=torch.int32, device=x.device)
+    if nb:
+        _launch("zfp_encode", x.data_ptr(), payload.data_ptr(),
+                emax.data_ptr(), tuple(x.shape), ndim, planes)
+        launches["encode"] += 1
+    return payload.view(torch.uint32), emax
+
+
+def decode(payload: torch.Tensor, emax: torch.Tensor, shape, planes: int,
+           ndim: int = 3) -> torch.Tensor:
+    """Inverse of ``encode``: the float32 tensor of ``shape``, bit for
+    bit ``ref.unblockify(ref.decode_blocks(...), shape, ndim)``."""
+    shape = tuple(shape)
+    if payload.device.type == "cpu":
+        xb = ref.decode_blocks(payload, emax, planes, ndim)
+        return ref.unblockify(xb, shape, ndim)
+    if emax.device != payload.device:
+        raise ValueError("payload and emax must be on the same device")
+    _, _, nb = _geometry(shape, ndim)
+    nwords = ref.payload_words(ndim, int(planes))
+    if tuple(payload.shape) != (nb, nwords) or tuple(emax.shape) != (nb,):
+        raise ValueError(
+            f"payload {tuple(payload.shape)} / emax {tuple(emax.shape)} do "
+            f"not match shape {shape} at {planes} planes ({nb} blocks of "
+            f"{nwords} words)"
+        )
+    _require(payload, torch.uint32, "payload")
+    _require(emax, torch.int32, "emax")
+    out = torch.empty(shape, dtype=torch.float32, device=payload.device)
+    if nb:
+        _launch("zfp_decode", payload.data_ptr(), emax.data_ptr(),
+                out.data_ptr(), shape, ndim, planes)
+        launches["decode"] += 1
+    return out

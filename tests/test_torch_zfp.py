@@ -1,0 +1,184 @@
+"""Port codec (``repro_torch.kernels.zfp``) against the JAX reference.
+
+Contract: the port's plain version is bit for bit equal to
+``repro.kernels.zfp.ref`` on the same float32 input: static tables,
+``payload``, ``emax`` and the decoded values. Inputs come from numpy
+``default_rng``; the JAX side runs its ``ref`` backend (one jitted
+encode/decode per rate over all shapes of a dimensionality) and, for one
+small case, its Pallas kernel in interpret mode.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.zfp import ops as jops
+from repro.kernels.zfp import ref as jref
+from repro_torch.kernels.zfp import kernel as tkernel
+from repro_torch.kernels.zfp import ops as tops
+from repro_torch.kernels.zfp import ref as tref
+
+SHAPES = {
+    1: [(4,), (64,), (1000,), (4096,)],
+    2: [(4, 4), (16, 128), (30, 50), (128, 128)],
+    3: [(4, 4, 4), (8, 16, 32), (10, 11, 12), (32, 32, 32)],
+}
+PLANES = [32, 24, 16, 12, 8, 4, 1]
+
+
+def _data(shape, seed, scale=7.3):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+def _u32(payload) -> np.ndarray:
+    if isinstance(payload, torch.Tensor):
+        return payload.view(torch.int32).numpy().view(np.uint32)
+    return np.asarray(payload)
+
+
+def _jax_round_trip(xb, planes, ndim):
+    """One JAX program: encode, then decode its own payload."""
+    payload, emax = jref.encode_blocks(xb, planes, ndim)
+    return payload, emax, jref.decode_blocks(payload, emax, planes, ndim,
+                                             jnp.float32)
+
+
+# integer codec arithmetic: the backend's optimization level cannot
+# change its result, and level 0 compiles the 21 rate/dimension
+# programs of the grid several times faster
+_jax_codec = jax.jit(_jax_round_trip, static_argnums=(1, 2),
+                     compiler_options={"xla_backend_optimization_level": 0})
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_static_tables_equal(ndim):
+    assert tref.coeff_levels(ndim) == jref.coeff_levels(ndim)
+    for planes in PLANES + [0, 2, 27, 28, 40, 59, 60]:
+        for width in (32, 64):
+            assert (tref.subband_planes(planes, ndim, width)
+                    == jref.subband_planes(planes, ndim, width))
+            assert (tref.level_order(planes, ndim, width)
+                    == jref.level_order(planes, ndim, width))
+            assert (tref.plane_masks(planes, ndim, width)
+                    == jref.plane_masks(planes, ndim, width))
+            assert (tref.payload_words(ndim, planes, width)
+                    == jref.payload_words(ndim, planes, width))
+            assert (tref.bits_per_value(ndim, planes, width)
+                    == jref.bits_per_value(ndim, planes, width))
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_blockify_round_trip_equal(ndim):
+    for i, shape in enumerate(SHAPES[ndim] + [(3,) + SHAPES[ndim][2]]):
+        x = _data(shape, 7 * i + ndim)
+        tb = tref.blockify(torch.from_numpy(x), ndim)
+        jb = np.asarray(jref.blockify(jnp.asarray(x), ndim))
+        np.testing.assert_array_equal(tb.numpy(), jb)
+        back = tref.unblockify(tb, shape, ndim)
+        np.testing.assert_array_equal(back.numpy(), x)
+
+
+@pytest.mark.parametrize("planes", PLANES)
+def test_encode_decode_bitwise_over_grid(planes):
+    for ndim, shapes in SHAPES.items():
+        xs = [_data(s, 100 * ndim + i) for i, s in enumerate(shapes)]
+        tblocks = [tref.blockify(torch.from_numpy(x), ndim) for x in xs]
+        xb = torch.cat(tblocks)  # every shape of this ndim in one batch
+        tp, te = tref.encode_blocks(xb, planes, ndim)
+        jp, je, jd = _jax_codec(jnp.asarray(xb.numpy()), planes, ndim)
+        np.testing.assert_array_equal(_u32(tp), np.asarray(jp))
+        np.testing.assert_array_equal(te.numpy(), np.asarray(je))
+        td = tref.decode_blocks(tp, te, planes, ndim)
+        np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+        # the fused numerics path equals decode(encode(x))
+        np.testing.assert_array_equal(
+            tref.quantize_blocks(xb, planes, ndim).numpy(), td.numpy())
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_special_values_bitwise(ndim):
+    """Zero blocks, denormal, near-max, mixed-sign rows."""
+    n = tref.block_size(ndim)
+    rows = np.stack([
+        np.zeros(n), np.full(n, 1e-40), np.full(n, 3e38),
+        np.linspace(-1e-3, 1e3, n),
+        np.where(np.arange(n) % 2 == 0, 1.0, -1.0) * 0.125,
+    ]).astype(np.float32)
+    shape = {1: (5 * 4,), 2: (5 * 4, 4), 3: (5 * 4, 4, 4)}[ndim]
+    x = rows.reshape(shape)
+    for planes in (32, 8):
+        tc = tops.compress(torch.from_numpy(x), planes=planes, ndim=ndim)
+        jc = jops.compress(jnp.asarray(x), planes=planes, ndim=ndim)
+        np.testing.assert_array_equal(_u32(tc.payload), np.asarray(jc.payload))
+        np.testing.assert_array_equal(tc.emax.numpy(), np.asarray(jc.emax))
+        np.testing.assert_array_equal(
+            tops.decompress(tc).numpy(), np.asarray(jops.decompress(jc)))
+
+
+def test_against_pallas_interpret():
+    """One small case through the JAX Pallas kernel (interpret mode)."""
+    x = _data((10, 11, 12), 3)
+    jc = jops.compress(jnp.asarray(x), planes=12, backend="pallas")
+    tc = tops.compress(torch.from_numpy(x), planes=12)
+    np.testing.assert_array_equal(_u32(tc.payload), np.asarray(jc.payload))
+    np.testing.assert_array_equal(tc.emax.numpy(), np.asarray(jc.emax))
+    np.testing.assert_array_equal(
+        tops.decompress(tc).numpy(),
+        np.asarray(jops.decompress(jc, backend="pallas")))
+
+
+def test_compressed_metadata_and_error_bound():
+    x = _data((10, 11, 12), 5)
+    tc = tops.compress(torch.from_numpy(x), planes=12)
+    jc = jops.compress(jnp.asarray(x), planes=12)
+    assert tc.dtype == jc.dtype == "float32"
+    assert tc.shape == jc.shape and tc.planes == jc.planes
+    assert tc.nbytes() == jc.nbytes() == tops.compressed_nbytes(tc)
+    assert tc.compression_ratio == jc.compression_ratio
+    tb = tref.max_abs_error_bound(tc.emax, 12, 3)
+    jb = jref.max_abs_error_bound(jc.emax, 12, 3, jnp.float32)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+    err = (tops.decompress(tc) - torch.from_numpy(x)).abs()
+    per_block = tref.blockify(err, 3).amax(dim=1)
+    assert bool((per_block <= tb).all())
+
+
+def test_compress_units_raw_entries():
+    xs = [torch.from_numpy(_data((8, 8, 8), s)) for s in range(3)]
+    out = tops.compress_units(xs, planes=[12, None, 16])
+    assert out[1] is xs[1]
+    for c, x, p in ((out[0], xs[0], 12), (out[2], xs[2], 16)):
+        jc = jops.compress(jnp.asarray(x.numpy()), planes=p)
+        np.testing.assert_array_equal(_u32(c.payload), np.asarray(jc.payload))
+    dec = tops.decompress_units([out[0], out[2]])
+    np.testing.assert_array_equal(dec[0].numpy(),
+                                  tops.decompress(out[0]).numpy())
+    with pytest.raises(ValueError, match="length"):
+        tops.compress_units(xs, planes=[12, None])
+
+
+def test_quantize_and_bucket_tile_match_reference():
+    x = _data((9, 10, 11), 8)
+    np.testing.assert_array_equal(
+        tops.quantize(torch.from_numpy(x), planes=12).numpy(),
+        np.asarray(jops.quantize(jnp.asarray(x), planes=12)))
+    for nb in (0, 1, 2, 3, 5, 64, 255, 256, 257, 10_000):
+        assert tops.bucket_tile(nb) == jops.bucket_tile(nb)
+
+
+def test_kernel_wrappers_use_plain_version_on_cpu():
+    x = torch.from_numpy(_data((6, 7, 9), 9))
+    payload, emax = tkernel.encode(x, 12)
+    c = tops.compress(x, planes=12)
+    np.testing.assert_array_equal(_u32(payload), _u32(c.payload))
+    y = tkernel.decode(payload, emax, x.shape, 12)
+    np.testing.assert_array_equal(y.numpy(), tops.decompress(c).numpy())
+
+
+def test_float64_codec_not_ported_raises():
+    x = torch.zeros((4, 4, 4), dtype=torch.float64)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tops.compress(x, planes=24)
