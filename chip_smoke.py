@@ -27,14 +27,33 @@ non-zero:
 5. the single-step dispatch through the engine: bt=1 on a Z-reduced
    volume (96, 1152, 1152), code 4, bit for bit against the same engine
    with ``backend="ref"`` on the card;
-6. the kernels line: every kernel with its launches on the main path
-   (phases 4 and 5, counted from zero), its error and times.
+6. the fused ZFP-decode attention kernel against its plain version at
+   the repo's ``decode_32k`` context (32768 tokens): 16 slots, 2 KV
+   heads, 6 queries per KV head, head_dim 128, at 16 and 12 planes and
+   lengths 30000, 32704 (chunk-aligned) and 40 (no history); ``m``,
+   ``l`` and ``acc`` within rtol = atol = 2e-5; median kernel and plain
+   times and the bound (payload, emax, queries and partials over
+   3.35 TB/s). No single PyTorch call computes this function;
+7. the serving slice at full width: Qwen2-1.5B in bfloat16 with the
+   compressed KV cache at 16 planes, random weights from a seeded
+   generator on the card, 8 requests in 8 slots in lockstep (256-token
+   prompts, 64 new tokens, greedy) through ``ServeEngine``; wall time,
+   tokens/s, cache bytes and the launches of the encode and cdecode
+   kernels. The same token streams are then replayed, teacher-forced,
+   through an engine with the plain versions (``backend="ref"``) on the
+   card, whose logits must agree within 5e-2 of their largest, and
+   through a raw-cache engine (printed, not checked); last, the device
+   time by kernel over 64 steady steps from ``torch.profiler``;
+8. the kernels line: every kernel with its launches on the main paths
+   (the out-of-core wave of phases 4 and 5, and the serving slice of
+   phase 7, each counted from zero), its error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import statistics
 import sys
@@ -49,9 +68,17 @@ import torch  # noqa: E402
 from repro_torch import _build  # noqa: E402
 from repro_torch import device as device_mod  # noqa: E402
 from repro_torch.core import outofcore  # noqa: E402
+from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import SHAPES  # noqa: E402
 from repro_torch.core.outofcore import (  # noqa: E402
     OOCConfig, OutOfCoreWave, paper_code_fields, to_host,
 )
+from repro_torch.kernels.cdecode import kernel as cdecode_kernel  # noqa: E402
+from repro_torch.kernels.cdecode import ref as cdecode_ref  # noqa: E402
+from repro_torch.models import kvcache  # noqa: E402
+from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models.layers import scale_in  # noqa: E402
+from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.kernels.stencil import kernel as stencil_kernel  # noqa: E402
 from repro_torch.kernels.stencil import ops as stencil_ops  # noqa: E402
 from repro_torch.kernels.stencil import ref as stencil_ref  # noqa: E402
@@ -69,6 +96,15 @@ UNIT = (96, 1152, 1152)  # a common region C_i at the paper's size
 RAGGED = (50, 1150, 1149)
 BLOCK = (240, 1152, 1152)  # one fetched block, B + 2H planes
 SMALL_Z = 96  # phase 5's volume depth (bt=1)
+# phase 6: the fused attention kernel at the decode_32k context
+CTX = SHAPES["decode_32k"].seq_len
+CD_SLOTS, CD_KVH, CD_QPK, CD_D = 16, 2, 6, 128
+CD_LENGTHS = (30000, CTX - kvcache.CHUNK, 40)
+CD_TOL = 2e-5  # tests/test_cdecode_kernel.py's own bound
+# phase 7: the serving slice
+SERVE_ARCH, SERVE_PLANES = "qwen2-1.5b", 16
+SERVE_SLOTS, PROMPT, MAX_NEW, SERVE_MAX_LEN = 8, 256, 64, 1024
+SERVE_TOL = 5e-2  # tests/test_kvcache.py's bound against the raw cache
 
 
 class SmokeFailure(AssertionError):
@@ -114,9 +150,11 @@ def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest |a - b|; equal entries count 0 (so -inf against -inf)."""
     if a.dtype in (torch.uint32, torch.int32):
         a, b = bits(a).to(torch.int64), bits(b).to(torch.int64)
-    return float((a - b).abs().max()) if a.numel() else 0.0
+    d = torch.where(a == b, 0, (a - b).abs())
+    return float(d.max()) if a.numel() else 0.0
 
 
 def normal(shape, gen, scale=7.3) -> torch.Tensor:
@@ -398,6 +436,212 @@ def single_step_dispatch():
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase 6: the fused ZFP-decode attention kernel at decode_32k
+# ----------------------------------------------------------------------
+
+
+def cdecode_cases(gen, results):
+    """Kernel partials against the plain version on one cache per rate:
+    every chunk of the 32k context encoded by the codec kernel from
+    normal K and V (the cache's own layout, ``_encode_chunk`` over all
+    chunks at once)."""
+    rows, d = CD_SLOTS * CD_KVH, CD_D
+    nbc = kvcache._nb_per_chunk(d)
+    for planes in (16, 12):
+        pay, em = [], []
+        for _ in range(2):  # K, then V
+            x = torch.randn((CD_SLOTS, CD_KVH, CTX, d), generator=gen,
+                            device="cuda")
+            p, e = zfp_kernel.encode(x, planes, 2)
+            pay.append(p.view(rows, -1, p.shape[-1]))
+            em.append(e.view(rows, -1))
+            del x
+        w = pay[0].shape[-1]
+        for length in CD_LENGTHS:
+            hist = (length // kvcache.CHUNK) * kvcache.CHUNK
+            q = torch.randn((rows, CD_QPK, d), generator=gen, device="cuda")
+            q = q * scale_in(d, torch.float32)
+            args = (pay[0], em[0], pay[1], em[1], q, hist)
+            kw = dict(planes=planes, head_dim=d, qpk=CD_QPK)
+            got = cdecode_kernel.fused_cdecode_attention(*args, **kw)
+            want = cdecode_ref.fused_cdecode_attention_ref(*args, **kw)
+            torch.cuda.synchronize()
+            ok = all(bool(torch.allclose(g, w_, rtol=CD_TOL, atol=CD_TOL))
+                     for g, w_ in zip(got, want))
+            err = max(max_abs(g, w_) for g, w_ in zip(got, want))
+            live = cdecode_ref.live_chunks(hist, pay[0].shape[1] // nbc)
+            nbytes = (2 * rows * live * nbc * (4 * w + 4)  # payload + emax
+                      + q.numel() * 4 + rows * CD_QPK * (d + 2) * 4)
+            flops = 2 * 2 * rows * CD_QPK * hist * d  # q.K and p.V
+            r = {
+                "max_abs_err": err,
+                "ms": median_ms(lambda: cdecode_kernel.fused_cdecode_attention(
+                    *args, **kw), 20),
+                "plain_ms": median_ms(
+                    lambda: cdecode_ref.fused_cdecode_attention_ref(
+                        *args, **kw), 2),
+                "bound": bound_ms(nbytes, flops),
+            }
+            results[("cdecode", (CD_SLOTS, CD_KVH, CTX), (planes, length))] = r
+            emit({"phase": "kernel_vs_plain", "kernel": "cdecode",
+                  "slots": CD_SLOTS, "kv_heads": CD_KVH, "qpk": CD_QPK,
+                  "head_dim": d, "max_len": CTX, "length": length,
+                  "hist_len": hist, "planes": planes, "within_tol": ok,
+                  "tol": CD_TOL, "max_abs_err": err, "ms": r["ms"],
+                  "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+                  "bound_by": r["bound"][1], "bound_bytes": nbytes,
+                  "library_ms": None,
+                  "library_note": "no single PyTorch call decodes ZFP "
+                                  "and attends"})
+            check(ok, f"cdecode differs from its plain version at planes "
+                      f"{planes}, length {length} (max |d| {err})")
+        del pay, em
+
+
+# ----------------------------------------------------------------------
+# phase 7: the serving slice at full width
+# ----------------------------------------------------------------------
+
+
+def record_logits(eng):
+    """Keep every step's logits (float32, on the host) by wrapping the
+    engine's decode-step function."""
+    logs, inner = [], eng._step
+
+    def step(*args):
+        logits, cache = inner(*args)
+        logs.append(logits.float().cpu())
+        return logits, cache
+
+    eng._step = step
+    return logs
+
+
+def serve(cfg, params, prompts, max_new, backend):
+    eng = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      device="cuda", backend=backend)
+    logs = record_logits(eng)
+    rids = [eng.submit(p, max_new=max_new) for p in prompts]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = eng.run_all()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(set(done) == set(rids), f"{backend} engine left requests unanswered")
+    return [done[r] for r in rids], torch.stack(logs), wall, eng
+
+
+def replay_ratio(logits, ref_logits):
+    """Per step: max |d logits| / max |logits| over the slots."""
+    diff = (logits - ref_logits).abs().amax(dim=(1, 2))
+    return (diff / ref_logits.abs().amax(dim=(1, 2))).tolist()
+
+
+def serving_slice():
+    base = get_config(SERVE_ARCH)
+    cfg = dataclasses.replace(base, kv_compress_planes=SERVE_PLANES)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = lm.init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(SEED)
+    prompts = rng.integers(1, cfg.vocab_size,
+                           size=(SERVE_SLOTS, PROMPT)).tolist()
+
+    zfp_kernel.reset_launches()
+    cdecode_kernel.reset_launches()
+    outs, logits, wall, eng = serve(cfg, params, prompts, MAX_NEW, "cuda")
+    counts = {"zfp_encode": zfp_kernel.launches["encode"],
+              "zfp_decode": zfp_kernel.launches["decode"],
+              "cdecode": cdecode_kernel.launches["cdecode"]}
+    check(all(len(o) == MAX_NEW for o in outs), "a request fell short")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    steps = PROMPT + MAX_NEW - 1
+    check(tuple(logits.shape) == (steps, SERVE_SLOTS, cfg.vocab_size),
+          f"logits {tuple(logits.shape)}")
+    check(counts["zfp_encode"] > 0 and counts["cdecode"] > 0,
+          f"the serving path missed a kernel: {counts}")
+    raw_bytes = (2 * cfg.num_layers * SERVE_SLOTS * SERVE_MAX_LEN
+                 * cfg.num_kv_heads * cfg.head_dim
+                 * torch.finfo(lm.dtype_of(cfg)).bits // 8)
+    comp_bytes = kvcache.compressed_bytes(eng.cache)
+    gen_tokens = sum(len(o) for o in outs)
+    emit({"phase": "serve_cuda", "arch": SERVE_ARCH, "dtype": cfg.dtype,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "kv_planes": SERVE_PLANES, "slots": SERVE_SLOTS, "prompt": PROMPT,
+          "max_new": MAX_NEW, "max_len": SERVE_MAX_LEN, "steps": steps,
+          "wall_s": wall, "new_tokens": gen_tokens,
+          "new_tokens_per_s": gen_tokens / wall,
+          "fed_tokens_per_s": SERVE_SLOTS * steps / wall,
+          "compressed_cache_bytes": comp_bytes, "raw_cache_bytes": raw_bytes,
+          "raw_over_compressed": raw_bytes / comp_bytes, "launches": counts})
+    del eng
+    torch.cuda.empty_cache()
+
+    # teacher-forced replays of the same streams
+    forced = [p + o[:-1] for p, o in zip(prompts, outs)]
+    chosen = torch.tensor(outs).T  # (MAX_NEW, slots)
+    for label, rcfg, backend in (("ref", cfg, "ref"), ("raw_cache", base,
+                                                          "cuda")):
+        _, ref_logits, rwall, reng = serve(rcfg, params, forced, 1, backend)
+        del reng
+        ratio = replay_ratio(logits, ref_logits)
+        agree = (ref_logits[PROMPT - 1:].argmax(-1) == chosen).float().mean()
+        emit({"phase": f"serve_replay_{label}", "backend": backend,
+              "kv_planes": rcfg.kv_compress_planes, "wall_s": rwall,
+              "max_ratio": max(ratio), "median_ratio": statistics.median(ratio),
+              "greedy_agreement": float(agree)})
+        if label == "ref":
+            check(max(ratio) < SERVE_TOL,
+                  f"cuda engine vs ref engine: ratio {max(ratio)}")
+        torch.cuda.empty_cache()
+    serve_profile(cfg, params, prompts, wall / steps)
+    del params
+    torch.cuda.empty_cache()
+    return counts
+
+
+def serve_profile(cfg, params, prompts, step_s):
+    """Device time by kernel over one chunk's worth of steady decode
+    steps (positions 64-127, one chunk flush), from ``torch.profiler``
+    (CUPTI), against the unprofiled wall time of a step (``step_s``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    eng = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+                      device="cuda")
+    for p in prompts:
+        eng.submit(p[:2 * kvcache.CHUNK], max_new=1)
+    for _ in range(kvcache.CHUNK):
+        eng.step()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(kvcache.CHUNK):
+                eng.step()
+            torch.cuda.synchronize()
+            window = time.perf_counter() - t0
+        device = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    except RuntimeError as exc:  # the profiler cannot trace this machine
+        emit({"phase": "serve_profile", "not_measured": str(exc)})
+        return
+    busy = sum(e.self_device_time_total for e in device) / 1e6
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    busy_step = busy / kvcache.CHUNK
+    emit({"phase": "serve_profile", "steps": kvcache.CHUNK,
+          "device_busy_s": busy if device else None,
+          "device_busy_per_step_s": busy_step if device else None,
+          "profiled_wall_per_step_s": window / kvcache.CHUNK,
+          "unprofiled_wall_per_step_s": step_s,
+          "idle_share": 1 - busy_step / step_s if device else None,
+          "top_kernels": [{"name": e.key[:80], "count": e.count,
+                           "total_ms": e.self_device_time_total / 1e3}
+                          for e in top]})
+    del eng
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -425,7 +669,13 @@ def main() -> int:
     paper_slice()
     torch.cuda.empty_cache()
     counts = single_step_dispatch()
-    emit({"phase": "launches", **counts})
+    emit({"phase": "launches", "path": "ooc_wave", **counts})
+    torch.cuda.empty_cache()
+
+    cdecode_cases(gen, results)
+    torch.cuda.empty_cache()
+    serve_counts = serving_slice()
+    emit({"phase": "launches", "path": "serving", **serve_counts})
 
     rows = [
         ("zfp_encode", "zfp_encode", "src/repro/kernels/zfp/kernel.py:90",
@@ -438,12 +688,18 @@ def main() -> int:
          "src/repro/kernels/stencil/kernel.py:149",
          "src/repro_torch/csrc/stencil.cu", (BLOCK, BT)),
     ]
+    rows.append(("cdecode", "cdecode", "src/repro/kernels/cdecode/kernel.py:90",
+                 "src/repro_torch/csrc/cdecode.cu",
+                 ((CD_SLOTS, CD_KVH, CTX), (16, CD_LENGTHS[0]))))
     kernels = []
     for name, counter, replaces, source, (shape, arg) in rows:
         r = results[(name, shape, arg)]
+        by_path = {"ooc_wave": counts.get(counter, 0),
+                   "serving": serve_counts.get(counter, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": counts[counter],
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": None,

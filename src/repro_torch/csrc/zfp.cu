@@ -26,23 +26,14 @@
 // Known costs left for a later change: each thread writes W consecutive words
 // (uncoalesced across the warp) and the stream loop is sequential per block.
 // The build uses -fmad=false; no floating-point expression here could contract.
+// The tables, the lift and the stream unpacking live in zfp_common.cuh, which
+// the fused attention kernel (cdecode.cu) decodes through as well.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "zfp_common.cuh"
 
 namespace {
 
-constexpr uint32_t kNbMask = 0xAAAAAAAAu;
-constexpr int kFrac = 26;
-constexpr int kEmaxFloor = -90;
-
-struct Tables {
-  uint32_t mask[64];   // keep-mask of each coefficient (natural order)
-  uint8_t perm[64];    // coefficient at sorted stream position p
-  uint8_t counts[32];  // contributors to plane j: a prefix of perm
-  int nplanes;         // planes that have contributors
-  int nwords;          // payload words per block
-};
+using namespace zfpc;
 
 struct Geometry {
   long long batch;  // leading axes folded into one
@@ -50,62 +41,6 @@ struct Geometry {
   int n0, n1, n2;   // blocks along each spatial axis
   long long nb;     // blocks in all
 };
-
-__device__ __forceinline__ int wadd(int a, int b) {
-  return (int)((unsigned)a + (unsigned)b);
-}
-__device__ __forceinline__ int wsub(int a, int b) {
-  return (int)((unsigned)a - (unsigned)b);
-}
-
-template <int ND>
-__device__ __forceinline__ constexpr int axis_stride(int a) {
-  // axis a of the (4,)*ND coefficient block, slowest first
-  return a == 0 ? (ND == 3 ? 16 : ND == 2 ? 4 : 1) : a == 1 ? (ND == 3 ? 4 : 1) : 1;
-}
-
-template <int ND>
-__device__ __forceinline__ void lift_fwd(int* q) {
-  constexpr int N = 1 << (2 * ND);
-#pragma unroll
-  for (int a = 0; a < ND; ++a) {
-    const int s = axis_stride<ND>(a);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (((i / s) & 3) == 0) {
-        int q0 = q[i], q1 = q[i + s], q2 = q[i + 2 * s], q3 = q[i + 3 * s];
-        int s0 = wadd(q0, q1) >> 1, d0 = wsub(q0, q1);
-        int s1 = wadd(q2, q3) >> 1, d1 = wsub(q2, q3);
-        q[i] = wadd(s0, s1) >> 1;
-        q[i + s] = wsub(s0, s1);
-        q[i + 2 * s] = d0;
-        q[i + 3 * s] = d1;
-      }
-    }
-  }
-}
-
-template <int ND>
-__device__ __forceinline__ void lift_inv(int* c) {
-  constexpr int N = 1 << (2 * ND);
-#pragma unroll
-  for (int a = ND - 1; a >= 0; --a) {
-    const int s = axis_stride<ND>(a);
-#pragma unroll
-    for (int i = 0; i < N; ++i) {
-      if (((i / s) & 3) == 0) {
-        int ss = c[i], ds = c[i + s], d0 = c[i + 2 * s], d1 = c[i + 3 * s];
-        int s0 = wadd(ss, wadd(ds, 1) >> 1), s1 = wsub(s0, ds);
-        int q0 = wadd(s0, wadd(d0, 1) >> 1), q1 = wsub(q0, d0);
-        int q2 = wadd(s1, wadd(d1, 1) >> 1), q3 = wsub(q2, d1);
-        c[i] = q0;
-        c[i + s] = q1;
-        c[i + 2 * s] = q2;
-        c[i + 3 * s] = q3;
-      }
-    }
-  }
-}
 
 // Block b -> (batch, first z, first y, first x) of its 4^ND corner.
 template <int ND>
@@ -186,31 +121,12 @@ __global__ void decode_kernel(const uint32_t* __restrict__ payload,
   const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (b >= g.nb) return;
 
-  uint32_t u[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) u[i] = 0u;
-  const uint32_t* in = payload + b * t.nwords;
-  uint32_t word = 0;
-  int bit = 32, w = 0;
-  for (int j = 0; j < t.nplanes; ++j) {
-    const int k = t.counts[j];
-    for (int p = 0; p < k; ++p) {
-      if (bit == 32) {
-        word = in[w++];
-        bit = 0;
-      }
-      u[t.perm[p]] |= ((word >> bit) & 1u) << (31 - j);
-      ++bit;
-    }
-  }
-
   int c[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) c[i] = (int)((u[i] ^ kNbMask) - kNbMask);
+  unpack_block<ND>(payload + b * t.nwords, t, c);
   lift_inv<ND>(c);
 
   const int emax = emax_in[b];
-  const float scale = __int_as_float((emax - kFrac + 127) << 23);
+  const float scale = decode_scale(emax);
   long long bb;
   int z0, y0, x0;
   block_origin<ND>(g, b, &bb, &z0, &y0, &x0);
@@ -234,20 +150,6 @@ Geometry make_geometry(long long batch, int d0, int d1, int d2, int ndim) {
   g.n2 = (d2 + 3) / 4;
   g.nb = batch * g.n0 * g.n1 * (long long)g.n2;
   return g;
-}
-
-Tables make_tables(int ndim, const uint32_t* masks, const int* perm,
-                   const int* counts, int nplanes, int nwords) {
-  Tables t = {};
-  const int n = 1 << (2 * ndim);
-  for (int i = 0; i < n; ++i) {
-    t.mask[i] = masks[i];
-    t.perm[i] = (uint8_t)perm[i];
-  }
-  for (int j = 0; j < nplanes; ++j) t.counts[j] = (uint8_t)counts[j];
-  t.nplanes = nplanes;
-  t.nwords = nwords;
-  return t;
 }
 
 constexpr int kThreads = 128;

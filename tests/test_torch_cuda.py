@@ -4,8 +4,10 @@ card. Every test here needs a CUDA device and ``nvcc``; without them the
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Contract: every kernel is bit for bit equal to its plain version
-(``-fmad=false`` and the reference's order of operations).
+Contract: the codec and stencil kernels are bit for bit equal to their
+plain versions (``-fmad=false`` and the reference's order of
+operations); the fused ZFP-decode attention kernel decodes bit for bit
+and sums in another order, so it is held within rtol = atol = 2e-5.
 """
 
 import numpy as np
@@ -13,13 +15,19 @@ import pytest
 import torch
 
 from repro_torch import _build
+from repro_torch.configs import get_config, smoke
 from repro_torch.core.outofcore import OOCConfig, OutOfCoreWave, \
     paper_code_fields
 from repro_torch.kernels.stencil import kernel as stencil_kernel
 from repro_torch.kernels.stencil import ops as stencil_ops
 from repro_torch.kernels.stencil import ref as stencil_ref
 from repro_torch.kernels.zfp import kernel as zfp_kernel
+from repro_torch.kernels.cdecode import kernel as cdecode_kernel
+from repro_torch.kernels.cdecode import ops as cdecode_ops
+from repro_torch.kernels.cdecode import ref as cdecode_ref
 from repro_torch.kernels.zfp import ops as zfp_ops
+from repro_torch.models import kvcache, model
+from repro_torch.serving.engine import ServeEngine
 
 pytestmark = pytest.mark.cuda
 
@@ -144,3 +152,99 @@ def test_engine_cuda_equals_ref_on_card(cuda_device, temporal, bt):
     # Y=16 is divisible by bt*temporal*HALO = 8, so the engine takes the
     # multistep kernel for its 2-step visits
     assert stencil_kernel.launches["wave_multistep"] > 0
+
+
+# ----------------------------------------------------------------------
+# fused ZFP-decode attention (csrc/cdecode.cu)
+# ----------------------------------------------------------------------
+
+CDECODE_LENGTHS = [0, 7, 64, 75, 197]
+
+
+def _ckv(tokens, *, b, kvh, d, planes, max_len, seed, backend):
+    """A compressed cache filled token by token through append_token on
+    the card; inputs from numpy."""
+    rng = np.random.default_rng(seed)
+    ckv = kvcache.init_compressed_kv(b, max_len, kvh, d, planes,
+                                     dtype=torch.float32, device="cuda")
+    for _ in range(tokens):
+        k, v = (torch.from_numpy(
+            (0.5 * rng.standard_normal((b, 1, kvh, d))).astype(np.float32)
+        ).cuda() for _ in range(2))
+        ckv = kvcache.append_token(ckv, k, v, planes=planes, backend=backend)
+    return ckv
+
+
+@pytest.mark.parametrize("planes", [8, 12, 16, 20])
+@pytest.mark.parametrize("qpk", [1, 6, 8])
+@pytest.mark.parametrize("d", [16, 64, 128])
+def test_cdecode_kernel_against_plain(cuda_device, d, qpk, planes):
+    """Kernel partials within rtol = atol = 2e-5 of the plain version
+    (the decoded values are the codec's bit for bit; only the order of
+    the float32 sums differs), and the ops wrapper within the same bound
+    of the compositional oracle."""
+    b, kvh, max_len = 2, 2, 4 * kvcache.CHUNK
+    ckv = _ckv(max(CDECODE_LENGTHS), b=b, kvh=kvh, d=d, planes=planes,
+               max_len=max_len, seed=d + qpk + planes, backend="cuda")
+    rng = np.random.default_rng(planes)
+    for tokens in CDECODE_LENGTHS:
+        hist = (tokens // kvcache.CHUNK) * kvcache.CHUNK
+        q = torch.from_numpy(
+            rng.standard_normal((b * kvh, qpk, d)).astype(np.float32)).cuda()
+        args = (ckv.payload_k.reshape(b * kvh, -1, ckv.payload_k.shape[-1]),
+                ckv.emax_k.reshape(b * kvh, -1),
+                ckv.payload_v.reshape(b * kvh, -1, ckv.payload_v.shape[-1]),
+                ckv.emax_v.reshape(b * kvh, -1), q, hist)
+        kw = dict(planes=planes, head_dim=d, qpk=qpk)
+        before = cdecode_kernel.launches["cdecode"]
+        got = cdecode_kernel.fused_cdecode_attention(*args, **kw)
+        assert cdecode_kernel.launches["cdecode"] == before + 1
+        want = cdecode_ref.fused_cdecode_attention_ref(*args, **kw)
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                       rtol=2e-5, atol=2e-5)
+    # the ops wrapper over the 197-token cache (tail + history)
+    qf = torch.from_numpy(
+        rng.standard_normal((b, 1, kvh * qpk, d)).astype(np.float32)).cuda()
+    kw = dict(planes=planes, max_len=max_len)
+    out = cdecode_ops.fused_compressed_decode_attention(qf, ckv, backend="cuda",
+                                                        **kw)
+    oracle = cdecode_ref.reference(qf, ckv, **kw)
+    np.testing.assert_allclose(out.cpu().numpy(), oracle.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_compressed_cache_encode_kernel_bitwise(cuda_device):
+    """append_token flushes through the encode kernel bit for bit as
+    through the plain codec."""
+    runs = {be: _ckv(130, b=2, kvh=2, d=16, planes=16, max_len=256, seed=3,
+                     backend=be) for be in ("cuda", "ref")}
+    for name in ("payload_k", "emax_k", "payload_v", "emax_v", "tail_k"):
+        a, r = (getattr(runs[be], name) for be in ("cuda", "ref"))
+        np.testing.assert_array_equal(a.view(torch.int32).cpu(),
+                                      r.view(torch.int32).cpu())
+
+
+def test_serving_cuda_equals_ref_on_card(cuda_device):
+    """The engine over the compressed cache with the kernels against the
+    same engine with their plain versions, both on the card, lockstep
+    prompts: greedy streams equal."""
+    import dataclasses
+
+    cfg = dataclasses.replace(smoke(get_config("qwen2-1.5b")),
+                              kv_compress_planes=16)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = model.init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(5)
+    prompts = rng.integers(1, cfg.vocab_size, size=(2, 70)).tolist()
+    outs = {}
+    cdecode_kernel.reset_launches()
+    for be in ("cuda", "ref"):
+        eng = ServeEngine(cfg, params, slots=2, max_len=256, device="cuda",
+                          backend=be)
+        rids = [eng.submit(p, max_new=6) for p in prompts]
+        done = eng.run_all()
+        outs[be] = [done[r] for r in rids]
+        if be == "cuda":
+            assert cdecode_kernel.launches["cdecode"] == 75 * cfg.num_layers
+    assert outs["cuda"] == outs["ref"]

@@ -76,3 +76,41 @@ def test_cuda_backend_on_cpu_tensor_raises():
     c = zfp_ops.compress(x, planes=12, backend="ref")
     with pytest.raises(ValueError, match="CUDA tensors"):
         zfp_ops.decompress(c, backend="cuda")
+
+
+def test_serving_entry_points_without_device_raise(monkeypatch):
+    import dataclasses
+
+    from repro_torch.configs import get_config, smoke
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+    from repro_torch.serving.engine import ServeEngine
+
+    cfg = dataclasses.replace(smoke(get_config("qwen2-1.5b")),
+                              kv_compress_planes=16)
+    params = model.init_params(cfg, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(device_mod.NoCudaDevice):
+        model.init_params(cfg)
+    with pytest.raises(device_mod.NoCudaDevice):
+        ServeEngine(cfg, params)
+    with pytest.raises(device_mod.NoCudaDevice):
+        model.init_cache(cfg, 2, 128)
+    with pytest.raises(device_mod.NoCudaDevice):
+        serve.main(["--requests", "1"])
+    with pytest.raises(NotImplementedError, match="item 12"):
+        serve.main(["--ooc"])
+
+
+def test_cdecode_cuda_backend_on_cpu_tensor_raises():
+    from repro_torch.kernels.cdecode import ops as cdecode_ops
+    from repro_torch.models import kvcache
+
+    ckv = kvcache.init_compressed_kv(1, 64, 2, 16, 16, device="cpu")
+    q = torch.zeros((1, 1, 4, 16))
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        cdecode_ops.fused_compressed_decode_attention(
+            q, ckv, planes=16, max_len=64, backend="cuda")
+    out = cdecode_ops.fused_compressed_decode_attention(
+        q, ckv, planes=16, max_len=64, backend="ref")
+    assert out.shape == (1, 1, 4, 16)

@@ -1,0 +1,150 @@
+"""The port's dense decoder against ``repro.models.model``: the same
+parameters (the reference's, carried over by ``convert``) and the same
+numpy tokens, 70 teacher-forced decode steps over the raw and the
+compressed KV cache, at smoke size in float32.
+
+Tolerances on the logits: 1e-4 over the raw cache, where float32 sums
+in another order (XLA vs PyTorch matmuls) move a logit by ~1e-6. 5e-3
+over the compressed cache: there the K and V that reach the codec are
+one ulp apart, and that may flip the lowest kept bit plane of a
+coefficient, which at 16 planes in 2-D is worth 2^-8 of its block's
+largest value (one such flip moved a logit by 4.8e-4 here; the cache's
+bits are otherwise the reference's).
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jget_config
+from repro.configs import smoke as jsmoke
+from repro.models import model as JM
+from repro_torch import convert
+from repro_torch.configs import get_config, smoke, ARCH_IDS
+from repro_torch.models import model as TM
+
+STEPS = 70  # crosses the first 64-token chunk boundary
+B, MAX_LEN = 2, 128
+TOL = {0: dict(rtol=1e-4, atol=1e-4), 16: dict(rtol=5e-3, atol=5e-3)}
+
+
+def _cfgs(arch, planes):
+    j = dataclasses.replace(jsmoke(jget_config(arch)),
+                            kv_compress_planes=planes)
+    t = dataclasses.replace(smoke(get_config(arch)), kv_compress_planes=planes)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    return j, t
+
+
+def _params(jcfg, tcfg, seed):
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(seed))
+    leaves = jax.tree.map(np.asarray, jp)
+    return jp, convert.params_from_reference(tcfg, leaves, "cpu")
+
+
+def _cache_leaves(cache):
+    return {k: None if v is None else np.asarray(v)
+            for k, v in cache._asdict().items()}
+
+
+def _run(jcfg, tcfg, jp, tp, jcache, tcache, toks, start, stop):
+    step = jax.jit(lambda p, c, t, ps: JM.decode_step(jcfg, p, c, t, ps))
+    for i in range(start, stop):
+        t = toks[:, i:i + 1]
+        ps = np.full((B, 1), i, np.int32)
+        lj, jcache = step(jp, jcache, jnp.asarray(t), jnp.asarray(ps))
+        lt, tcache = TM.decode_step(tcfg, tp, tcache, torch.from_numpy(t),
+                                    torch.from_numpy(ps))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj),
+                                   err_msg=f"step {i}",
+                                   **TOL[tcfg.kv_compress_planes])
+        assert tcache.length == int(jcache.length) == i + 1
+    return jcache, tcache
+
+
+@pytest.mark.parametrize("planes", [0, 16])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "command-r-35b"])
+def test_decode_step_matches_reference(arch, planes):
+    jcfg, tcfg = _cfgs(arch, planes)
+    jp, tp = _params(jcfg, tcfg, seed=len(arch))
+    toks = np.random.default_rng(1).integers(
+        0, tcfg.vocab_size, size=(B, STEPS)).astype(np.int32)
+    jcache = JM.init_cache(jcfg, B, MAX_LEN)
+    tcache = TM.init_cache(tcfg, B, MAX_LEN, device="cpu")
+    assert type(tcache).__name__ == type(jcache).__name__
+    _run(jcfg, tcfg, jp, tp, jcache, tcache, toks, 0, STEPS)
+
+
+@pytest.mark.parametrize("planes", [0, 16])
+def test_resume_reference_cache_mid_sequence(planes):
+    """A reference cache taken mid-sequence (inside the second chunk)
+    continues in the port."""
+    jcfg, tcfg = _cfgs("qwen2-1.5b", planes)
+    jp, tp = _params(jcfg, tcfg, seed=4)
+    toks = np.random.default_rng(2).integers(
+        0, tcfg.vocab_size, size=(B, STEPS)).astype(np.int32)
+    step = jax.jit(lambda p, c, t, ps: JM.decode_step(jcfg, p, c, t, ps))
+    jcache = JM.init_cache(jcfg, B, MAX_LEN)
+    for i in range(40):
+        _, jcache = step(jp, jcache, jnp.asarray(toks[:, i:i + 1]),
+                         jnp.full((B, 1), i, jnp.int32))
+    tcache = convert.cache_from_reference(_cache_leaves(jcache), "cpu")
+    assert isinstance(tcache, TM.CompressedCache if planes
+                      else TM.DecodeCache) and tcache.length == 40
+    _run(jcfg, tcfg, jp, tp, jcache, tcache, toks, 40, STEPS)
+
+
+def test_params_carry_over_one_to_one():
+    jcfg, tcfg = _cfgs("qwen2-1.5b", 0)
+    jp, tp = _params(jcfg, tcfg, seed=0)
+    n_ref = sum(int(np.prod(a.shape)) for a in jax.tree.leaves(jp))
+    assert sum(p.numel() for p in tp.parameters()) == n_ref
+    np.testing.assert_array_equal(tp.layers[1].bq.numpy(),
+                                  np.asarray(jp["layers"]["bq"][1]))
+    # tied configs still carry their own lm_head, as in the reference
+    assert tcfg.tie_embeddings and tp.lm_head.shape == (64, 256)
+    bad = jax.tree.map(np.asarray, jp)
+    del bad["layers"]["bq"]
+    with pytest.raises(KeyError):
+        convert.params_from_reference(tcfg, bad, "cpu")
+
+
+def test_init_params_draws_the_reference_distribution():
+    cfg = smoke(get_config("qwen2-1.5b"))
+    gen = torch.Generator().manual_seed(0)
+    p = TM.init_params(cfg, gen, device="cpu")
+    lp = p.layers[0]
+    assert torch.equal(lp.ln1, torch.ones(64)) and torch.equal(
+        lp.bq, torch.zeros(64))
+    assert abs(float(lp.wq.std()) - 64 ** -0.5) < 0.02
+    assert abs(float(p.embed.std()) - 0.02) < 0.002
+    q = TM.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    assert all(torch.equal(a, b) for a, b in zip(p.parameters(),
+                                                q.parameters()))
+
+
+def test_every_arch_resolves_and_other_families_raise_at_init():
+    for arch in ARCH_IDS:
+        cfg = smoke(get_config(arch))
+        if cfg.family == "dense":
+            continue
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TM.init_params(cfg, device="cpu")
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TM.init_cache(cfg, 1, 64, device="cpu")
+
+
+def test_bfloat16_params_carry_over_bitwise():
+    """The config's own bfloat16 crosses as its bits (numpy's bfloat16
+    has no torch counterpart)."""
+    jcfg, tcfg = (dataclasses.replace(c, dtype="bfloat16")
+                  for c in _cfgs("qwen2-1.5b", 0))
+    jp, tp = _params(jcfg, tcfg, seed=1)
+    assert tp.layers[0].wq.dtype == torch.bfloat16
+    want = np.asarray(jp["layers"]["wq"][0]).view(np.uint16)
+    np.testing.assert_array_equal(tp.layers[0].wq.view(torch.int16).numpy()
+                                  .view(np.uint16), want)
