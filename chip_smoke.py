@@ -42,8 +42,13 @@ non-zero:
    kernels. The same token streams are then replayed, teacher-forced,
    through an engine with the plain versions (``backend="ref"``) on the
    card, whose logits must agree within 5e-2 of their largest, and
-   through a raw-cache engine (printed, not checked); last, the device
-   time by kernel over 64 steady steps from ``torch.profiler``;
+   through a raw-cache engine (printed, not checked). On the cuda
+   engine's own cache after its run, cdecode is held to its plain
+   version (within 2e-5) on every layer's history with that layer's
+   last query, and the chunk-flush encode of every layer's tail to the
+   plain codec (bit for bit). Last, the device time by kernel over 64
+   steady steps from ``torch.profiler``, against the wall time of the
+   same 64 steps without it;
 8. the kernels line: every kernel with its launches on the main paths
    (the out-of-core wave of phases 4 and 5, and the serving slice of
    phase 7, each counted from zero), its error and times.
@@ -53,6 +58,8 @@ The last line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import dataclasses
 import json
 import statistics
@@ -74,6 +81,7 @@ from repro_torch.core.outofcore import (  # noqa: E402
     OOCConfig, OutOfCoreWave, paper_code_fields, to_host,
 )
 from repro_torch.kernels.cdecode import kernel as cdecode_kernel  # noqa: E402
+from repro_torch.kernels.cdecode import ops as cdecode_ops  # noqa: E402
 from repro_torch.kernels.cdecode import ref as cdecode_ref  # noqa: E402
 from repro_torch.models import kvcache  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
@@ -441,13 +449,28 @@ def single_step_dispatch():
 # ----------------------------------------------------------------------
 
 
+def cdecode_bound(args):
+    """Bytes that one cdecode call must move for ``args`` (payload and
+    emax of the live chunks, the queries, the merged partials) and its
+    bound: the larger of those bytes over the memory rate and its
+    float32 operations (q.K and p.V) over the float32 rate."""
+    pay, q, hist = args[0], args[4], args[5]
+    rows, nb, w = pay.shape
+    qpk, d = q.shape[1:]
+    nbc = kvcache._nb_per_chunk(d)
+    live = cdecode_ref.live_chunks(hist, nb // nbc)
+    nbytes = (2 * rows * live * nbc * (4 * w + 4)  # payload + emax
+              + q.numel() * 4 + rows * qpk * (d + 2) * 4)
+    flops = 2 * 2 * rows * qpk * hist * d
+    return nbytes, bound_ms(nbytes, flops)
+
+
 def cdecode_cases(gen, results):
     """Kernel partials against the plain version on one cache per rate:
     every chunk of the 32k context encoded by the codec kernel from
     normal K and V (the cache's own layout, ``_encode_chunk`` over all
     chunks at once)."""
     rows, d = CD_SLOTS * CD_KVH, CD_D
-    nbc = kvcache._nb_per_chunk(d)
     for planes in (16, 12):
         pay, em = [], []
         for _ in range(2):  # K, then V
@@ -457,7 +480,6 @@ def cdecode_cases(gen, results):
             pay.append(p.view(rows, -1, p.shape[-1]))
             em.append(e.view(rows, -1))
             del x
-        w = pay[0].shape[-1]
         for length in CD_LENGTHS:
             hist = (length // kvcache.CHUNK) * kvcache.CHUNK
             q = torch.randn((rows, CD_QPK, d), generator=gen, device="cuda")
@@ -470,10 +492,7 @@ def cdecode_cases(gen, results):
             ok = all(bool(torch.allclose(g, w_, rtol=CD_TOL, atol=CD_TOL))
                      for g, w_ in zip(got, want))
             err = max(max_abs(g, w_) for g, w_ in zip(got, want))
-            live = cdecode_ref.live_chunks(hist, pay[0].shape[1] // nbc)
-            nbytes = (2 * rows * live * nbc * (4 * w + 4)  # payload + emax
-                      + q.numel() * 4 + rows * CD_QPK * (d + 2) * 4)
-            flops = 2 * 2 * rows * CD_QPK * hist * d  # q.K and p.V
+            nbytes, bound = cdecode_bound(args)
             r = {
                 "max_abs_err": err,
                 "ms": median_ms(lambda: cdecode_kernel.fused_cdecode_attention(
@@ -481,7 +500,7 @@ def cdecode_cases(gen, results):
                 "plain_ms": median_ms(
                     lambda: cdecode_ref.fused_cdecode_attention_ref(
                         *args, **kw), 2),
-                "bound": bound_ms(nbytes, flops),
+                "bound": bound,
             }
             results[("cdecode", (CD_SLOTS, CD_KVH, CTX), (planes, length))] = r
             emit({"phase": "kernel_vs_plain", "kernel": "cdecode",
@@ -538,6 +557,76 @@ def replay_ratio(logits, ref_logits):
     return (diff / ref_logits.abs().amax(dim=(1, 2))).tolist()
 
 
+@contextlib.contextmanager
+def last_attention_inputs(layers):
+    """Keep the ``(q, ckv)`` of the last ``layers`` calls of the
+    compressed attention (the last step's, one per layer) by wrapping
+    ``cdecode_ops.fused_compressed_decode_attention`` for the duration.
+    The cache tensors are views that later steps update in place; after
+    the run they hold what the last step read."""
+    seen = collections.deque(maxlen=layers)
+    inner = cdecode_ops.fused_compressed_decode_attention
+
+    def record(q, ckv, **kw):
+        seen.append((q, ckv))
+        return inner(q, ckv, **kw)
+
+    cdecode_ops.fused_compressed_decode_attention = record
+    try:
+        yield seen
+    finally:
+        cdecode_ops.fused_compressed_decode_attention = inner
+
+
+def serve_kernels_on_cache(cfg, eng, seen):
+    """The serving path's kernels against their plain versions at the
+    shapes it gives them, on the engine's own cache after the run:
+    cdecode on every layer's compressed history with that layer's q of
+    the last step (within CD_TOL), and the chunk-flush encode of every
+    layer's K and V tail window (bit for bit). ``ms`` times the launch
+    as the path makes it (unmerged splits), ``merged_ms`` with the
+    splits merged (the reference's contract). Not counted as launches
+    of the path: the counts were read before."""
+    check(len(seen) == cfg.num_layers, f"recorded {len(seen)} layers")
+    ok, err = True, 0.0
+    for q, ckv in seen:
+        args, kw = cdecode_ops.history_inputs(q, ckv)
+        kw["planes"] = SERVE_PLANES
+        got = cdecode_kernel.fused_cdecode_attention(*args, **kw)
+        want = cdecode_ref.fused_cdecode_attention_ref(*args, **kw)
+        ok &= all(bool(torch.allclose(g, w, rtol=CD_TOL, atol=CD_TOL))
+                  for g, w in zip(got, want))
+        err = max(err, max(max_abs(g, w) for g, w in zip(got, want)))
+    args, kw = cdecode_ops.history_inputs(*seen[0])
+    kw["planes"] = SERVE_PLANES
+    nbytes, bound = cdecode_bound(args)
+    split = cdecode_kernel.split_plan(args[0].shape[0], cdecode_ref.live_chunks(
+        args[5], args[0].shape[1] // kvcache._nb_per_chunk(cfg.head_dim)))
+    same = True
+    for i in range(cfg.num_layers):
+        for tail in (eng.cache.tail_k[i], eng.cache.tail_v[i]):
+            a = kvcache._encode_chunk(tail, SERVE_PLANES, "cuda")
+            b = kvcache._encode_chunk(tail, SERVE_PLANES, "ref")
+            same &= same_bits(a[0], b[0]) and same_bits(a[1], b[1])
+    emit({"phase": "serve_kernels_on_cache", "layers": len(seen),
+          "cdecode_rows": args[0].shape[0], "max_len": SERVE_MAX_LEN,
+          "length": seen[0][1].length, "hist_len": args[5],
+          "nsplit_per": list(split), "within_tol": ok, "tol": CD_TOL,
+          "max_abs_err": err,
+          "ms": median_ms(lambda: cdecode_kernel.cdecode_partials(
+              *args, **kw), 20),
+          "merged_ms": median_ms(
+              lambda: cdecode_kernel.fused_cdecode_attention(*args, **kw), 20),
+          "plain_ms": median_ms(lambda: cdecode_ref.fused_cdecode_attention_ref(
+              *args, **kw), 5),
+          "bound_ms": bound[0], "bound_by": bound[1], "bound_bytes": nbytes,
+          "encode_shape": list(eng.cache.tail_k[0].movedim(2, 1).shape),
+          "encode_bitwise": same})
+    check(ok, f"cdecode differs from its plain version on the serving "
+              f"cache (max |d| {err})")
+    check(same, "the chunk-flush encode differs from the plain codec")
+
+
 def serving_slice():
     base = get_config(SERVE_ARCH)
     cfg = dataclasses.replace(base, kv_compress_planes=SERVE_PLANES)
@@ -549,7 +638,8 @@ def serving_slice():
 
     zfp_kernel.reset_launches()
     cdecode_kernel.reset_launches()
-    outs, logits, wall, eng = serve(cfg, params, prompts, MAX_NEW, "cuda")
+    with last_attention_inputs(cfg.num_layers) as seen:
+        outs, logits, wall, eng = serve(cfg, params, prompts, MAX_NEW, "cuda")
     counts = {"zfp_encode": zfp_kernel.launches["encode"],
               "zfp_decode": zfp_kernel.launches["decode"],
               "cdecode": cdecode_kernel.launches["cdecode"]}
@@ -574,7 +664,8 @@ def serving_slice():
           "fed_tokens_per_s": SERVE_SLOTS * steps / wall,
           "compressed_cache_bytes": comp_bytes, "raw_cache_bytes": raw_bytes,
           "raw_over_compressed": raw_bytes / comp_bytes, "launches": counts})
-    del eng
+    serve_kernels_on_cache(cfg, eng, seen)
+    del eng, seen
     torch.cuda.empty_cache()
 
     # teacher-forced replays of the same streams
@@ -594,51 +685,61 @@ def serving_slice():
             check(max(ratio) < SERVE_TOL,
                   f"cuda engine vs ref engine: ratio {max(ratio)}")
         torch.cuda.empty_cache()
-    serve_profile(cfg, params, prompts, wall / steps)
+    serve_profile(cfg, params, prompts)
     del params
     torch.cuda.empty_cache()
     return counts
 
 
-def serve_profile(cfg, params, prompts, step_s):
+def serve_profile(cfg, params, prompts):
     """Device time by kernel over one chunk's worth of steady decode
-    steps (positions 64-127, one chunk flush), from ``torch.profiler``
-    (CUPTI), against the unprofiled wall time of a step (``step_s``)."""
+    steps (positions 64-127, one chunk flush, every slot still reading
+    its prompt) from ``torch.profiler`` (CUPTI), against the wall time
+    of the same 64 steps run first without the profiler on the same
+    engine, whose cache and positions are then restored."""
     from torch.profiler import ProfilerActivity, profile
 
     eng = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                       device="cuda")
     for p in prompts:
-        eng.submit(p[:2 * kvcache.CHUNK], max_new=1)
+        eng.submit(p[:2 * kvcache.CHUNK + 1], max_new=1)
     for _ in range(kvcache.CHUNK):
         eng.step()
     torch.cuda.synchronize()
-    try:
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(kvcache.CHUNK):
-                eng.step()
-            torch.cuda.synchronize()
-            window = time.perf_counter() - t0
-        device = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
-    except RuntimeError as exc:  # the profiler cannot trace this machine
-        emit({"phase": "serve_profile", "not_measured": str(exc)})
-        return
-    busy = sum(e.self_device_time_total for e in device) / 1e6
+    pos = eng.pos.copy()
+    snap = eng.cache._replace(**{
+        f: t.clone() for f, t in eng.cache._asdict().items()
+        if isinstance(t, torch.Tensor)})
+
+    def window():
+        t0 = time.perf_counter()
+        for _ in range(kvcache.CHUNK):
+            eng.step()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / kvcache.CHUNK
+
+    step_s = window()
+    eng.pos, eng.cache = pos, snap
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        profiled_s = window()
+    check(all(r is not None and not r.out for r in eng.active.values()),
+          "a request left its prompt inside the profiled window")
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(device), "the profiler saw no device time")
+    busy_step = sum(e.self_device_time_total for e in device) / 1e6 \
+        / kvcache.CHUNK
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
-    busy_step = busy / kvcache.CHUNK
     emit({"phase": "serve_profile", "steps": kvcache.CHUNK,
-          "device_busy_s": busy if device else None,
-          "device_busy_per_step_s": busy_step if device else None,
-          "profiled_wall_per_step_s": window / kvcache.CHUNK,
+          "device_busy_per_step_s": busy_step,
           "unprofiled_wall_per_step_s": step_s,
-          "idle_share": 1 - busy_step / step_s if device else None,
+          "profiled_wall_per_step_s": profiled_s,
+          "idle_share": 1 - busy_step / step_s,
           "top_kernels": [{"name": e.key[:80], "count": e.count,
                            "total_ms": e.self_device_time_total / 1e3}
                           for e in top]})
-    del eng
+    del eng, snap
     torch.cuda.empty_cache()
 
 

@@ -9,8 +9,9 @@
 //
 // Contract: for each (batch x kv-head) row, the flash-decoding partials
 // (m, l, acc) of the QPK pre-scaled queries over the first hist_len tokens of
-// the compressed history. The wrapper merges the splits below and then the
-// raw tail window, so the kernel's output is the reference's whole-history
+// the compressed history, one set per split below. The ops wrapper merges
+// the splits and the raw tail window in one step with the reference's guarded
+// formulas; merged alone, the splits are the reference's whole-history
 // partials.
 //
 // Bound on the H100: bytes. The point of the kernel is that the only device
@@ -23,7 +24,7 @@
 // Design (simple first):
 //  * Grid (rows, nsplit): each CTA owns a contiguous run of `per` chunks, so
 //    the 16-32 rows of a decode batch still give every SM work; the wrapper
-//    sizes nsplit from the row count and merges the per-split partials.
+//    sizes nsplit from the row count.
 //  * Per chunk, the 256 threads decode the K and V blocks (one thread per 4x4
 //    block, kept in registers: one stream field per bit plane, then the
 //    codec's inverse lift) into shared memory: 64 x D

@@ -6,10 +6,12 @@
 walks the chunks of a row in order on one core; on Hopper the history
 of each row is split into ``nsplit`` contiguous runs of chunks, one CTA
 each, so that a decode batch of a few (batch x kv-head) rows fills the
-card. The kernel writes per-split partials to scratch that this wrapper
-allocates, and the wrapper merges them with the reference's guarded
-formulas (``ref.merge``), so the contract stays the reference's
-whole-history ``(m, l, acc)``.
+card. The kernel writes per-split partials to scratch that
+``cdecode_partials`` allocates and returns unmerged, so that the ops
+wrapper merges them together with the raw tail's in one step;
+``fused_cdecode_attention`` merges them alone with the reference's
+guarded formulas (``ref.merge``) and keeps the reference's contract,
+the whole-history ``(m, l, acc)``.
 
 On a CPU tensor the wrapper runs the plain version (``ref``); on a CUDA
 tensor it launches the kernel or raises. ``launches["cdecode"]`` counts
@@ -65,7 +67,7 @@ def _require(x: torch.Tensor, dtype: torch.dtype, shape, what: str) -> None:
         raise ValueError(f"{what} must be contiguous")
 
 
-def fused_cdecode_attention(
+def cdecode_partials(
     payload_k: torch.Tensor,  # (BG, NB, W) uint32
     emax_k: torch.Tensor,  # (BG, NB) int32
     payload_v: torch.Tensor,
@@ -77,12 +79,13 @@ def fused_cdecode_attention(
     head_dim: int,
     qpk: int,
 ) -> ref.Partials:
-    """Flash-decoding partials ``(m, l (BG, QPK), acc (BG, QPK, D))``
-    over the first ``hist_len`` tokens of the compressed history."""
+    """Per-split flash-decoding partials ``(m, l (BG, S, QPK),
+    acc (BG, S, QPK, D))`` over the first ``hist_len`` tokens of the
+    compressed history (``S = 1`` on the CPU)."""
     if payload_k.device.type == "cpu":
-        return ref.fused_cdecode_attention_ref(
+        return tuple(x.unsqueeze(1) for x in ref.fused_cdecode_attention_ref(
             payload_k, emax_k, payload_v, emax_v, q_scaled, hist_len,
-            planes=planes, head_dim=head_dim, qpk=qpk)
+            planes=planes, head_dim=head_dim, qpk=qpk))
     bg, nb, w = payload_k.shape
     nbc = _nb_per_chunk(head_dim)
     if head_dim % 4 or nb % nbc:
@@ -120,6 +123,14 @@ def fused_cdecode_attention(
              torch.cuda.current_stream().cuda_stream)
     _build.check("cdecode", err, "cdecode_attention")
     launches["cdecode"] += 1
-    if nsplit == 1:
+    return m, l, acc
+
+
+def fused_cdecode_attention(*args, **kwargs) -> ref.Partials:
+    """Flash-decoding partials ``(m, l (BG, QPK), acc (BG, QPK, D))``
+    over the first ``hist_len`` tokens of the compressed history: the
+    reference kernel's contract (arguments as ``cdecode_partials``)."""
+    m, l, acc = cdecode_partials(*args, **kwargs)
+    if m.shape[1] == 1:
         return m[:, 0], l[:, 0], acc[:, 0]
     return ref.merge(m, l, acc, dim=1)

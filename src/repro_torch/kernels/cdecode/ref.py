@@ -12,8 +12,8 @@ chunk by chunk. It returns the flash-decoding partials ``(m, l, acc)``.
 Chunks at or past ``hist_len`` contribute exactly nothing (``m``
 unchanged, ``p = 0``, ``corr = 1``, or 0 while ``m`` is still
 ``-inf``), so they are skipped. ``merge`` combines partial states with
-the reference's guarded formulas; the ops wrapper uses it for the raw
-tail window and the CUDA wrapper for its split history.
+the reference's guarded formulas; the ops wrapper merges the history's
+splits and the raw tail window with it in one step.
 
 ``reference`` is the compositional oracle (decompress, then attend).
 """

@@ -3,20 +3,18 @@
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --requests 6 --max-new 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
-      --no-smoke --kv-planes 16 --slots 8 --requests 8 --max-len 1024
+      --no-smoke --slots 8 --requests 8 --max-len 1024
 
 The flags are the reference launcher's (``repro.launch.serve``), plus
-``--no-smoke`` (the full-width config), ``--kv-planes`` (the compressed
-KV cache, as ``repro.launch.dryrun`` sets it) and ``--device``. It runs
-on the CUDA device unless ``--device cpu`` is given. Weights are random,
-from a seeded generator. ``--ooc`` (multi-tenant out-of-core serving)
-is not ported yet.
+``--no-smoke`` (the full-width config) and ``--device``. It runs on the
+CUDA device unless ``--device cpu`` is given. Weights are random, from a
+seeded generator. ``--ooc`` (multi-tenant out-of-core serving) is not
+ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
 
 import numpy as np
@@ -46,8 +44,6 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new", type=int, default=8)
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--temperature", type=float, default=0.0)
-    ap.add_argument("--kv-planes", type=int, default=0,
-                    help="fixed-rate compressed KV cache (0 = raw cache)")
     ap.add_argument("--device", default=None,
                     help="cuda (default) or cpu")
     args = ap.parse_args(argv)
@@ -61,8 +57,6 @@ def main(argv=None) -> None:
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke(cfg)
-    if args.kv_planes:
-        cfg = dataclasses.replace(cfg, kv_compress_planes=args.kv_planes)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device=dev)
     eng = ServeEngine(

@@ -16,7 +16,9 @@ device (``"cuda"``: the hand-written kernels of the compressed path;
 The compressed cache is slot-synchronous, as in the reference: it is
 right only when every slot is admitted at once with equal prompt
 lengths and equal ``max_new`` (a request admitted later would attend
-to the earlier request's history).
+to the earlier request's history). Where the reference would serve such
+a request wrongly, this engine refuses it: admitting a request into a
+compressed cache that already holds tokens raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -87,6 +89,14 @@ class ServeEngine:
     def _admit(self) -> None:
         for slot, req in self.active.items():
             if req is None and self.pending:
+                if isinstance(self.cache, M.CompressedCache) and \
+                        self.cache.length:
+                    raise ValueError(
+                        f"request {self.pending[0].rid} would enter a "
+                        f"compressed KV cache that holds "
+                        f"{self.cache.length} tokens of earlier requests: "
+                        f"the cache is slot-synchronous, so submit at most "
+                        f"`slots` requests, all before the first step")
                 self.active[slot] = self.pending.pop(0)
                 self.pos[slot] = 0
 

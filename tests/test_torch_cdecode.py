@@ -115,3 +115,18 @@ def test_split_plan_covers_every_chunk():
                 assert (nsplit - 1) * per < live <= nsplit * per
             else:
                 assert per == 0
+
+
+def test_cdecode_partials_on_cpu_are_one_split():
+    """On a CPU tensor the kernel wrapper's unmerged partials are the
+    plain version's, as one split."""
+    _, ckv = _caches(TKV.CHUNK + 11, seed=2)
+    q = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (B, 1, H, D)).astype(np.float32))
+    args, kw = tops.history_inputs(q, ckv)
+    assert args[5] == TKV.CHUNK and kw == dict(head_dim=D, qpk=QPK)
+    split = tkernel.cdecode_partials(*args, planes=PLANES, **kw)
+    whole = tref.fused_cdecode_attention_ref(*args, planes=PLANES, **kw)
+    for s, w in zip(split, whole):
+        assert s.shape[1] == 1
+        torch.testing.assert_close(s[:, 0], w, rtol=0, atol=0)

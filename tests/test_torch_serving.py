@@ -113,3 +113,27 @@ def test_engine_rejects_params_on_another_device_or_backend():
     _, tcfg, _, tp = _setup(0)
     with pytest.raises(ValueError, match="CUDA tensors"):
         TEngine(tcfg, tp, device="cpu", backend="cuda")
+
+
+def test_engine_refuses_late_admission_into_compressed_cache():
+    """The compressed cache is slot-synchronous: a request that would
+    enter it after the first step raises instead of attending to the
+    earlier requests' history."""
+    _, tcfg, _, tp = _setup(16)
+    eng = TEngine(tcfg, tp, slots=2, max_len=128, device="cpu")
+    for i in range(3):
+        eng.submit([i + 1, i + 2], max_new=2)
+    with pytest.raises(ValueError, match="slot-synchronous"):
+        eng.run_all()
+
+
+def test_launcher_serves_on_cpu(capsys):
+    """The launcher's default traffic (6 requests, 4 slots, raw cache)
+    answers every request at smoke size."""
+    from repro_torch.launch import serve
+
+    serve.main(["--device", "cpu", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert [line.startswith(f"request {i}:")
+            for i, line in enumerate(out.splitlines()[:6], 1)] == [True] * 6
+    assert "18 tokens in" in out
