@@ -49,9 +49,33 @@ non-zero:
    plain codec (bit for bit). Last, the device time by kernel over 64
    steady steps from ``torch.profiler``, against the wall time of the
    same 64 steps without it;
-8. the kernels line: every kernel with its launches on the main paths
-   (the out-of-core wave of phases 4 and 5, and the serving slice of
-   phase 7, each counted from zero), its error and times.
+8. the Mamba-1 selective-scan kernel against its plain version at the
+   falcon-mamba-7b shapes (8 slots, d_inner 8192, N 16): decode
+   (S = 1), the slice's prefill (S = 128), prefill at length (S = 4096)
+   and a ragged S = 100, each from a non-zero ``h0`` and writing
+   ``h_last`` in place over it; ``y`` and ``h_last`` within rtol 1e-4 /
+   atol 1e-5; median kernel and plain times and the bound. No single
+   PyTorch call computes this function;
+9. the SSM slice at full width: falcon-mamba-7b in bfloat16, random
+   weights from a seeded generator on the card, 8 requests in 8 slots
+   (128-token prompts, 32 new tokens, greedy) through ``ServeEngine``;
+   wall time, tokens/s, max |logits| and the sscan launches (64 a step).
+   Then ``prefill`` (``backend="cuda"``) on the same prompts, with every
+   layer's scan held to its plain version on the inputs the prefill gave
+   it (rtol 1e-4 / atol 1e-5), and against the decode-fed engine's
+   states after the prompt (printed). In bfloat16 the streams are
+   replayed, teacher-forced, through the plain versions
+   (``backend="ref"``) on the card, and the prefill likewise (printed:
+   over 64 random bf16 layers the two drift apart by bf16 rounding as
+   far as the prefill and the decode-fed engine do); the device time by
+   kernel over 32 decode steps from ``torch.profiler``. Last, the same
+   weights in float32: the replay and the prefill through the kernel
+   against the plain versions, logits within 5e-2 of their largest,
+   every layer's ``h`` within the kernel's tolerance;
+10. the kernels line: every kernel with its launches on the main paths
+   (the out-of-core wave of phases 4 and 5, the serving slice of phase
+   7 and the SSM slice of phase 9, each counted from zero), its error
+   and times.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -83,6 +107,9 @@ from repro_torch.core.outofcore import (  # noqa: E402
 from repro_torch.kernels.cdecode import kernel as cdecode_kernel  # noqa: E402
 from repro_torch.kernels.cdecode import ops as cdecode_ops  # noqa: E402
 from repro_torch.kernels.cdecode import ref as cdecode_ref  # noqa: E402
+from repro_torch.kernels.sscan import kernel as sscan_kernel  # noqa: E402
+from repro_torch.kernels.sscan import ops as sscan_ops  # noqa: E402
+from repro_torch.kernels.sscan import ref as sscan_ref  # noqa: E402
 from repro_torch.models import kvcache  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models.layers import scale_in  # noqa: E402
@@ -113,6 +140,15 @@ CD_TOL = 2e-5  # tests/test_cdecode_kernel.py's own bound
 SERVE_ARCH, SERVE_PLANES = "qwen2-1.5b", 16
 SERVE_SLOTS, PROMPT, MAX_NEW, SERVE_MAX_LEN = 8, 256, 64, 1024
 SERVE_TOL = 5e-2  # tests/test_kvcache.py's bound against the raw cache
+# phases 8-9: the SSM slice
+SSM_ARCH = "falcon-mamba-7b"
+SSM_SLOTS, SSM_PROMPT, SSM_NEW = 8, 128, 32
+SSM_MAX_LEN = SSM_PROMPT + SSM_NEW
+SSCAN_SHAPES = ((8, 1, 8192, 16), (8, 128, 8192, 16), (8, 4096, 8192, 16),
+                (8, 100, 8192, 16))  # (B, S, D, N)
+SSCAN_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_sscan_kernel.py's bound
+SSCAN_CHUNK = 64  # the plain version's chunk (the configs' ssm_chunk)
+SSM_WINDOW = (16, 32)  # profiled decode steps: warm-up, then the window
 
 
 class SmokeFailure(AssertionError):
@@ -537,10 +573,13 @@ def record_logits(eng):
     return logs
 
 
-def serve(cfg, params, prompts, max_new, backend):
-    eng = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
+def serve(cfg, params, prompts, max_new, backend, *, slots=SERVE_SLOTS,
+          max_len=SERVE_MAX_LEN, on_engine=None):
+    eng = ServeEngine(cfg, params, slots=slots, max_len=max_len,
                       device="cuda", backend=backend)
     logs = record_logits(eng)
+    if on_engine is not None:
+        on_engine(eng)
     rids = [eng.submit(p, max_new=max_new) for p in prompts]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -694,16 +733,23 @@ def serving_slice():
 def serve_profile(cfg, params, prompts):
     """Device time by kernel over one chunk's worth of steady decode
     steps (positions 64-127, one chunk flush, every slot still reading
-    its prompt) from ``torch.profiler`` (CUPTI), against the wall time
-    of the same 64 steps run first without the profiler on the same
-    engine, whose cache and positions are then restored."""
-    from torch.profiler import ProfilerActivity, profile
-
+    its prompt)."""
     eng = ServeEngine(cfg, params, slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN,
                       device="cuda")
     for p in prompts:
         eng.submit(p[:2 * kvcache.CHUNK + 1], max_new=1)
-    for _ in range(kvcache.CHUNK):
+    profile_window(eng, kvcache.CHUNK, kvcache.CHUNK, "serve_profile")
+
+
+def profile_window(eng, warm, steps, label):
+    """Device time by kernel over ``steps`` decode steps after ``warm``
+    steps, from ``torch.profiler`` (CUPTI), against the wall time of the
+    same steps run first without the profiler on the same engine, whose
+    cache and positions are then restored. Every slot must still be
+    reading its prompt at the window's end."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
         eng.step()
     torch.cuda.synchronize()
     pos = eng.pos.copy()
@@ -713,10 +759,10 @@ def serve_profile(cfg, params, prompts):
 
     def window():
         t0 = time.perf_counter()
-        for _ in range(kvcache.CHUNK):
+        for _ in range(steps):
             eng.step()
         torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / kvcache.CHUNK
+        return (time.perf_counter() - t0) / steps
 
     step_s = window()
     eng.pos, eng.cache = pos, snap
@@ -728,10 +774,9 @@ def serve_profile(cfg, params, prompts):
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     check(bool(device), "the profiler saw no device time")
-    busy_step = sum(e.self_device_time_total for e in device) / 1e6 \
-        / kvcache.CHUNK
+    busy_step = sum(e.self_device_time_total for e in device) / 1e6 / steps
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
-    emit({"phase": "serve_profile", "steps": kvcache.CHUNK,
+    emit({"phase": label, "steps": steps, "first_position": warm,
           "device_busy_per_step_s": busy_step,
           "unprofiled_wall_per_step_s": step_s,
           "profiled_wall_per_step_s": profiled_s,
@@ -741,6 +786,272 @@ def serve_profile(cfg, params, prompts):
                           for e in top]})
     del eng, snap
     torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
+# phase 8: the selective-scan kernel at the falcon-mamba shapes
+# ----------------------------------------------------------------------
+
+
+def sscan_bound(bsz, s, d, n):
+    """Bytes one scan must move (dt, x and y; B and C; A; h0 and h_last,
+    each once) and its bound: the larger of those bytes over the memory
+    rate and its float32 operations (per (b, t, d, n): dt*A, exp, dt*B,
+    *x, decay*h, +, C*h, +) over the float32 rate."""
+    nbytes = 4 * (3 * bsz * s * d + 2 * bsz * s * n + d * n + 2 * bsz * d * n)
+    return nbytes, bound_ms(nbytes, 8 * bsz * s * d * n)
+
+
+def sscan_cases(gen, results):
+    """The kernel against its plain version on normal inputs distributed
+    as ``tests/test_sscan_kernel.py`` draws them, from a non-zero ``h0``
+    that the kernel overwrites in place with ``h_last``."""
+    for shape in SSCAN_SHAPES:
+        bsz, s, d, n = shape
+        dt = torch.nn.functional.softplus(normal((bsz, s, d), gen, 1.0))
+        a = -torch.exp(normal((d, n), gen, 0.3))
+        b_in, c_in = normal((bsz, s, n), gen, 1.0), normal((bsz, s, n), gen, 1.0)
+        x = normal((bsz, s, d), gen, 1.0)
+        h0 = normal((bsz, d, n), gen, 0.1)
+        args = (dt, a, b_in, c_in, x)
+        want_y, want_h = sscan_ref.selective_scan_ref(*args, h0, SSCAN_CHUNK)
+        h_io = h0.clone()
+        y, h = sscan_kernel.selective_scan(*args, h_io, h_out=h_io)
+        torch.cuda.synchronize()
+        ok = (h is h_io and bool(torch.allclose(y, want_y, **SSCAN_TOL))
+              and bool(torch.allclose(h_io, want_h, **SSCAN_TOL)))
+        err = max(max_abs(y, want_y), max_abs(h_io, want_h))
+        nbytes, bound = sscan_bound(*shape)
+        long = s > 1000
+        r = {
+            "max_abs_err": err,
+            "ms": median_ms(lambda: sscan_kernel.selective_scan(*args, h0),
+                            5 if long else 20),
+            "plain_ms": median_ms(lambda: sscan_ref.selective_scan_ref(
+                *args, h0, SSCAN_CHUNK), 2 if long else 5),
+            "bound": bound,
+        }
+        results[("sscan", shape, SSCAN_CHUNK)] = r
+        emit({"phase": "kernel_vs_plain", "kernel": "sscan",
+              "shape_bsdn": list(shape), "within_tol": ok, "tol": SSCAN_TOL,
+              "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+              "bound_bytes": nbytes, "library_ms": None,
+              "library_note": "no single PyTorch call computes the "
+                              "selective scan"})
+        check(ok, f"sscan differs from its plain version at {shape} "
+                  f"(max |d| {err})")
+        del dt, a, b_in, c_in, x, h0, h_io, y, want_y, want_h
+        torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
+# phase 9: the SSM slice at full width
+# ----------------------------------------------------------------------
+
+
+def states_after(eng, steps, snap):
+    """Copy the engine's SSM states into ``snap`` after its ``steps``-th
+    decode step (by wrapping its decode-step function)."""
+    inner, count = eng._step, [0]
+
+    def step(*args):
+        logits, cache = inner(*args)
+        count[0] += 1
+        if count[0] == steps:
+            snap["conv"], snap["h"] = cache.conv.clone(), cache.h.clone()
+        return logits, cache
+
+    eng._step = step
+
+
+@contextlib.contextmanager
+def scan_calls():
+    """Keep every call of ``sscan_ops.selective_scan`` (its arguments and
+    results) for the duration."""
+    seen = []
+    inner = sscan_ops.selective_scan
+
+    def record(*args, **kw):
+        y, h = inner(*args, **kw)
+        seen.append((args, kw, y, h))
+        return y, h
+
+    sscan_ops.selective_scan = record
+    try:
+        yield seen
+    finally:
+        sscan_ops.selective_scan = inner
+
+
+def rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b|, in float32."""
+    a, b = a.float(), b.float()
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def prefill_layers_check(cfg, calls, label):
+    """Every layer's scan of one prefill against the plain version on
+    the inputs the prefill gave it (recorded by ``scan_calls``)."""
+    check(len(calls) == cfg.num_layers, f"recorded {len(calls)} scans")
+    ok, err = True, 0.0
+    with torch.inference_mode():
+        for args, kw, y, h in calls:
+            want_y, want_h = sscan_ref.selective_scan_ref(*args, kw["chunk"])
+            ok &= bool(torch.allclose(y, want_y, **SSCAN_TOL)) and bool(
+                torch.allclose(h, want_h, **SSCAN_TOL))
+            err = max(err, max_abs(y, want_y), max_abs(h, want_h))
+    check(ok, f"{label}: sscan differs from its plain version inside the "
+              f"prefill (max |d| {err})")
+    return {"layers_within_tol": ok, "tol": SSCAN_TOL, "max_abs_err": err,
+            "scan_shape_bsdn": list(calls[0][0][0].shape) + [cfg.ssm_state]}
+
+
+def prefill_cuda(cfg, params, toks, pos):
+    """``prefill`` through the kernel, every layer's scan then held to
+    the plain version: (wall s, logits, states, the check's numbers)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with scan_calls() as calls:
+        logits, states = lm.prefill(cfg, params, toks, pos, backend="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return wall, logits, states, prefill_layers_check(cfg, calls, cfg.dtype)
+
+
+def prefill_vs_ref(cfg, params, toks, pos, k_logits, k_states):
+    """The kernel's prefill (``k_logits``, ``k_states``) against
+    ``prefill`` through the plain version on the card."""
+    r_logits, r_states = lm.prefill(cfg, params, toks, pos, backend="ref")
+    h_ok = [bool(torch.allclose(k_states.h[i], r_states.h[i], **SSCAN_TOL))
+            for i in range(cfg.num_layers)]
+    return {"logits_rel": rel(k_logits, r_logits),
+            "greedy_agreement": float((k_logits.argmax(-1)
+                                       == r_logits.argmax(-1)).float().mean()),
+            "h_within_tol_layers": sum(h_ok),
+            "conv_equal_layer0": bool(torch.equal(k_states.conv[0],
+                                                  r_states.conv[0])),
+            "h_rel_max_over_layers": max(rel(k_states.h[i], r_states.h[i])
+                                         for i in range(cfg.num_layers)),
+            "conv_rel": rel(k_states.conv, r_states.conv)}
+
+
+def ssm_slice():
+    cfg = get_config(SSM_ARCH)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = lm.init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(SEED + 1)
+    prompts = rng.integers(1, cfg.vocab_size,
+                           size=(SSM_SLOTS, SSM_PROMPT)).tolist()
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    pos = torch.arange(SSM_PROMPT, dtype=torch.int32,
+                       device="cuda").expand(SSM_SLOTS, -1)
+    fed = {}
+    serve_kw = dict(slots=SSM_SLOTS, max_len=SSM_MAX_LEN)
+
+    # the path: serve, then prefill, through the kernel, counted from 0
+    zfp_kernel.reset_launches()
+    stencil_kernel.reset_launches()
+    cdecode_kernel.reset_launches()
+    sscan_kernel.reset_launches()
+    outs, logits, wall, eng = serve(
+        cfg, params, prompts, SSM_NEW, "cuda",
+        on_engine=lambda e: states_after(e, SSM_PROMPT, fed), **serve_kw)
+    serve_launches = sscan_kernel.launches["sscan"]
+    p_wall, p_logits, p_states, p_check = prefill_cuda(cfg, params, toks, pos)
+    counts = {"sscan": sscan_kernel.launches["sscan"],
+              "zfp_encode": zfp_kernel.launches["encode"],
+              "zfp_decode": zfp_kernel.launches["decode"],
+              "cdecode": cdecode_kernel.launches["cdecode"],
+              **stencil_kernel.launches}
+    del eng
+    torch.cuda.empty_cache()
+
+    steps = SSM_PROMPT + SSM_NEW - 1
+    check(all(len(o) == SSM_NEW for o in outs), "a request fell short")
+    check(bool(torch.isfinite(logits).all()), "non-finite logits")
+    check(tuple(logits.shape) == (steps, SSM_SLOTS, cfg.vocab_size),
+          f"logits {tuple(logits.shape)}")
+    check(serve_launches == cfg.num_layers * steps,
+          f"sscan launched {serve_launches} times over {steps} steps")
+    check(counts["sscan"] == cfg.num_layers * (steps + 1),
+          f"prefill launched sscan {counts['sscan'] - serve_launches} times")
+    gen_tokens = sum(len(o) for o in outs)
+    emit({"phase": "ssm_serve_cuda", "arch": SSM_ARCH, "dtype": cfg.dtype,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+          "slots": SSM_SLOTS, "prompt": SSM_PROMPT, "max_new": SSM_NEW,
+          "steps": steps, "wall_s": wall, "new_tokens": gen_tokens,
+          "new_tokens_per_s": gen_tokens / wall,
+          "fed_tokens_per_s": SSM_SLOTS * steps / wall,
+          "max_abs_logits": float(logits.abs().max()),
+          "sscan_launches": serve_launches,
+          "params_bytes": sum(t.numel() * t.element_size()
+                              for t in params.parameters())})
+    check(bool(torch.isfinite(p_logits).all()), "non-finite prefill logits")
+    last = logits[SSM_PROMPT - 1].to(p_logits.device)
+    emit({"phase": "ssm_prefill_cuda", "tokens": [SSM_SLOTS, SSM_PROMPT],
+          "wall_s": p_wall, **p_check,
+          "vs_decode_fed_engine": {
+              "logits_rel": rel(p_logits, last),
+              "greedy_agreement": float((p_logits.argmax(-1)
+                                         == last.argmax(-1)).float().mean()),
+              "h_rel": rel(p_states.h, fed["h"]),
+              "conv_rel": rel(p_states.conv, fed["conv"])}})
+    del fed
+    torch.cuda.empty_cache()
+
+    # the plain versions on the card, bf16: printed. Over 64 random bf16
+    # layers the two sides drift apart by bf16 rounding as far as the
+    # prefill and the decode-fed engine (both through the kernel) do.
+    forced = [p + o[:-1] for p, o in zip(prompts, outs)]
+    chosen = torch.tensor(outs).T  # (SSM_NEW, slots)
+    _, ref_logits, rwall, _ = serve(cfg, params, forced, 1, "ref", **serve_kw)
+    ratio = replay_ratio(logits, ref_logits)
+    agree = (ref_logits[SSM_PROMPT - 1:].argmax(-1) == chosen).float().mean()
+    emit({"phase": "ssm_serve_replay_ref", "dtype": cfg.dtype,
+          "wall_s": rwall, "max_ratio": max(ratio),
+          "median_ratio": statistics.median(ratio),
+          "greedy_agreement": float(agree),
+          "ratios": [round(r, 6) for r in ratio]})
+    del ref_logits
+    emit({"phase": "ssm_prefill_vs_ref", "dtype": cfg.dtype,
+          **prefill_vs_ref(cfg, params, toks, pos, p_logits, p_states)})
+    del p_states
+    torch.cuda.empty_cache()
+
+    eng = ServeEngine(cfg, params, device="cuda", **serve_kw)
+    for p in prompts:
+        eng.submit(p, max_new=1)
+    profile_window(eng, *SSM_WINDOW, "ssm_profile")
+    del eng
+
+    # the same weights in float32, where bf16 rounding does not mask the
+    # scan: kernel against plain version, checked
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    params = params.float()
+    _, k_logits, _, _ = serve(cfg32, params, forced, 1, "cuda", **serve_kw)
+    _, r_logits, _, _ = serve(cfg32, params, forced, 1, "ref", **serve_kw)
+    ratio32 = replay_ratio(k_logits, r_logits)
+    agree32 = (k_logits.argmax(-1) == r_logits.argmax(-1)).float().mean()
+    del k_logits, r_logits
+    _, k_logits, k_states, check32 = prefill_cuda(cfg32, params, toks, pos)
+    info32 = prefill_vs_ref(cfg32, params, toks, pos, k_logits, k_states)
+    emit({"phase": "ssm_float32_vs_ref", "replay_max_ratio": max(ratio32),
+          "replay_median_ratio": statistics.median(ratio32),
+          "replay_greedy_agreement": float(agree32),
+          "prefill": {**check32, **info32}})
+    check(max(ratio32) < SERVE_TOL, f"float32 ssm cuda engine vs ref engine: "
+                                    f"ratio {max(ratio32)}")
+    check(info32["logits_rel"] < SERVE_TOL,
+          f"float32 prefill cuda vs ref: ratio {info32['logits_rel']}")
+    check(info32["h_within_tol_layers"] == cfg.num_layers
+          and info32["conv_equal_layer0"],
+          f"float32 prefill: h within tolerance on "
+          f"{info32['h_within_tol_layers']} of {cfg.num_layers} layers")
+    del params, k_states
+    torch.cuda.empty_cache()
+    return counts
 
 
 def main() -> int:
@@ -777,6 +1088,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     serve_counts = serving_slice()
     emit({"phase": "launches", "path": "serving", **serve_counts})
+    torch.cuda.empty_cache()
+
+    sscan_cases(gen, results)
+    ssm_counts = ssm_slice()
+    emit({"phase": "launches", "path": "ssm_serving", **ssm_counts})
 
     rows = [
         ("zfp_encode", "zfp_encode", "src/repro/kernels/zfp/kernel.py:90",
@@ -792,11 +1108,15 @@ def main() -> int:
     rows.append(("cdecode", "cdecode", "src/repro/kernels/cdecode/kernel.py:90",
                  "src/repro_torch/csrc/cdecode.cu",
                  ((CD_SLOTS, CD_KVH, CTX), (16, CD_LENGTHS[0]))))
+    rows.append(("sscan", "sscan", "src/repro/kernels/sscan/kernel.py:66",
+                 "src/repro_torch/csrc/sscan.cu",
+                 (SSCAN_SHAPES[0], SSCAN_CHUNK)))
     kernels = []
     for name, counter, replaces, source, (shape, arg) in rows:
         r = results[(name, shape, arg)]
         by_path = {"ooc_wave": counts.get(counter, 0),
-                   "serving": serve_counts.get(counter, 0)}
+                   "serving": serve_counts.get(counter, 0),
+                   "ssm_serving": ssm_counts.get(counter, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": sum(by_path.values()),

@@ -29,7 +29,7 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-SOURCES = ("zfp", "stencil", "cdecode")
+SOURCES = ("zfp", "stencil", "cdecode", "sscan")
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 

@@ -4,8 +4,15 @@
       --requests 6 --max-new 8
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --no-smoke --slots 8 --requests 8 --max-len 1024
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+      --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
+      --no-smoke --slots 8 --requests 8
 
-The flags are the reference launcher's (``repro.launch.serve``), plus
+``--arch`` takes a config of the dense family (raw KV cache) or of the
+ssm family (falcon-mamba: per-slot ``conv`` and ``h`` states, the
+selective-scan kernel on every layer and step). The flags are the
+reference launcher's (``repro.launch.serve``), plus
 ``--no-smoke`` (the full-width config) and ``--device``. It runs on the
 CUDA device unless ``--device cpu`` is given. Weights are random, from a
 seeded generator. ``--ooc`` (multi-tenant out-of-core serving) is not

@@ -1,26 +1,32 @@
-"""Decoder LM, dense family, for serving: parameters, caches and the
-one-token decode step over a raw or a fixed-rate compressed KV cache.
+"""Decoder LM for serving: parameters, caches, the one-token decode
+step and, for the SSM family, the full-sequence forward and prefill.
 
-Port of the dense decode path of ``repro.models.model``. Each layer is
-an ``nn.Module`` whose parameters carry the reference's leaf names
-(``ln1``, ``wq``, ``bq``, ..., ``wg``, ``wu``, ``wd``) in its layout,
-``(d_in, d_out)``, so ``h @ wq`` computes what the reference computes;
-the layers sit in an ``nn.ModuleList`` where the reference scans a
-stacked tree. As in the reference, the model has its own ``lm_head``
-even when the config ties embeddings.
+Port of the dense and Mamba-1 (``ssm``) paths of ``repro.models.model``.
+Each layer is an ``nn.Module`` whose parameters carry the reference's
+leaf names (dense: ``ln1``, ``wq``, ``bq``, ..., ``wg``, ``wu``, ``wd``;
+Mamba-1: ``ln1``, ``in_proj``, ``conv_w``, ..., ``A_log``, ``D``,
+``out_proj``) in its layout, ``(d_in, d_out)``, so ``h @ wq`` computes
+what the reference computes; the layers sit in an ``nn.ModuleList``
+where the reference scans a stacked tree. As in the reference, the model
+has its own ``lm_head`` even when the config ties embeddings, and a
+Mamba-1 layer keeps ``A_log`` and ``D`` in float32.
 
 Caches keep the reference's shapes, are updated **in place**, and carry
 ``length`` as a host ``int``. Over a ``CompressedCache``,
 ``decode_step`` attends through the fused ZFP-decode kernel
 (``kernels.cdecode.ops``; the reference's model calls the compositional
-path instead) and encodes each full chunk with the codec kernel; both
-launch on the card when ``backend="cuda"``, which is the default for a
-model on a CUDA device. The compressed cache is slot-synchronous, as in
-the reference.
+path instead) and encodes each full chunk with the codec kernel. The
+SSM family's layers scan through the selective-scan kernel
+(``kernels.sscan.ops``, via ``models.ssm.mamba1_seq``; the reference's
+model runs the XLA form) at decode and at prefill. Every kernel launches
+on the card when ``backend="cuda"``, which is the default for a model on
+a CUDA device. The compressed cache is slot-synchronous, as in the
+reference.
 
-Not ported yet (ROADMAP queue 1 item 14): ``forward``, ``prefill`` and
-``loss_fn`` (they need ``blocked_attention``), the MoE, SSM and hybrid
-families, and the audio and vision-language front ends.
+Not ported yet (ROADMAP queue 1 item 14): the dense ``forward``,
+``prefill`` and ``loss_fn`` (they need ``blocked_attention``), the MoE
+and hybrid families, and the audio and vision-language front ends.
+Inference needs no remat policy, so ``forward`` ignores ``cfg.remat``.
 """
 
 from __future__ import annotations
@@ -35,19 +41,21 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.cdecode import ops as cdecode_ops
 from repro_torch.models import kvcache as KVC
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as SSM
 
 NOT_PORTED = (
     "the {what} is not ported yet: ROADMAP.md queue 1 item 14 (the LM "
-    "substrate; this port serves the dense family)"
+    "substrate; this port serves the dense and ssm families)"
 )
+PORTED_FAMILIES = ("dense", "ssm")
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _require_dense(cfg: ModelConfig) -> None:
-    if cfg.family != "dense":
+def _require_ported(cfg: ModelConfig) -> None:
+    if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(
             NOT_PORTED.format(what=f"{cfg.family!r} family ({cfg.name})"))
 
@@ -64,6 +72,9 @@ def _param(shape, device, dtype) -> nn.Parameter:
 
 class DenseLayer(nn.Module):
     """One attention + GLU layer, with the reference's leaves."""
+
+    ONES = ("ln1", "ln2")
+    ZEROS = ("bq", "bk", "bv")
 
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
@@ -84,6 +95,59 @@ class DenseLayer(nn.Module):
         return _decoder_layer(self.cfg, self, x, positions, kv_cache,
                               cache_len)
 
+    @torch.no_grad()
+    def reset_parameters(self, normal) -> None:
+        """The reference's initial values: norms one, biases zero, the
+        rest ``normal(t, fan_in ** -0.5)`` with ``fan_in = t.shape[0]``."""
+        for name, t in self.named_parameters():
+            if name in self.ONES:
+                t.fill_(1.0)
+            elif name in self.ZEROS:
+                t.zero_()
+            else:
+                normal(t, t.shape[0] ** -0.5)
+
+
+class Mamba1Layer(nn.Module):
+    """One Mamba-1 mixer layer (falcon-mamba), with the reference's
+    leaves; ``A_log`` and ``D`` are float32 whatever ``dtype``."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+        dtr = cfg.ssm_dt_rank or max(1, d // 16)
+        p = lambda *shape: _param(shape, device, dtype)
+        self.ln1 = p(d)
+        self.in_proj = p(d, 2 * di)
+        self.conv_w, self.conv_b = p(di, cfg.ssm_conv), p(di)
+        self.x_proj = p(di, dtr + 2 * n)
+        self.dt_w, self.dt_b = p(dtr, di), p(di)
+        self.A_log = _param((di, n), device, torch.float32)
+        self.D = _param((di,), device, torch.float32)
+        self.out_proj = p(di, d)
+
+    def forward(self, x, state=None, *, backend="ref", h_out=None):
+        return _mamba_layer(self.cfg, self, x, state, backend=backend,
+                            h_out=h_out)
+
+    @torch.no_grad()
+    def reset_parameters(self, normal) -> None:
+        """As ``_mamba1_layer_init``: ``conv_w`` scaled by the kernel
+        width, ``dt_b`` at softplus^-1(0.01), ``A_log = log(1..N)``."""
+        n = self.A_log.shape[1]
+        self.ln1.fill_(1.0)
+        normal(self.in_proj, self.in_proj.shape[0] ** -0.5)
+        normal(self.conv_w, self.conv_w.shape[1] ** -0.5)
+        self.conv_b.zero_()
+        normal(self.x_proj, self.x_proj.shape[0] ** -0.5)
+        normal(self.dt_w, self.dt_w.shape[0] ** -0.5)
+        self.dt_b.fill_(-4.6)
+        self.A_log.copy_(torch.log(torch.arange(
+            1, n + 1, dtype=torch.float32, device=self.A_log.device)))
+        self.D.fill_(1.0)
+        normal(self.out_proj, self.out_proj.shape[0] ** -0.5)
+
 
 class Model(nn.Module):
     """The decoder's parameters: ``layers``, ``final_norm``, ``lm_head``
@@ -91,10 +155,11 @@ class Model(nn.Module):
 
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
-        _require_dense(cfg)
+        _require_ported(cfg)
         self.cfg = cfg
+        layer = Mamba1Layer if cfg.family == "ssm" else DenseLayer
         self.layers = nn.ModuleList(
-            DenseLayer(cfg, device=device, dtype=dtype)
+            layer(cfg, device=device, dtype=dtype)
             for _ in range(cfg.num_layers))
         self.final_norm = _param((cfg.d_model,), device, dtype)
         self.lm_head = _param((cfg.d_model, cfg.vocab_size), device, dtype)
@@ -110,10 +175,11 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 *, device: device_mod.DeviceLike = None) -> Model:
     """Random weights as the reference draws them (normal in the
     config's type, scaled by ``fan_in ** -0.5``; norms one, biases zero,
-    the embedding at 0.02), from ``generator`` (seed 0 on the device when
-    none is given). The numbers differ from ``jax.random``'s; carry the
-    reference's own weights over with ``convert.params_from_reference``."""
-    _require_dense(cfg)
+    the Mamba-1 constants as ``_mamba1_layer_init``, the embedding at
+    0.02), from ``generator`` (seed 0 on the device when none is given).
+    The numbers differ from ``jax.random``'s; carry the reference's own
+    weights over with ``convert.params_from_reference``."""
+    _require_ported(cfg)
     dev = device_mod.resolve(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -121,13 +187,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     normal = lambda t, scale: t.normal_(generator=generator).mul_(scale)
     with torch.no_grad():
         for lp in model.layers:
-            for name, t in lp.named_parameters():
-                if name.startswith("ln"):
-                    t.fill_(1.0)
-                elif name.startswith("b"):
-                    t.zero_()
-                else:
-                    normal(t, t.shape[0] ** -0.5)
+            lp.reset_parameters(normal)
         model.final_norm.fill_(1.0)
         normal(model.lm_head, cfg.d_model ** -0.5)
         if not cfg.embeds_input:
@@ -191,6 +251,14 @@ def _decoder_layer(cfg, p, x, positions, kv_cache=None, cache_len=None):
     return _residual(cfg, p, x, h, attn_out), new_kv
 
 
+def _mamba_layer(cfg, p, x, state=None, *, backend="ref", h_out=None):
+    """Pre-norm Mamba-1 mixer with its residual. Returns (x, new state)."""
+    h = L.norm(x, p.ln1, cfg.norm_eps, cfg.norm)
+    y, new_state = SSM.mamba1_seq(p, h, chunk=cfg.ssm_chunk, state=state,
+                                  backend=backend, h_out=h_out)
+    return x + y, new_state
+
+
 def _embed_in(cfg, params: Model, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.embeds_input:
         return tokens.to(dtype_of(cfg))
@@ -212,8 +280,8 @@ class DecodeCache(NamedTuple):
 
     k: Optional[torch.Tensor]  # (L, B, Smax, KV, hd)
     v: Optional[torch.Tensor]
-    conv: Optional[torch.Tensor]  # (L_ssm, B, K-1, di): not ported yet
-    h: Optional[torch.Tensor]
+    conv: Optional[torch.Tensor]  # (L_ssm, B, K-1, di)
+    h: Optional[torch.Tensor]  # (L_ssm, B, di, N) float32
     length: int
 
 
@@ -241,18 +309,73 @@ def init_compressed_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: device_mod.DeviceLike = None):
-    _require_dense(cfg)
+    _require_ported(cfg)
+    dev = device_mod.resolve(device)
+    if cfg.family == "ssm":
+        conv = torch.zeros((cfg.num_layers, batch, cfg.ssm_conv - 1,
+                            cfg.d_inner), dtype=dtype_of(cfg), device=dev)
+        h = torch.zeros((cfg.num_layers, batch, cfg.d_inner, cfg.ssm_state),
+                        dtype=torch.float32, device=dev)
+        return DecodeCache(None, None, conv, h, 0)
     if cfg.kv_compress_planes:
         return init_compressed_cache(cfg, batch, max_len, device)
-    dev = device_mod.resolve(device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     k = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
     return DecodeCache(k, torch.zeros_like(k), None, None, 0)
 
 
 # ---------------------------------------------------------------------------
-# Serving: decode
+# Serving: prefill (ssm family) and decode
 # ---------------------------------------------------------------------------
+
+
+def _backend(dev: torch.device, backend: Optional[str]) -> str:
+    if backend is None:
+        return "cuda" if dev.type == "cuda" else "ref"
+    return backend
+
+
+def _require_ssm(cfg: ModelConfig) -> None:
+    _require_ported(cfg)
+    if cfg.family != "ssm":
+        raise NotImplementedError(NOT_PORTED.format(
+            what=f"full-sequence forward of the {cfg.family!r} family "
+                 f"(blocked_attention)"))
+
+
+@torch.inference_mode()
+def forward(cfg: ModelConfig, params: Model, tokens: torch.Tensor,
+            positions: torch.Tensor, collect_cache: bool = False, *,
+            backend: Optional[str] = None):
+    """Full-sequence forward of the ssm family. Returns (hidden (B, S, d),
+    aux loss 0, and with ``collect_cache`` the per-layer states as one
+    ``MambaState`` of ``(L, ...)`` stacks, else None). ``positions`` is
+    unused, as in the reference's ssm branch."""
+    _require_ssm(cfg)
+    dev = params.device
+    backend = _backend(dev, backend)
+    x = _embed_in(cfg, params, torch.as_tensor(tokens, device=dev))
+    states = []
+    for lp in params.layers:
+        x, st = lp(x, backend=backend)
+        if collect_cache:
+            states.append(st)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    if not collect_cache:
+        return x, aux, None
+    return x, aux, SSM.MambaState(torch.stack([s.conv for s in states]),
+                                  torch.stack([s.h for s in states]))
+
+
+@torch.inference_mode()
+def prefill(cfg: ModelConfig, params: Model, tokens: torch.Tensor,
+            positions: torch.Tensor, *, backend: Optional[str] = None):
+    """Full-sequence forward (ssm family); returns (last-token logits
+    (B, V), the per-layer ``MambaState`` stacks)."""
+    hidden, _, cache = forward(cfg, params, tokens, positions,
+                               collect_cache=True, backend=backend)
+    logits = _final_hidden_to_logits(cfg, params, hidden[:, -1:])[:, 0]
+    return logits, cache
 
 
 @torch.inference_mode()
@@ -267,17 +390,24 @@ def decode_step(
 ) -> Tuple[torch.Tensor, object]:
     """One decode step; each slot's token is written at its own
     position (per-slot continuous batching; the compressed cache is
-    slot-synchronous) and attention masks to position + 1. ``backend``
-    picks the kernels of the compressed path: ``"cuda"`` (the default
-    on a CUDA device) or ``"ref"`` (their plain versions). Returns
-    (logits (B, V), the cache with ``length + 1``)."""
-    _require_dense(cfg)
+    slot-synchronous) and attention masks to position + 1; an SSM layer
+    advances each slot's ``conv`` and ``h`` in place. ``backend`` picks
+    the kernels of the compressed path and of the selective scan:
+    ``"cuda"`` (the default on a CUDA device) or ``"ref"`` (their plain
+    versions). Returns (logits (B, V), the cache with ``length + 1``)."""
+    _require_ported(cfg)
     dev = params.device
-    if backend is None:
-        backend = "cuda" if dev.type == "cuda" else "ref"
+    backend = _backend(dev, backend)
     token = torch.as_tensor(token, device=dev)
     positions = torch.as_tensor(positions, device=dev)
     x = _embed_in(cfg, params, token)
+    if cfg.family == "ssm":
+        for i, lp in enumerate(params.layers):
+            x, st = lp(x, SSM.MambaState(cache.conv[i], cache.h[i]),
+                       backend=backend, h_out=cache.h[i])
+            cache.conv[i].copy_(st.conv)
+        logits = _final_hidden_to_logits(cfg, params, x)[:, 0]
+        return logits, cache._replace(length=cache.length + 1)
     if cfg.kv_compress_planes:
         return _decode_step_compressed(cfg, params, cache, x, positions,
                                        backend)

@@ -10,8 +10,9 @@ reference).
 
 The engine runs on the CUDA device unless ``device="cpu"`` is passed,
 and raises ``NoCudaDevice`` without a card. ``backend`` follows the
-device (``"cuda"``: the hand-written kernels of the compressed path;
-``"ref"``: their plain versions, the default on the CPU).
+device (``"cuda"``: the hand-written kernels of the compressed path and
+of the selective scan; ``"ref"``: their plain versions, the default on
+the CPU).
 
 The compressed cache is slot-synchronous, as in the reference: it is
 right only when every slot is admitted at once with equal prompt
@@ -19,6 +20,14 @@ lengths and equal ``max_new`` (a request admitted later would attend
 to the earlier request's history). Where the reference would serve such
 a request wrongly, this engine refuses it: admitting a request into a
 compressed cache that already holds tokens raises ``ValueError``.
+
+An SSM cache (``conv`` and ``h``, falcon-mamba) holds each slot's
+recurrent state, which the next step reads as it is. A request admitted
+into a slot starts from zero state, as ``mamba1_seq(state=None)`` does:
+the engine zeroes that slot's ``conv`` and ``h`` rows in every layer.
+The reference engine resets only the slot's position, so a request it
+admits into a freed slot starts from the previous request's state (and
+from the idle steps taken on token 0 since).
 """
 
 from __future__ import annotations
@@ -99,6 +108,11 @@ class ServeEngine:
                         f"`slots` requests, all before the first step")
                 self.active[slot] = self.pending.pop(0)
                 self.pos[slot] = 0
+                if isinstance(self.cache, M.DecodeCache) and \
+                        self.cache.conv is not None:
+                    with torch.inference_mode():
+                        self.cache.conv[:, slot].zero_()
+                        self.cache.h[:, slot].zero_()
 
     def _sample(self, row: np.ndarray) -> int:
         """Temperature sampling in float64. The softmax must be computed

@@ -7,7 +7,10 @@ card. Every test here needs a CUDA device and ``nvcc``; without them the
 Contract: the codec and stencil kernels are bit for bit equal to their
 plain versions (``-fmad=false`` and the reference's order of
 operations); the fused ZFP-decode attention kernel decodes bit for bit
-and sums in another order, so it is held within rtol = atol = 2e-5.
+and sums in another order, so it is held within rtol = atol = 2e-5; the
+selective-scan kernel runs the recurrence step by step where its plain
+version scans chunks associatively, held within rtol 1e-4 / atol 1e-5
+(the bound of ``tests/test_sscan_kernel.py``).
 """
 
 import numpy as np
@@ -25,6 +28,9 @@ from repro_torch.kernels.zfp import kernel as zfp_kernel
 from repro_torch.kernels.cdecode import kernel as cdecode_kernel
 from repro_torch.kernels.cdecode import ops as cdecode_ops
 from repro_torch.kernels.cdecode import ref as cdecode_ref
+from repro_torch.kernels.sscan import kernel as sscan_kernel
+from repro_torch.kernels.sscan import ops as sscan_ops
+from repro_torch.kernels.sscan import ref as sscan_ref
 from repro_torch.kernels.zfp import ops as zfp_ops
 from repro_torch.models import kvcache, model
 from repro_torch.serving.engine import ServeEngine
@@ -248,3 +254,70 @@ def test_serving_cuda_equals_ref_on_card(cuda_device):
         if be == "cuda":
             assert cdecode_kernel.launches["cdecode"] == 75 * cfg.num_layers
     assert outs["cuda"] == outs["ref"]
+
+
+# ----------------------------------------------------------------------
+# Mamba-1 selective scan (csrc/sscan.cu)
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("d", [8, 256])
+@pytest.mark.parametrize("s", [1, 7, 64, 130])
+@pytest.mark.parametrize("b", [1, 2])
+def test_sscan_kernel_against_plain(cuda_device, b, s, d, n):
+    """y and h_last within rtol 1e-4 / atol 1e-5 of the plain version;
+    ``h_out`` is written in place (here ``h0`` itself, as the serving
+    cache passes it)."""
+    rng = np.random.default_rng(1000 * b + 10 * s + d + n)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    dt = np.log1p(np.exp(f(b, s, d)))
+    a = -np.exp(0.3 * f(d, n))
+    arrays = (dt, a, f(b, s, n), f(b, s, n), f(b, s, d), 0.1 * f(b, d, n))
+    dt, a, b_in, c_in, x, h0 = (torch.from_numpy(np.ascontiguousarray(t))
+                                .to(cuda_device) for t in arrays)
+    want_y, want_h = sscan_ref.selective_scan_ref(dt, a, b_in, c_in, x, h0, 64)
+    h_io = h0.clone()
+    before = sscan_kernel.launches["sscan"]
+    y, h = sscan_ops.selective_scan(dt, a, b_in, c_in, x, h_io, chunk=64,
+                                    backend="cuda", h_out=h_io)
+    torch.cuda.synchronize()
+    assert sscan_kernel.launches["sscan"] == before + 1
+    assert h is h_io
+    np.testing.assert_allclose(y.cpu().numpy(), want_y.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(h_io.cpu().numpy(), want_h.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5)
+
+
+def test_ssm_serving_cuda_equals_ref_on_card(cuda_device):
+    """falcon-mamba smoke through the engine with the scan kernel against
+    the same engine with its plain version, both on the card: greedy
+    streams equal, one launch per layer and step, logits within 1e-4."""
+    cfg = smoke(get_config("falcon-mamba-7b"))
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    params = model.init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(7)
+    prompts = rng.integers(1, cfg.vocab_size, size=(2, 12)).tolist()
+    outs, logs = {}, {}
+    for be in ("cuda", "ref"):
+        eng = ServeEngine(cfg, params, slots=2, max_len=64, device="cuda",
+                          backend=be)
+        step, seen = eng._step, []
+
+        def record(*args, step=step, seen=seen):
+            logits, cache = step(*args)
+            seen.append(logits.float().cpu().numpy())
+            return logits, cache
+
+        eng._step = record
+        sscan_kernel.reset_launches()
+        rids = [eng.submit(p, max_new=6) for p in prompts]
+        done = eng.run_all()
+        outs[be], logs[be] = [done[r] for r in rids], np.stack(seen)
+        if be == "cuda":
+            assert sscan_kernel.launches["sscan"] == 17 * cfg.num_layers
+        else:
+            assert sscan_kernel.launches["sscan"] == 0
+    assert outs["cuda"] == outs["ref"]
+    np.testing.assert_allclose(logs["cuda"], logs["ref"], rtol=0, atol=1e-4)

@@ -10,6 +10,12 @@ one ulp apart, and that may flip the lowest kept bit plane of a
 coefficient, which at 16 planes in 2-D is worth 2^-8 of its block's
 largest value (one such flip moved a logit by 4.8e-4 here; the cache's
 bits are otherwise the reference's).
+
+The SSM family (falcon-mamba smoke, float32): logits within 1e-4 as
+over the raw cache, the ``conv`` and ``h`` states within rtol 1e-4 /
+atol 1e-5 (the selective scan's bound); the port's decode against its
+own prefill within rtol = atol = 2e-3, the bound of
+``tests/test_models_smoke.py::test_decode_matches_prefill``.
 """
 
 import dataclasses
@@ -130,7 +136,7 @@ def test_init_params_draws_the_reference_distribution():
 def test_every_arch_resolves_and_other_families_raise_at_init():
     for arch in ARCH_IDS:
         cfg = smoke(get_config(arch))
-        if cfg.family == "dense":
+        if cfg.family in TM.PORTED_FAMILIES:
             continue
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TM.init_params(cfg, device="cpu")
@@ -148,3 +154,125 @@ def test_bfloat16_params_carry_over_bitwise():
     want = np.asarray(jp["layers"]["wq"][0]).view(np.uint16)
     np.testing.assert_array_equal(tp.layers[0].wq.view(torch.int16).numpy()
                                   .view(np.uint16), want)
+
+
+# ----------------------------------------------------------------------
+# the SSM family (falcon-mamba, Mamba-1)
+# ----------------------------------------------------------------------
+
+SSM_ARCH, SSM_STEPS = "falcon-mamba-7b", 20
+STATE_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _ssm_setup(seed, dtype="float32"):
+    jcfg, tcfg = (dataclasses.replace(c, dtype=dtype)
+                  for c in _cfgs(SSM_ARCH, 0))
+    jp, tp = _params(jcfg, tcfg, seed)
+    toks = np.random.default_rng(seed).integers(
+        0, tcfg.vocab_size, size=(B, SSM_STEPS)).astype(np.int32)
+    return jcfg, tcfg, jp, tp, toks
+
+
+def _ssm_run(jcfg, tcfg, jp, tp, jcache, tcache, toks, start, stop):
+    step = jax.jit(lambda p, c, t, ps: JM.decode_step(jcfg, p, c, t, ps))
+    for i in range(start, stop):
+        t = toks[:, i:i + 1]
+        ps = np.full((B, 1), i, np.int32)
+        lj, jcache = step(jp, jcache, jnp.asarray(t), jnp.asarray(ps))
+        lt, tcache = TM.decode_step(tcfg, tp, tcache, torch.from_numpy(t),
+                                    torch.from_numpy(ps))
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj),
+                                   err_msg=f"step {i}", **TOL[0])
+        for name in ("conv", "h"):
+            np.testing.assert_allclose(
+                getattr(tcache, name).numpy(),
+                np.asarray(getattr(jcache, name)),
+                err_msg=f"{name} after step {i}", **STATE_TOL)
+        assert tcache.length == int(jcache.length) == i + 1
+    return jcache, tcache
+
+
+def test_ssm_decode_step_matches_reference():
+    jcfg, tcfg, jp, tp, toks = _ssm_setup(seed=3)
+    jcache = JM.init_cache(jcfg, B, MAX_LEN)
+    tcache = TM.init_cache(tcfg, B, MAX_LEN, device="cpu")
+    assert tcache.k is None and tcache.v is None
+    assert tcache.conv.shape == jcache.conv.shape
+    assert tcache.h.shape == jcache.h.shape and tcache.h.dtype == torch.float32
+    _ssm_run(jcfg, tcfg, jp, tp, jcache, tcache, toks, 0, SSM_STEPS)
+
+
+def test_ssm_prefill_matches_reference():
+    jcfg, tcfg, jp, tp, toks = _ssm_setup(seed=5)
+    pos = np.tile(np.arange(SSM_STEPS, dtype=np.int32), (B, 1))
+    lj, sj = JM.prefill(jcfg, jp, jnp.asarray(toks), jnp.asarray(pos))
+    lt, st = TM.prefill(tcfg, tp, torch.from_numpy(toks),
+                        torch.from_numpy(pos))
+    np.testing.assert_allclose(lt.numpy(), np.asarray(lj), **TOL[0])
+    for name in ("conv", "h"):
+        np.testing.assert_allclose(getattr(st, name).numpy(),
+                                   np.asarray(getattr(sj, name)),
+                                   **STATE_TOL)
+
+
+def test_ssm_decode_matches_own_prefill():
+    _, tcfg, _, tp, toks = _ssm_setup(seed=6)
+    pos = np.tile(np.arange(SSM_STEPS, dtype=np.int32), (B, 1))
+    want, states = TM.prefill(tcfg, tp, torch.from_numpy(toks),
+                              torch.from_numpy(pos))
+    cache = TM.init_cache(tcfg, B, MAX_LEN, device="cpu")
+    for i in range(SSM_STEPS):
+        logits, cache = TM.decode_step(tcfg, tp, cache,
+                                       torch.from_numpy(toks[:, i:i + 1]),
+                                       torch.from_numpy(pos[:, i:i + 1]))
+    torch.testing.assert_close(logits, want, rtol=2e-3, atol=2e-3)
+    torch.testing.assert_close(cache.h, states.h, rtol=2e-3, atol=2e-3)
+
+
+def test_ssm_resume_reference_cache_mid_sequence():
+    """A reference ssm ``DecodeCache`` (no K, no V) taken after 9 steps
+    continues in the port."""
+    jcfg, tcfg, jp, tp, toks = _ssm_setup(seed=8)
+    step = jax.jit(lambda p, c, t, ps: JM.decode_step(jcfg, p, c, t, ps))
+    jcache = JM.init_cache(jcfg, B, MAX_LEN)
+    for i in range(9):
+        _, jcache = step(jp, jcache, jnp.asarray(toks[:, i:i + 1]),
+                         jnp.full((B, 1), i, jnp.int32))
+    tcache = convert.cache_from_reference(_cache_leaves(jcache), "cpu")
+    assert isinstance(tcache, TM.DecodeCache) and tcache.length == 9
+    assert tcache.k is None and tcache.v is None
+    _ssm_run(jcfg, tcfg, jp, tp, jcache, tcache, toks, 9, SSM_STEPS)
+
+
+def test_ssm_a_log_and_d_stay_float32_under_bfloat16():
+    jcfg, tcfg, jp, tp, _ = _ssm_setup(seed=2, dtype="bfloat16")
+    lp = tp.layers[0]
+    assert lp.in_proj.dtype == lp.dt_b.dtype == torch.bfloat16
+    assert lp.A_log.dtype == lp.D.dtype == torch.float32
+    np.testing.assert_array_equal(lp.A_log.numpy(),
+                                  np.asarray(jp["layers"]["A_log"][0]))
+    want = np.asarray(jp["layers"]["in_proj"][0]).view(np.uint16)
+    np.testing.assert_array_equal(
+        lp.in_proj.view(torch.int16).numpy().view(np.uint16), want)
+    own = TM.init_params(tcfg, torch.Generator().manual_seed(0),
+                         device="cpu").layers[0]
+    assert own.A_log.dtype == own.D.dtype == torch.float32
+    assert own.conv_w.dtype == torch.bfloat16
+    n = tcfg.ssm_state
+    torch.testing.assert_close(
+        own.A_log, torch.log(torch.arange(1, n + 1.0)).expand(
+            tcfg.d_inner, n), rtol=0, atol=0)
+    assert torch.equal(own.D, torch.ones(tcfg.d_inner))
+    assert torch.equal(own.dt_b.float(), torch.full((tcfg.d_inner,), -4.6,
+                                                    dtype=torch.bfloat16).float())
+    assert torch.equal(own.conv_b.float(), torch.zeros(tcfg.d_inner))
+    # conv_w's fan is the kernel width, not d_inner
+    assert abs(float(own.conv_w.float().std()) - tcfg.ssm_conv ** -0.5) < 0.05
+
+
+def test_dense_forward_is_not_ported():
+    cfg = smoke(get_config("qwen2-1.5b"))
+    params = TM.init_params(cfg, device="cpu")
+    toks = torch.zeros((1, 4), dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="blocked_attention"):
+        TM.prefill(cfg, params, toks, toks)

@@ -137,3 +137,121 @@ def test_launcher_serves_on_cpu(capsys):
     assert [line.startswith(f"request {i}:")
             for i, line in enumerate(out.splitlines()[:6], 1)] == [True] * 6
     assert "18 tokens in" in out
+
+
+# ----------------------------------------------------------------------
+# the SSM family (falcon-mamba smoke, float32)
+# ----------------------------------------------------------------------
+
+
+def _ssm_setup(seed=21):
+    jcfg = jsmoke(jget_config("falcon-mamba-7b"))
+    tcfg = smoke(get_config("falcon-mamba-7b"))
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(seed))
+    tp = convert.params_from_reference(tcfg, jax.tree.map(np.asarray, jp),
+                                       "cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def test_ssm_engine_matches_reference_lockstep():
+    """Every slot admitted at once from zero state: the reference engine
+    is right there, and the port's streams and logits are its own."""
+    jcfg, tcfg, jp, tp = _ssm_setup()
+    prompts = np.random.default_rng(6).integers(
+        1, tcfg.vocab_size, size=(2, 12)).tolist()
+    out_j, log_j = _serve(JEngine(jcfg, jp, slots=2, max_len=64), prompts, 6)
+    out_t, log_t = _serve(TEngine(tcfg, tp, slots=2, max_len=64,
+                                  device="cpu"), prompts, 6)
+    assert out_t == out_j
+    assert log_t.shape == log_j.shape == (17, 2, tcfg.vocab_size)
+    np.testing.assert_allclose(log_t, log_j, rtol=0, atol=TOL[0])
+    assert _margins(log_j[11:]).min() > 2 * TOL[0]
+
+
+# A long request in slot 0, a short one in slot 1 that finishes first,
+# and a third request that enters slot 1 once it is free.
+LATE = dict(prompts=[[5, 9, 14, 3, 7, 1, 8, 2, 6, 4], [11, 12], [30, 31, 32]],
+            max_new=[6, 2, 4])
+
+
+def _watch_admission(eng, rid):
+    """Wrap the engine's ``_admit`` to record, when request ``rid``
+    enters a slot: (the step it enters at, the slot, max |h| and max
+    |conv| of that slot's rows over the layers as it starts)."""
+    seen, inner, steps = [], eng._admit, [0]
+
+    def admit():
+        before = dict(eng.active)
+        inner()
+        for slot, req in eng.active.items():
+            if req is not None and before[slot] is None and req.rid == rid:
+                seen.append((steps[0], slot,
+                             float(np.abs(np.asarray(eng.cache.h[:, slot])).max()),
+                             float(np.abs(np.asarray(eng.cache.conv[:, slot])).max())))
+        steps[0] += 1
+
+    eng._admit = admit
+    return seen
+
+
+def _late_traffic(eng):
+    """Serve LATE; returns (the streams, the logits of the third
+    request's steps in its slot, its admission record)."""
+    seen = _watch_admission(eng, 3)
+    logs = _recording(eng)
+    rids = [eng.submit(p, max_new=m)
+            for p, m in zip(LATE["prompts"], LATE["max_new"])]
+    done = eng.run_all()
+    (step, slot, _, _), = seen
+    n = len(LATE["prompts"][2]) + LATE["max_new"][2] - 1
+    rows = np.stack([row[slot] for row in logs[step:step + n]])
+    return [done[r] for r in rids], rows, seen[0]
+
+
+def _solo(eng):
+    logs = _recording(eng)
+    rid = eng.submit(LATE["prompts"][2], max_new=LATE["max_new"][2])
+    out = eng.run_all()[rid]
+    return out, np.stack([row[0] for row in logs])
+
+
+def test_ssm_late_admission_starts_from_zero_state():
+    """A request admitted into a freed slot yields the stream it yields
+    served alone: the engine zeroes the slot's conv and h."""
+    _, tcfg, _, tp = _ssm_setup()
+    outs, late, (step, slot, h_max, conv_max) = _late_traffic(
+        TEngine(tcfg, tp, slots=2, max_len=64, device="cpu"))
+    assert [len(o) for o in outs] == LATE["max_new"]
+    # the third request entered slot 1 after the second left it, and
+    # found zero state there
+    assert step > 0 and slot == 1 and h_max == conv_max == 0.0
+    solo_out, solo = _solo(TEngine(tcfg, tp, slots=2, max_len=64,
+                                   device="cpu"))
+    assert outs[2] == solo_out
+    np.testing.assert_allclose(late, solo, rtol=0, atol=TOL[0])
+
+
+def test_reference_engine_does_not_reset_ssm_slot_state():
+    """The reference engine resets only the slot's position: the third
+    request starts from the state the second request (and the idle steps
+    on token 0 after it) left in slot 1, and its logits differ from its
+    solo run's. ROADMAP section 3 logs this reference caveat."""
+    jcfg, _, jp, _ = _ssm_setup()
+    _, late, (step, slot, h_max, conv_max) = _late_traffic(
+        JEngine(jcfg, jp, slots=2, max_len=64))
+    assert step > 0 and slot == 1 and h_max > 0 and conv_max > 0
+    _, solo = _solo(JEngine(jcfg, jp, slots=2, max_len=64))
+    assert np.abs(late - solo).max() > 100 * TOL[0]
+
+
+def test_launcher_serves_falcon_mamba_on_cpu(capsys):
+    """``--arch falcon-mamba-7b`` at smoke size: 6 requests through 4
+    slots (two enter freed slots) are all answered."""
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", "falcon-mamba-7b", "--device", "cpu",
+                "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert [line.startswith(f"request {i}:")
+            for i, line in enumerate(out.splitlines()[:6], 1)] == [True] * 6
+    assert "18 tokens in" in out
