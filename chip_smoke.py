@@ -15,9 +15,13 @@ non-zero:
    path's shapes: the codec on a 96-plane common-region unit
    (96, 1152, 1152) at 12 and 16 planes and a ragged (50, 1150, 1149)
    unit, the single step on one fetched block (240, 1152, 1152), the
-   multistep kernel at 12 steps on the same block. Each must be bit for
-   bit equal; median kernel and plain times (CUDA events) and the bound
-   (bytes over 3.35 TB/s, or float32 operations over 67 TFLOP/s);
+   multistep kernel at 12 steps on the same block at every rung count a
+   launch (1-4; each time printed beside the default ``RUNGS``), then at
+   every rung count on the ragged unit at 12 steps and on the block at 5
+   steps (a remainder launch), with their device launches. Each must be
+   bit for bit equal; median kernel and plain times (CUDA events) and
+   the bound (bytes over 3.35 TB/s, or float32 operations over 67
+   TFLOP/s);
 4. the slice at the paper's size: 1152^3, ndiv=8, bt=12, one sweep for
    code 4 and for code 1 through ``OutOfCoreWave``; code 1 bit for bit
    equal to the in-core ``fused_temporal_steps(backend="cuda")``, code 4
@@ -46,9 +50,13 @@ non-zero:
    engine's own cache after its run, cdecode is held to its plain
    version (within 2e-5) on every layer's history with that layer's
    last query, and the chunk-flush encode of every layer's tail to the
-   plain codec (bit for bit). Last, the device time by kernel over 64
-   steady steps from ``torch.profiler``, against the wall time of the
-   same 64 steps without it;
+   plain codec (bit for bit); the cdecode kernel's own decoded K and V
+   tiles of the first chunk against the plain codec's decode (bit for
+   bit); the cache's split (``nsplit_per``, CTAs) and the kernel's
+   device time per launch (``torch.profiler``) beside its CUDA-event
+   time, which includes the host's wrapper. Last, the device time by
+   kernel over 64 steady steps from ``torch.profiler``, against the
+   wall time of the same 64 steps without it;
 8. the Mamba-1 selective-scan kernel against its plain version at the
    falcon-mamba-7b shapes (8 slots, d_inner 8192, N 16): decode
    (S = 1), the slice's prefill (S = 128), prefill at length (S = 4096)
@@ -179,6 +187,56 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def kernel_device_ms(fn, name: str, reps: int) -> float:
+    """Device time of one launch of the kernels whose name holds
+    ``name``, from ``torch.profiler`` (CUPTI) over ``reps`` calls of
+    ``fn``: the kernel alone, without the host's wrapper around it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = [e for e in prof.key_averages() if name in e.key]
+    check(bool(found), f"the profiler saw no {name} launch")
+    return (sum(e.self_device_time_total for e in found) / 1e3
+            / sum(e.count for e in found))
+
+
+def build_log(name: str) -> str:
+    """The compiler output kept from the build of ``csrc/<name>.cu``
+    (when this run found the library built already)."""
+    path = _build.BUILD_DIR / f"{name}.log"
+    return path.read_text() if path.exists() else ""
+
+
+def ptxas_summary(log: str):
+    """Registers, static shared memory and spills of each kernel from
+    ``nvcc -Xptxas -v`` output (dynamic shared memory is not in it)."""
+    import re
+
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = {"entry": m.group(1)}
+            out.append(entry)
+        elif entry is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                          line)
+            if m:
+                entry["spill_stores"] = int(m.group(1))
+                entry["spill_loads"] = int(m.group(2))
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                entry["registers"] = int(m.group(1))
+                m = re.search(r"(\d+) bytes smem", line)
+                entry["static_smem"] = int(m.group(1)) if m else 0
+    return out
+
+
 def bound_ms(nbytes: float, flops: float = 0.0):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP32_FLOP_PER_S * 1e3
@@ -274,24 +332,71 @@ def stencil_cases(gen, results):
 
     steps = BT
     pp, pc = normal(BLOCK, gen, 1.0), normal(BLOCK, gen, 1.0)
-    kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, steps)
     rp, rc = stencil_ref.ladder_steps(pp, pc, v2, steps)
-    ok = same_bits(kp, rp) and same_bits(kc, rc)
+    by_rungs = {}
+    for rungs in range(1, stencil_kernel.MAX_RUNGS + 1):
+        stencil_kernel.reset_launches()
+        kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, steps, rungs=rungs)
+        device = stencil_kernel.device_launches["wave_multistep"]
+        ok = same_bits(kp, rp) and same_bits(kc, rc)
+        by_rungs[rungs] = {
+            "bitwise": ok, "device_launches": device,
+            "max_abs_err": max(max_abs(kp, rp), max_abs(kc, rc)),
+            "ms": median_ms(lambda: stencil_kernel.wave_multistep(
+                pp, pc, v2, steps, rungs=rungs), 5)}
+        del kp, kc
+        check(ok, f"wave_multistep at {rungs} rungs a launch differs from "
+                  f"its plain version")
+    chosen = stencil_kernel.RUNGS
+    fastest = min(by_rungs, key=lambda t: by_rungs[t]["ms"])
     r = {
-        "max_abs_err": max(max_abs(kp, rp), max_abs(kc, rc)),
-        "ms": median_ms(
-            lambda: stencil_kernel.wave_multistep(pp, pc, v2, steps), 5),
+        "max_abs_err": by_rungs[chosen]["max_abs_err"],
+        "ms": by_rungs[chosen]["ms"],
         "plain_ms": median_ms(
             lambda: stencil_ref.ladder_steps(pp, pc, v2, steps), 3),
         "bound": bound_ms(5 * n * 4, STENCIL_FLOPS * n * steps),
     }
     results[("wave_multistep", BLOCK, steps)] = r
     emit({"phase": "kernel_vs_plain", "kernel": "wave_multistep",
-          "shape": list(BLOCK), "steps": steps, "bitwise": ok,
-          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+          "shape": list(BLOCK), "steps": steps, "rungs": chosen,
+          "fastest_rungs": fastest, "by_rungs": by_rungs,
+          "smem_bytes_by_rungs": {
+              t: stencil_kernel.smem_bytes(t) for t in by_rungs},
+          "bitwise": True, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
           "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
           "bound_by": r["bound"][1]})
-    check(ok, "wave_multistep differs from its plain version")
+    del pp, pc, rp, rc, v2
+    torch.cuda.empty_cache()
+    multistep_ragged(gen)
+
+
+def multistep_ragged(gen):
+    """The multistep kernel at every rung count a launch on a ragged unit
+    (tiles cut in y and x) at 12 steps and on the block at 5 steps (a
+    remainder launch for 2-4 rungs): bit for bit the ladder."""
+    out = []
+    for shape, steps in ((RAGGED, BT), (BLOCK, 5)):
+        pp, pc = normal(shape, gen, 1.0), normal(shape, gen, 1.0)
+        v2 = 0.05 + 0.01 * normal(shape, gen, 1.0)
+        rp, rc = stencil_ref.ladder_steps(pp, pc, v2, steps)
+        for rungs in range(1, stencil_kernel.MAX_RUNGS + 1):
+            stencil_kernel.reset_launches()
+            kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, steps,
+                                                   rungs=rungs)
+            device = stencil_kernel.device_launches["wave_multistep"]
+            ok = same_bits(kp, rp) and same_bits(kc, rc)
+            out.append({"shape": list(shape), "steps": steps,
+                        "rungs": rungs, "device_launches": device,
+                        "bitwise": ok,
+                        "max_abs_err": max(max_abs(kp, rp), max_abs(kc, rc))})
+            del kp, kc
+            check(ok, f"wave_multistep differs from its plain version at "
+                      f"{shape}, {steps} steps, {rungs} rungs a launch")
+            check(device == len(stencil_kernel.rung_groups(steps, rungs)),
+                  f"{device} device launches")
+        del pp, pc, v2, rp, rc
+        torch.cuda.empty_cache()
+    emit({"phase": "multistep_ragged", "cases": out})
 
 
 # ----------------------------------------------------------------------
@@ -470,7 +575,9 @@ def single_step_dispatch():
             check(launched == 2 * NDIV,
                   f"bt=1 engine launched wave_step {launched} times")
             counts = {**{f"zfp_{k}": v for k, v in zfp_kernel.launches.items()},
-                      **stencil_kernel.launches}
+                      **stencil_kernel.launches,
+                      "wave_multistep_device_launches":
+                          stencil_kernel.device_launches["wave_multistep"]}
     same = {name: bool(np.array_equal(engines["cuda"].gather(name),
                                       engines["ref"].gather(name)))
             for name in ("p_prev", "p_cur", "vel2")}
@@ -528,6 +635,10 @@ def cdecode_cases(gen, results):
             ok = all(bool(torch.allclose(g, w_, rtol=CD_TOL, atol=CD_TOL))
                      for g, w_ in zip(got, want))
             err = max(max_abs(g, w_) for g, w_ in zip(got, want))
+            # per output: largest |d| / (atol + rtol |want|), 1 at the bound
+            ratio = {k: float(((g - w_).abs().nan_to_num(0)
+                               / (CD_TOL + CD_TOL * w_.abs())).max())
+                     for k, g, w_ in zip(("m", "l", "acc"), got, want)}
             nbytes, bound = cdecode_bound(args)
             r = {
                 "max_abs_err": err,
@@ -543,7 +654,8 @@ def cdecode_cases(gen, results):
                   "slots": CD_SLOTS, "kv_heads": CD_KVH, "qpk": CD_QPK,
                   "head_dim": d, "max_len": CTX, "length": length,
                   "hist_len": hist, "planes": planes, "within_tol": ok,
-                  "tol": CD_TOL, "max_abs_err": err, "ms": r["ms"],
+                  "tol": CD_TOL, "max_abs_err": err,
+                  "tol_ratio": ratio, "ms": r["ms"],
                   "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
                   "bound_by": r["bound"][1], "bound_bytes": nbytes,
                   "library_ms": None,
@@ -639,8 +751,20 @@ def serve_kernels_on_cache(cfg, eng, seen):
     args, kw = cdecode_ops.history_inputs(*seen[0])
     kw["planes"] = SERVE_PLANES
     nbytes, bound = cdecode_bound(args)
-    split = cdecode_kernel.split_plan(args[0].shape[0], cdecode_ref.live_chunks(
-        args[5], args[0].shape[1] // kvcache._nb_per_chunk(cfg.head_dim)))
+    rows = args[0].shape[0]
+    split = cdecode_kernel.split_plan(rows, cdecode_kernel.live_bands(
+        args[5], args[0].shape[1] // cfg.head_dim))
+    # the kernel's decoded K and V of the first chunk, against the plain
+    # codec's decode of it
+    tiles = cdecode_kernel.decoded_tiles(
+        *args[:4], planes=SERVE_PLANES, head_dim=cfg.head_dim, band0=0,
+        nbands=cdecode_kernel.BANDS_PER_CHUNK)
+    nbc = kvcache._nb_per_chunk(cfg.head_dim)
+    codec = [zfp_ref.unblockify(zfp_ref.decode_blocks(
+                 p[:, :nbc].reshape(-1, p.shape[-1]), e[:, :nbc].reshape(-1),
+                 SERVE_PLANES, 2), (rows, kvcache.CHUNK, cfg.head_dim), 2)
+             for p, e in ((args[0], args[1]), (args[2], args[3]))]
+    tiles_ok = all(same_bits(a, b) for a, b in zip(tiles, codec))
     same = True
     for i in range(cfg.num_layers):
         for tail in (eng.cache.tail_k[i], eng.cache.tail_v[i]):
@@ -650,19 +774,25 @@ def serve_kernels_on_cache(cfg, eng, seen):
     emit({"phase": "serve_kernels_on_cache", "layers": len(seen),
           "cdecode_rows": args[0].shape[0], "max_len": SERVE_MAX_LEN,
           "length": seen[0][1].length, "hist_len": args[5],
-          "nsplit_per": list(split), "within_tol": ok, "tol": CD_TOL,
+          "nsplit_per": list(split), "ctas": rows * split[0],
+          "decoded_tiles_bitwise": tiles_ok, "within_tol": ok, "tol": CD_TOL,
           "max_abs_err": err,
           "ms": median_ms(lambda: cdecode_kernel.cdecode_partials(
               *args, **kw), 20),
+          "device_ms": kernel_device_ms(lambda: cdecode_kernel.cdecode_partials(
+              *args, **kw), "cdecode_kernel", 20),
           "merged_ms": median_ms(
               lambda: cdecode_kernel.fused_cdecode_attention(*args, **kw), 20),
           "plain_ms": median_ms(lambda: cdecode_ref.fused_cdecode_attention_ref(
               *args, **kw), 5),
           "bound_ms": bound[0], "bound_by": bound[1], "bound_bytes": nbytes,
+          "smem_bytes": cdecode_kernel.smem_bytes(
+              cfg.head_dim, kw["qpk"], args[0].shape[-1]),
           "encode_shape": list(eng.cache.tail_k[0].movedim(2, 1).shape),
           "encode_bitwise": same})
     check(ok, f"cdecode differs from its plain version on the serving "
               f"cache (max |d| {err})")
+    check(tiles_ok, "cdecode's decoded tiles differ from the codec's decode")
     check(same, "the chunk-flush encode differs from the plain codec")
 
 
@@ -1068,7 +1198,9 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = _build.build_all()
     emit({"phase": "build", "seconds": time.perf_counter() - t0,
-          "built": sorted(k for k, v in logs.items() if v)})
+          "built": sorted(k for k, v in logs.items() if v),
+          "ptxas": {k: ptxas_summary(v or build_log(k))
+                    for k, v in logs.items()}})
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}

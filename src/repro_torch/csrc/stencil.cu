@@ -2,9 +2,8 @@
 // Hopper (sm_90a).
 //
 // wave_step_kernel replaces wave_step_pallas (_wave_kernel) and
-// wave_rung_kernel, launched once per rung by the multistep wrapper, replaces
-// wave_multistep_pallas (_multistep_kernel), both in
-// src/repro/kernels/stencil/kernel.py. Bit for bit equal to the plain
+// wave_multistep_kernel replaces wave_multistep_pallas (_multistep_kernel),
+// both in src/repro/kernels/stencil/kernel.py. Bit for bit equal to the plain
 // PyTorch version, src/repro_torch/kernels/stencil/ref.py (wave_step and
 // ladder_steps): the build uses -fmad=false and every sum is taken in the
 // reference's order, 3*C0*c first, then for k = 1..4 the six neighbours
@@ -13,18 +12,25 @@
 // Bound on the H100: bytes. A step does 33 float32 operations per point
 // and must move 5 arrays of 4 bytes a point (p_prev, p_cur, vel2 in;
 // p_next, lap out), about 1.6 operations a byte, far below the 67 TFLOP/s
-// / 3.35 TB/s = 20 the card needs to be bound by arithmetic. The multistep
-// kernel at K rungs does 33 K operations per point against 5 arrays at
-// best, so at K = 12 the two bounds meet.
+// / 3.35 TB/s = 20 the card needs to be bound by arithmetic. A multistep
+// call of K steps must move 5 arrays once (3 in, 2 out) for 33 K operations
+// a point, so at K = 12 the two bounds meet (1.90 ms at the paper's block).
 //
-// Design, simple and right first: one thread per output point reading its
-// 25 neighbours straight from device memory (the warp's x-neighbours and the
-// y/z planes hit in L1/L2), x fastest across the warp so loads coalesce.
-// The multistep wrapper runs one rung kernel per step over ping-pong
-// buffers; the rung applies the zero boundary by index, so none of the
-// pad_bc copies of the ladder is made, and it does not write lap (the
-// multistep contract returns only p_prev and p_cur). A 2.5-D z-streaming
-// register queue and keeping rungs in shared memory are later work.
+// wave_step_kernel: one thread per output point reading its 25 neighbours
+// from device memory (x fastest across the warp; the y/z planes hit in
+// L1/L2). Its 2.5-D redesign is later work.
+//
+// wave_multistep_kernel keeps the TPU kernel's idea, intermediate rungs
+// never reach device memory, laid out for an SM (below): T <= 4 rungs a
+// launch, each rung's input a ring of z-planes in shared memory on a tile
+// that grows by 4 in y and x per rung still to come, p_cur streamed in with
+// cp.async one plane ahead, 4 points a thread from float4 loads. One rung a
+// launch (T = 1) is this design's streaming rung kernel. Measured on an H100
+// (PERF.md), T = 1 is the fastest: the rings of T >= 2 rungs fit shared
+// memory only at 16 x 32 tiles, whose halo (recomputed, and read again from
+// L2 for p_prev and vel2) costs more than the device-memory pass a fused
+// rung saves. Left: a register queue for the z-neighbours (5 planes a level
+// instead of 9) so that larger tiles fit and fused rungs pay.
 
 #include <cuda_runtime.h>
 
@@ -71,33 +77,319 @@ __global__ void wave_step_kernel(const float* __restrict__ pp,
   lap_out[i] = lap;
 }
 
-// One rung of the ladder on interior (Z, Y, X) fields, zero outside.
-__global__ void wave_rung_kernel(const float* __restrict__ pp,
-                                 const float* __restrict__ pc,
-                                 const float* __restrict__ v2,
-                                 float* __restrict__ pn, int Z, int Y, int X) {
-  const int x = blockIdx.x * kBX + threadIdx.x;
-  const int y = blockIdx.y * kBY + threadIdx.y;
-  const int z = blockIdx.z;
-  if (x >= X || y >= Y) return;
-  const long long sz = (long long)Y * X, sy = X;
-  const long long i = ((long long)z * Y + y) * X + x;
-  const float c = pc[i];
-  float lap = kC3C0 * c;
-#pragma unroll
-  for (int k = 1; k <= kHalo; ++k) {
-    // the ghost value is +0.0f, added like the ladder adds its padding
-    float s = z + k < Z ? pc[i + k * sz] : 0.0f;
-    s = s + (z - k >= 0 ? pc[i - k * sz] : 0.0f);
-    s = s + (y + k < Y ? pc[i + k * sy] : 0.0f);
-    s = s + (y - k >= 0 ? pc[i - k * sy] : 0.0f);
-    s = s + (x + k < X ? pc[i + k] : 0.0f);
-    s = s + (x - k >= 0 ? pc[i - k] : 0.0f);
-    lap = lap + kC[k - 1] * s;
+// ---------------------------------------------------------------------------
+// Multistep: T rungs of the ladder in one launch, 2.5-D z-streaming.
+//
+// Level L (L = 0..T) is the field after L rungs: level 0 is p_cur, level T
+// the launch's new p_cur. A CTA owns a TY x TX output tile and walks z once.
+// Level L lives in shared memory on the tile grown by 4 (T - L) in y and x,
+// as a ring of planes: 10 for level 0 (the plane in flight included), 9 for
+// the others. At step t the CTA brings plane t + 1 of p_cur in with cp.async
+// while rung r computes plane t - 4 r of level r from planes t - 4 r +- 4 of
+// level r - 1 (a wavefront in z) and plane t - 4 r of level r - 2 (p_prev for
+// r = 1, from device memory). A point outside [0, Z) x [0, Y) x [0, X) is
+// +0.0f on every level and is never computed, as the ladder re-pads every
+// rung; halo points inside the domain are recomputed by every CTA that needs
+// them. Only level T - 1 (the new p_prev, centre tile) and level T reach
+// device memory.
+//
+// A thread computes 4 points along x at a time (a quad): its 12 x-values,
+// the 8 y- and 8 z-neighbour quads are 19 float4 loads from shared memory
+// for 4 points, where one point alone needs 25 scalar loads. The vel2 and
+// p_prev values of a step are loaded into registers before the step's
+// barrier, so that their latency overlaps it.
+
+constexpr int kMsThreads = 256;
+constexpr int kMsPasses = 2;  // quads a thread computes a rung, at most
+
+template <int T, int TY, int TX>
+struct Geo {
+  static_assert(TX % 4 == 0, "quads along x");
+  __host__ __device__ static constexpr int halo(int L) { return 4 * (T - L); }
+  __host__ __device__ static constexpr int wid(int L) {
+    return TX + 2 * halo(L);
   }
-  pn[i] = (2.0f * c - pp[i]) + v2[i] * lap;
+  __host__ __device__ static constexpr int area(int L) {
+    return (TY + 2 * halo(L)) * wid(L);
+  }
+  __host__ __device__ static constexpr int passes(int L) {
+    return (area(L) / 4 + kMsThreads - 1) / kMsThreads;
+  }
+  __host__ __device__ static constexpr int planes(int L) {
+    return L == 0 ? 10 : 9;
+  }
+  // first float of level L; offset(T) is the whole shared memory
+  __host__ __device__ static constexpr int offset(int L) {
+    return L == 0 ? 0 : offset(L - 1) + planes(L - 1) * area(L - 1);
+  }
+};
+
+// ring slot of plane z >= -2N
+template <int N>
+__device__ __forceinline__ int ring(int z) {
+  return (z + 2 * N) % N;
 }
 
+// cp.async of `bytes` (4 or 16); src-size 0 zero-fills and reads nothing
+template <int kBytes>
+__device__ __forceinline__ void cp_async(float* dst, const float* src,
+                                         bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
+               "l"(src), "n"(kBytes), "r"(valid ? kBytes : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ float comp(const float4& v, int j) {
+  return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
+}
+
+// Where quad q of rung R's area lies: (ly, lx) in the area, (gy, gx) in
+// the field.
+template <int T, int TY, int TX, int R>
+struct Quad {
+  int ly, lx, gy, gx;
+  __device__ __forceinline__ Quad(int q, int y0, int x0) {
+    using G = Geo<T, TY, TX>;
+    constexpr int QW = G::wid(R) / 4, H = G::halo(R);
+    ly = q / QW;
+    lx = 4 * (q % QW);
+    gy = y0 - H + ly;
+    gx = x0 - H + lx;
+  }
+  __device__ __forceinline__ bool in(int j, int Y, int X) const {
+    return gy >= 0 && gy < Y && gx + j >= 0 && gx + j < X;
+  }
+};
+
+// vel2 (and for R = 1 p_prev) of rung R's quads at plane zr, 0 outside.
+template <int T, int TY, int TX, int R>
+__device__ __forceinline__ void fetch(float4* v2r, float4* ppr, int zr,
+                                      const float* __restrict__ pp,
+                                      const float* __restrict__ v2, int Z,
+                                      int Y, int X, int y0, int x0) {
+  using G = Geo<T, TY, TX>;
+  const bool zin = zr >= 0 && zr < Z;
+  const long long zo = (long long)zr * Y * X;
+#pragma unroll
+  for (int p = 0; p < G::passes(R); ++p) {
+    const int q = threadIdx.x + p * kMsThreads;
+    const Quad<T, TY, TX, R> g(q, y0, x0);
+    float a[4] = {0.f, 0.f, 0.f, 0.f}, b[4] = {0.f, 0.f, 0.f, 0.f};
+    if (zin && q < G::area(R) / 4) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        if (g.in(j, Y, X)) {
+          const long long gi = zo + (long long)g.gy * X + g.gx + j;
+          a[j] = __ldg(v2 + gi);
+          if (R == 1) b[j] = __ldg(pp + gi);
+        }
+      }
+    }
+    v2r[p] = make_float4(a[0], a[1], a[2], a[3]);
+    if (R == 1) ppr[p] = make_float4(b[0], b[1], b[2], b[3]);
+  }
+}
+
+// Rung R at plane zr: level R from levels R - 1 and R - 2.
+template <int T, int TY, int TX, int R>
+__device__ __forceinline__ void rung(float* smem, int zr, const float4* v2r,
+                                     const float4* ppr,
+                                     float* __restrict__ out_prev,
+                                     float* __restrict__ out_cur, int Z,
+                                     int Y, int X, int y0, int x0) {
+  using G = Geo<T, TY, TX>;
+  constexpr int H = G::halo(R), QA = G::area(R) / 4;
+  constexpr int WI = G::wid(R - 1), AI = G::area(R - 1);
+  constexpr int NI = G::planes(R - 1);
+  // level R < T holds planes -4..Z+3 (zeros outside [0, Z)); level T [0, Z)
+  if (zr < (R == T ? 0 : -4) || zr >= (R == T ? Z : Z + 4)) return;
+  const bool zin = zr >= 0 && zr < Z;
+  const float* lin = smem + G::offset(R - 1);
+  const float* in = lin + ring<NI>(zr) * AI;
+  const long long zo = (long long)zr * Y * X;
+#pragma unroll
+  for (int p = 0; p < G::passes(R); ++p) {
+    const int q = threadIdx.x + p * kMsThreads;
+    if (q >= QA) break;
+    const Quad<T, TY, TX, R> g(q, y0, x0);
+    const bool any = zin && g.gy >= 0 && g.gy < Y && g.gx + 3 >= 0 &&
+                     g.gx < X;
+    float v[4] = {0.f, 0.f, 0.f, 0.f};
+    if (any) {
+      // level R - 1 index of the quad's first point, (ly + 4, lx + 4)
+      const int ci = (g.ly + 4) * WI + g.lx + 4;
+      float xr[12];
+      const float4* row = (const float4*)(in + ci - 4);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const float4 r4 = row[i];
+        xr[4 * i] = r4.x;
+        xr[4 * i + 1] = r4.y;
+        xr[4 * i + 2] = r4.z;
+        xr[4 * i + 3] = r4.w;
+      }
+      float lap[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) lap[j] = kC3C0 * xr[4 + j];
+#pragma unroll
+      for (int k = 1; k <= kHalo; ++k) {
+        const float4 zp = *(const float4*)(lin + ring<NI>(zr + k) * AI + ci);
+        const float4 zm = *(const float4*)(lin + ring<NI>(zr - k) * AI + ci);
+        const float4 yp = *(const float4*)(in + ci + k * WI);
+        const float4 ym = *(const float4*)(in + ci - k * WI);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float s = comp(zp, j) + comp(zm, j);
+          s = s + comp(yp, j);
+          s = s + comp(ym, j);
+          s = s + xr[4 + j + k];
+          s = s + xr[4 + j - k];
+          lap[j] = lap[j] + kC[k - 1] * s;
+        }
+      }
+      float4 prev;
+      if constexpr (R == 1) {
+        prev = ppr[p];
+      } else {
+        constexpr int N2 = G::planes(R - 2);
+        prev = *(const float4*)(smem + G::offset(R - 2) +
+                                ring<N2>(zr) * G::area(R - 2) +
+                                (g.ly + 8) * G::wid(R - 2) + g.lx + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (g.in(j, Y, X))
+          v[j] = (2.0f * xr[4 + j] - comp(prev, j)) +
+                 comp(v2r[p], j) * lap[j];
+    }
+    if constexpr (R < T) {
+      *(float4*)(smem + G::offset(R) + ring<9>(zr) * G::area(R) + 4 * q) =
+          make_float4(v[0], v[1], v[2], v[3]);
+      if (R == T - 1 && any && g.ly >= H && g.ly < H + TY && g.lx >= H &&
+          g.lx < H + TX) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (g.in(j, Y, X))
+            out_prev[zo + (long long)g.gy * X + g.gx + j] = v[j];
+      }
+    } else if (any) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (g.in(j, Y, X))
+          out_cur[zo + (long long)g.gy * X + g.gx + j] = v[j];
+    }
+  }
+}
+
+// One step t of every rung R..T: fetch their vel2/p_prev, wait for the
+// step's plane, then the rungs in order, one barrier between two.
+template <int T, int TY, int TX, int R>
+__device__ __forceinline__ void rungs_from(float* smem, int t,
+                                          float4 (*v2r)[kMsPasses],
+                                          float4* ppr,
+                                          float* __restrict__ out_prev,
+                                          float* __restrict__ out_cur, int Z,
+                                          int Y, int X, int y0, int x0) {
+  rung<T, TY, TX, R>(smem, t - 4 * R, v2r[R - 1], ppr, out_prev, out_cur, Z,
+                     Y, X, y0, x0);
+  if constexpr (R < T) {
+    __syncthreads();
+    rungs_from<T, TY, TX, R + 1>(smem, t, v2r, ppr, out_prev, out_cur, Z, Y,
+                                 X, y0, x0);
+  }
+}
+
+template <int T, int TY, int TX, int R>
+__device__ __forceinline__ void fetch_from(float4 (*v2r)[kMsPasses],
+                                           float4* ppr, int t,
+                                           const float* __restrict__ pp,
+                                           const float* __restrict__ v2,
+                                           int Z, int Y, int X, int y0,
+                                           int x0) {
+  static_assert(Geo<T, TY, TX>::passes(R) <= kMsPasses, "tile too large");
+  fetch<T, TY, TX, R>(v2r[R - 1], ppr, t - 4 * R, pp, v2, Z, Y, X, y0, x0);
+  if constexpr (R < T)
+    fetch_from<T, TY, TX, R + 1>(v2r, ppr, t, pp, v2, Z, Y, X, y0, x0);
+}
+
+// Issue the copies of plane z of p_cur into level 0's ring: 16 bytes a copy
+// when rows are 16-byte aligned (X % 4 == 0 and an aligned base), else 4.
+template <int T, int TY, int TX>
+__device__ __forceinline__ void load_plane(float* smem, int z,
+                                           const float* __restrict__ pc,
+                                           int Z, int Y, int X, int y0,
+                                           int x0, bool vec) {
+  using G = Geo<T, TY, TX>;
+  constexpr int H0 = G::halo(0), W0 = G::wid(0), A0 = G::area(0);
+  float* dst = smem + ring<10>(z) * A0;
+  const bool zin = z >= 0 && z < Z;
+  const long long zo = (long long)z * Y * X;
+  if (vec) {
+    for (int q = threadIdx.x; q < A0 / 4; q += kMsThreads) {
+      const int gy = y0 - H0 + q / (W0 / 4), gx = x0 - H0 + 4 * (q % (W0 / 4));
+      const bool in = zin && gy >= 0 && gy < Y && gx >= 0 && gx < X;
+      cp_async<16>(dst + 4 * q, in ? pc + zo + (long long)gy * X + gx : pc,
+                   in);
+    }
+  } else {
+    for (int e = threadIdx.x; e < A0; e += kMsThreads) {
+      const int gy = y0 - H0 + e / W0, gx = x0 - H0 + e % W0;
+      const bool in = zin && gy >= 0 && gy < Y && gx >= 0 && gx < X;
+      cp_async<4>(dst + e, in ? pc + zo + (long long)gy * X + gx : pc, in);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Interior (Z, Y, X) fields; out_prev is written when T > 1 (for T = 1 the
+// new p_prev is p_cur itself).
+template <int T, int TY, int TX>
+__global__ void __launch_bounds__(kMsThreads)
+    wave_multistep_kernel(const float* __restrict__ pp,
+                          const float* __restrict__ pc,
+                          const float* __restrict__ v2,
+                          float* __restrict__ out_prev,
+                          float* __restrict__ out_cur, int Z, int Y, int X,
+                          bool vec) {
+  extern __shared__ float4 smem4[];
+  float* smem = (float*)smem4;
+  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
+  float4 v2r[T][kMsPasses], ppr[kMsPasses];
+
+  load_plane<T, TY, TX>(smem, -4, pc, Z, Y, X, y0, x0, vec);
+  // rung T's last plane, Z - 1, is computed at step Z - 1 + 4 T
+  for (int t = -4; t < Z + 4 * T; ++t) {
+    fetch_from<T, TY, TX, 1>(v2r, ppr, t, pp, v2, Z, Y, X, y0, x0);
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    __syncthreads();  // plane t landed; step t - 1 is done with its slots
+    if (t + 1 < Z + 4)  // rung 1 reads up to plane Z + 3
+      load_plane<T, TY, TX>(smem, t + 1, pc, Z, Y, X, y0, x0, vec);
+    rungs_from<T, TY, TX, 1>(smem, t, v2r, ppr, out_prev, out_cur, Z, Y, X,
+                             y0, x0);
+  }
+}
+
+template <int T, int TY, int TX>
+int launch_multistep(const void* pp, const void* pc, const void* v2,
+                     void* out_prev, void* out_cur, int Z, int Y, int X,
+                     cudaStream_t stream) {
+  const int smem = Geo<T, TY, TX>::offset(T) * (int)sizeof(float);
+  auto kern = wave_multistep_kernel<T, TY, TX>;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((X + TX - 1) / TX, (Y + TY - 1) / TY);
+  const bool vec = X % 4 == 0 && (size_t)pc % 16 == 0;
+  kern<<<grid, kMsThreads, smem, stream>>>(
+      (const float*)pp, (const float*)pc, (const float*)v2, (float*)out_prev,
+      (float*)out_cur, Z, Y, X, vec);
+  return (int)cudaGetLastError();
+}
+
+// The output tile of each rung count: it shrinks as the rungs grow so that
+// the rings fit in shared memory.
+#define MULTISTEP_TILES(X) X(1, 32, 32) X(2, 16, 32) X(3, 16, 32) X(4, 16, 16)
 dim3 grid_of(int Z, int Y, int X) {
   return dim3((X + kBX - 1) / kBX, (Y + kBY - 1) / kBY, Z);
 }
@@ -115,13 +407,35 @@ int stencil_wave_step(const void* pp, const void* pc, const void* v2, void* pn,
   return (int)cudaGetLastError();
 }
 
-int stencil_wave_rung(const void* pp, const void* pc, const void* v2, void* pn,
-                      int Z, int Y, int X, void* stream) {
-  wave_rung_kernel<<<grid_of(Z, Y, X), dim3(kBX, kBY), 0,
-                     (cudaStream_t)stream>>>(
-      (const float*)pp, (const float*)pc, (const float*)v2, (float*)pn, Z, Y,
-      X);
-  return (int)cudaGetLastError();
+// `rungs` (1..4) steps of the ladder on interior (Z, Y, X) fields in one
+// launch: out_cur = p_cur after them, out_prev = p_prev after them (not
+// written when rungs = 1).
+int stencil_wave_multistep(const void* pp, const void* pc, const void* v2,
+                           void* out_prev, void* out_cur, int Z, int Y, int X,
+                           int rungs, void* stream) {
+#define CASE(T, TY, TX)                                                 \
+  case T:                                                               \
+    return launch_multistep<T, TY, TX>(pp, pc, v2, out_prev, out_cur, Z, \
+                                       Y, X, (cudaStream_t)stream);
+  switch (rungs) {
+    MULTISTEP_TILES(CASE)
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef CASE
+}
+
+// Dynamic shared memory of one multistep CTA at `rungs`, in bytes.
+int stencil_multistep_smem_bytes(int rungs) {
+#define CASE(T, TY, TX) \
+  case T:               \
+    return Geo<T, TY, TX>::offset(T) * (int)sizeof(float);
+  switch (rungs) {
+    MULTISTEP_TILES(CASE)
+    default:
+      return -1;
+  }
+#undef CASE
 }
 
 const char* stencil_error_string(int err) {

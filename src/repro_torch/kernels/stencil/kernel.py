@@ -2,15 +2,26 @@
 
 ``wave_step`` replaces ``repro.kernels.stencil.kernel.wave_step_pallas``
 and ``wave_multistep`` replaces ``wave_multistep_pallas``. The TPU
-multistep tile (a ``(Z, 3K, X)`` extended y-tile per grid step) cannot
-fit on-chip memory at the paper's block, so the Hopper version runs the
-ladder's rungs as one launch each over ping-pong device buffers, with
-the zero boundary applied by index instead of ``pad_bc`` copies; it has
-no y-tiling and so no constraint on Y.
+multistep kernel keeps all rungs of a ``(Z, 3K, X)`` y-tile on chip;
+that tile (159 MB at the paper's block) cannot fit an SM, so the Hopper
+kernel fuses ``rungs`` (at most ``MAX_RUNGS``) rungs a launch instead: a
+CTA streams its (y, x) tile along z and keeps each intermediate rung as
+a ring of planes in shared memory, the zero boundary applied by index on
+every rung (no ``pad_bc`` copies), any Y. ``rung_groups`` splits
+``steps`` into launches of ``rungs`` and one remainder launch; ``RUNGS``
+is the count measured fastest on the (240, 1152, 1152) block
+(``chip_smoke.py``, PERF.md): 1, because at the tiles whose rings fit
+in shared memory (16 x 32 at 2 rungs) the halo that a fused rung
+recomputes and reads costs more than the pass over device memory it
+saves. The bound is bytes: 5 arrays once per call (1.90 ms at that
+block and 12 steps on an H100); each launch moves 4 arrays (one rung)
+or 5 (fused rungs).
 
 On a CPU tensor each wrapper runs the plain version (``ref``); on a
-CUDA tensor it launches the kernel or raises. ``launches`` counts kernel
-launches: one per ``wave_step`` call, one per rung of ``wave_multistep``.
+CUDA tensor it launches the kernel or raises. ``launches`` counts calls
+that reach the card, one per ``wave_step`` and one per
+``wave_multistep``; ``device_launches`` counts the multistep kernel's
+launches (one per rung group).
 """
 
 from __future__ import annotations
@@ -25,14 +36,37 @@ from repro_torch.kernels.stencil import ref
 from repro_torch.kernels.stencil.ref import HALO
 
 launches = {"wave_step": 0, "wave_multistep": 0}
+device_launches = {"wave_multistep": 0}
+
+MAX_RUNGS = 4
+# rungs a launch: the fastest of 1..4 at (240, 1152, 1152) on an H100
+# (PERF.md): a fused rung's halo costs more than the pass it saves
+RUNGS = 1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, device_launches):
+        for k in counts:
+            counts[k] = 0
+
+
+def rung_groups(steps: int, rungs: int):
+    """Rungs of each launch: ``steps // rungs`` launches of ``rungs``,
+    then one of the remainder, if any."""
+    if not 1 <= rungs <= MAX_RUNGS:
+        raise ValueError(f"rungs must be 1..{MAX_RUNGS}, got {rungs}")
+    n, rem = divmod(int(steps), rungs)
+    return [rungs] * n + ([rem] if rem else [])
+
+
+def smem_bytes(rungs: int) -> int:
+    """Dynamic shared memory of one multistep CTA at ``rungs`` (CUDA
+    build only)."""
+    fn = _build.bind("stencil", "stencil_multistep_smem_bytes", [_I])
+    return int(fn(int(rungs)))
 
 
 def _require(shape, *tensors: torch.Tensor) -> None:
@@ -74,29 +108,37 @@ def wave_step(p_prev: torch.Tensor, p_cur: torch.Tensor, vel2: torch.Tensor
 
 
 def wave_multistep(p_prev: torch.Tensor, p_cur: torch.Tensor,
-                   vel2: torch.Tensor, steps: int
+                   vel2: torch.Tensor, steps: int, rungs: int = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``steps`` steps on interior (Z, Y, X) fields with the zero BC
     re-applied every rung: (p_prev, p_cur) after ``steps`` steps, bit
-    for bit ``ref.ladder_steps``. The inputs are not modified."""
+    for bit ``ref.ladder_steps``; ``rungs`` fused a launch (default
+    ``RUNGS``). The inputs are not modified."""
+    groups = rung_groups(steps, RUNGS if rungs is None else rungs)
     if p_cur.device.type == "cpu":
         return ref.ladder_steps(p_prev, p_cur, vel2, steps)
     shape = tuple(p_cur.shape)
     if len(shape) != 3 or tuple(p_prev.shape) != shape:
         raise ValueError("p_prev, p_cur and vel2 must share one 3-D shape")
     _require(shape, p_prev, p_cur, vel2)
-    fn = _build.bind("stencil", "stencil_wave_rung",
-                     [_P, _P, _P, _P, _I, _I, _I, _P])
+    fn = _build.bind("stencil", "stencil_wave_multistep",
+                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
     z, y, x = shape
     pp, pc = p_prev, p_cur
-    free = []  # buffers of this call no rung still reads
-    for _ in range(steps):
-        out = free.pop() if free else torch.empty_like(p_cur)
+    free = []  # buffers of this call no launch still reads
+    for t in groups:
+        out_c = free.pop() if free else torch.empty_like(p_cur)
+        out_p = None
+        if t > 1:
+            out_p = free.pop() if free else torch.empty_like(p_cur)
         err = fn(pp.data_ptr(), pc.data_ptr(), vel2.data_ptr(),
-                 out.data_ptr(), z, y, x, _stream())
-        _build.check("stencil", err, "stencil_wave_rung")
+                 None if out_p is None else out_p.data_ptr(),
+                 out_c.data_ptr(), z, y, x, t, _stream())
+        _build.check("stencil", err, "stencil_wave_multistep")
+        device_launches["wave_multistep"] += 1
+        done = (pp, pc) if t > 1 else (pp,)
+        free += [b for b in done if b is not p_prev and b is not p_cur]
+        pp, pc = (out_p, out_c) if t > 1 else (pc, out_c)
+    if groups:
         launches["wave_multistep"] += 1
-        if pp is not p_prev and pp is not p_cur:
-            free.append(pp)
-        pp, pc = pc, out
     return pp, pc

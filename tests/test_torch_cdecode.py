@@ -117,6 +117,46 @@ def test_split_plan_covers_every_chunk():
                 assert per == 0
 
 
+def test_split_plan_covers_every_band_once():
+    """Every live band lies in exactly one CTA's run; runs longer than a
+    chunk are whole chunks; the serving cache's 16 rows with 4 live
+    chunks give at least 256 CTAs."""
+    for rows in (1, 16, 32, 300):
+        for live in range(0, 70):
+            nsplit, per = tkernel.split_plan(rows, live)
+            runs = [range(s * per, min((s + 1) * per, live))
+                    for s in range(nsplit)]
+            covered = [b for r in runs for b in r]
+            assert covered == list(range(live))
+            assert all(len(r) > 0 for r in runs) or live == 0
+            if per > tkernel.BANDS_PER_CHUNK:
+                assert per % tkernel.BANDS_PER_CHUNK == 0
+    serving = tkernel.live_bands(4 * TKV.CHUNK, 4 * D)  # 16 bands
+    nsplit, per = tkernel.split_plan(16, serving)
+    assert 16 * nsplit >= 256 and per == 1
+
+
+def test_live_bands():
+    assert tkernel.live_bands(0, 10) == 0
+    assert tkernel.live_bands(1, 10) == 1
+    assert tkernel.live_bands(48, 10) == 3
+    assert tkernel.live_bands(3 * TKV.CHUNK + 16, 100) == 13
+    assert tkernel.live_bands(10 ** 6, 10) == 10
+
+
+def test_decoded_tiles_on_cpu_are_the_codec_decode():
+    """The band decode check's CPU side: bands cut from the codec's
+    decode of whole chunks, mid-chunk starts included."""
+    _, t = _caches(3 * TKV.CHUNK, seed=4)
+    rows = _rows(t)
+    whole = tref.decode_tiles(rows[0], rows[1], PLANES, D)
+    for band0, nbands in ((0, 4), (1, 2), (3, 6), (11, 1)):
+        k, v = tkernel.decoded_tiles(*rows, planes=PLANES, head_dim=D,
+                                     band0=band0, nbands=nbands)
+        assert torch.equal(k, whole[:, band0 * 16:(band0 + nbands) * 16])
+        assert v.shape == k.shape
+
+
 def test_cdecode_partials_on_cpu_are_one_split():
     """On a CPU tensor the kernel wrapper's unmerged partials are the
     plain version's, as one split."""

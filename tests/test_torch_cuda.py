@@ -7,7 +7,8 @@ card. Every test here needs a CUDA device and ``nvcc``; without them the
 Contract: the codec and stencil kernels are bit for bit equal to their
 plain versions (``-fmad=false`` and the reference's order of
 operations); the fused ZFP-decode attention kernel decodes bit for bit
-and sums in another order, so it is held within rtol = atol = 2e-5; the
+(its decoded tiles are checked) and sums in another order, with FMA, so
+it is held within rtol = atol = 2e-5; the
 selective-scan kernel runs the recurrence step by step where its plain
 version scans chunks associatively, held within rtol 1e-4 / atol 1e-5
 (the bound of ``tests/test_sscan_kernel.py``).
@@ -127,11 +128,34 @@ def test_multistep_kernel_bitwise(cuda_device, steps):
     pp, pc, v2 = (torch.from_numpy(a).to(cuda_device)
                   for a in _fields(shape, steps))
     before = stencil_kernel.launches["wave_multistep"]
+    dev_before = stencil_kernel.device_launches["wave_multistep"]
     kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, steps)
     rp, rc = stencil_ref.ladder_steps(pp, pc, v2, steps)
-    assert stencil_kernel.launches["wave_multistep"] == before + steps
+    # one count per call; one device launch per group of fused rungs
+    assert stencil_kernel.launches["wave_multistep"] == before + 1
+    assert (stencil_kernel.device_launches["wave_multistep"] - dev_before
+            == len(stencil_kernel.rung_groups(steps, stencil_kernel.RUNGS)))
     np.testing.assert_array_equal(kp.cpu().numpy(), rp.cpu().numpy())
     np.testing.assert_array_equal(kc.cpu().numpy(), rc.cpu().numpy())
+
+
+# (37, 45, 70) crosses the tiles of every rung count in y and x; (9, 3, 5)
+# and (6, 7, 2) are narrower than the halo of 4 rungs in y and x
+@pytest.mark.parametrize("shape", [(37, 45, 70), (9, 3, 5), (6, 7, 2)])
+@pytest.mark.parametrize("steps", [1, 2, 3, 5, 12])
+@pytest.mark.parametrize("rungs", [1, 2, 3, 4])
+def test_multistep_fused_rungs_bitwise(cuda_device, shape, steps, rungs):
+    """Every rung count a launch, bit for bit the ladder, remainder
+    launches and ragged tiles included; the inputs are left as they
+    were."""
+    arrays = _fields(shape, 100 * steps + rungs)
+    pp, pc, v2 = (torch.from_numpy(a).to(cuda_device) for a in arrays)
+    kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, steps, rungs=rungs)
+    rp, rc = stencil_ref.ladder_steps(pp, pc, v2, steps)
+    np.testing.assert_array_equal(kp.cpu().numpy(), rp.cpu().numpy())
+    np.testing.assert_array_equal(kc.cpu().numpy(), rc.cpu().numpy())
+    for t, a in zip((pp, pc, v2), arrays):
+        np.testing.assert_array_equal(t.cpu().numpy(), a)
 
 
 @pytest.mark.parametrize("temporal,bt", [(1, 2), (2, 1)])
@@ -218,6 +242,65 @@ def test_cdecode_kernel_against_plain(cuda_device, d, qpk, planes):
     oracle = cdecode_ref.reference(qf, ckv, **kw)
     np.testing.assert_allclose(out.cpu().numpy(), oracle.cpu().numpy(),
                                rtol=2e-5, atol=2e-5)
+
+
+def _encoded_rows(rows, tokens, d, planes, seed):
+    """K and V of ``rows`` rows of ``tokens`` tokens encoded by the
+    codec kernel in the cache's layout: (rows, nb, W) payload and
+    (rows, nb) emax each."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(2):
+        x = torch.from_numpy((0.5 * rng.standard_normal(
+            (rows, tokens, d))).astype(np.float32)).cuda()
+        p, e = zfp_kernel.encode(x, planes, 2)
+        out += [p.view(rows, -1, p.shape[-1]), e.view(rows, -1)]
+    return out
+
+
+# hist_len 16 and 48 end mid-chunk, 64 k + 16 one band into a chunk
+@pytest.mark.parametrize("hist_len", [0, 16, 48, 3 * kvcache.CHUNK + 16])
+@pytest.mark.parametrize("rows", [1, 5, 16, 32])
+def test_cdecode_bands_against_plain(cuda_device, rows, hist_len):
+    """Split into 16-token bands: partials within 2e-5 of the plain
+    version for histories that end inside a chunk, at 1 to 32 rows."""
+    d, qpk, planes = 128, 6, 16
+    pk, ek, pv, ev = _encoded_rows(rows, 4 * kvcache.CHUNK, d, planes,
+                                   rows + hist_len)
+    rng = np.random.default_rng(hist_len)
+    q = torch.from_numpy((rng.standard_normal((rows, qpk, d))
+                          / np.sqrt(d)).astype(np.float32)).cuda()
+    args = (pk, ek, pv, ev, q, hist_len)
+    kw = dict(planes=planes, head_dim=d, qpk=qpk)
+    nsplit, per = cdecode_kernel.split_plan(
+        rows, cdecode_kernel.live_bands(hist_len, pk.shape[1] // d))
+    m, _, _ = cdecode_kernel.cdecode_partials(*args, **kw)
+    assert m.shape == (rows, nsplit, qpk)
+    got = cdecode_kernel.fused_cdecode_attention(*args, **kw)
+    want = cdecode_ref.fused_cdecode_attention_ref(*args, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.cpu().numpy(), w.cpu().numpy(),
+                                   rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("planes", [1, 4, 12, 16, 27, 28, 32])
+@pytest.mark.parametrize("d", [16, 128])
+def test_cdecode_decoded_tiles_bitwise(cuda_device, d, planes):
+    """The K and V the attention kernel decodes in shared memory are the
+    codec's decode bit for bit, under both stream orders (planes 4..27
+    and the rest)."""
+    pk, ek, pv, ev = _encoded_rows(3, 2 * kvcache.CHUNK, d, planes, planes)
+    for band0, nbands in ((0, 8), (3, 2), (5, 1)):
+        kt, vt = cdecode_kernel.decoded_tiles(
+            pk, ek, pv, ev, planes=planes, head_dim=d, band0=band0,
+            nbands=nbands)
+        rk, rv = cdecode_kernel.decoded_tiles(
+            *(t.cpu() for t in (pk, ek, pv, ev)), planes=planes, head_dim=d,
+            band0=band0, nbands=nbands)
+        for g, w in ((kt, rk), (vt, rv)):
+            assert g.shape == (3, nbands * 16, d)
+            np.testing.assert_array_equal(g.view(torch.int32).cpu().numpy(),
+                                          w.view(torch.int32).numpy())
 
 
 def test_compressed_cache_encode_kernel_bitwise(cuda_device):
