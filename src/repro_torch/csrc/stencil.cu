@@ -21,16 +21,14 @@
 // L1/L2). Its 2.5-D redesign is later work.
 //
 // wave_multistep_kernel keeps the TPU kernel's idea, intermediate rungs
-// never reach device memory, laid out for an SM (below): T <= 4 rungs a
-// launch, each rung's input a ring of z-planes in shared memory on a tile
-// that grows by 4 in y and x per rung still to come, p_cur streamed in with
-// cp.async one plane ahead, 4 points a thread from float4 loads. One rung a
-// launch (T = 1) is this design's streaming rung kernel. Measured on an H100
-// (PERF.md), T = 1 is the fastest: the rings of T >= 2 rungs fit shared
-// memory only at 16 x 32 tiles, whose halo (recomputed, and read again from
-// L2 for p_prev and vel2) costs more than the device-memory pass a fused
-// rung saves. Left: a register queue for the z-neighbours (5 planes a level
-// instead of 9) so that larger tiles fit and fused rungs pay.
+// never reach device memory, laid out for an SM (below): two rungs a launch
+// (one for the remainder of an odd step count), each thread holding its
+// column's z-neighbours in a register queue and each level's current plane
+// in shared memory, p_cur brought in by cp.async two planes ahead. Two rungs
+// a launch move 5 arrays for 2 steps where one rung a launch moves 8; the
+// halo that the fused rung recomputes (rung 1 on 1.52x the tile's points)
+// is what it costs. Left: more rungs a launch, which the register file does
+// not hold at tiles whose halo pays.
 
 #include <cuda_runtime.h>
 
@@ -78,57 +76,49 @@ __global__ void wave_step_kernel(const float* __restrict__ pp,
 }
 
 // ---------------------------------------------------------------------------
-// Multistep: T rungs of the ladder in one launch, 2.5-D z-streaming.
+// Multistep: T = 1 or 2 rungs of the ladder a launch, 2.5-D z-streaming with
+// register z-queues.
 //
-// Level L (L = 0..T) is the field after L rungs: level 0 is p_cur, level T
-// the launch's new p_cur. A CTA owns a TY x TX output tile and walks z once.
-// Level L lives in shared memory on the tile grown by 4 (T - L) in y and x,
-// as a ring of planes: 10 for level 0 (the plane in flight included), 9 for
-// the others. At step t the CTA brings plane t + 1 of p_cur in with cp.async
-// while rung r computes plane t - 4 r of level r from planes t - 4 r +- 4 of
-// level r - 1 (a wavefront in z) and plane t - 4 r of level r - 2 (p_prev for
-// r = 1, from device memory). A point outside [0, Z) x [0, Y) x [0, X) is
-// +0.0f on every level and is never computed, as the ladder re-pads every
-// rung; halo points inside the domain are recomputed by every CTA that needs
-// them. Only level T - 1 (the new p_prev, centre tile) and level T reach
-// device memory.
-//
-// A thread computes 4 points along x at a time (a quad): its 12 x-values,
-// the 8 y- and 8 z-neighbour quads are 19 float4 loads from shared memory
-// for 4 points, where one point alone needs 25 scalar loads. The vel2 and
-// p_prev values of a step are loaded into registers before the step's
-// barrier, so that their latency overlaps it.
+// Level L is the field after L rungs: level 0 is p_cur, level T the launch's
+// new p_cur. A CTA owns a TY x TX output tile and walks z once; each thread
+// owns one quad (4 points along x) of rung 1's area, the tile grown by 4 in y
+// and x for T = 2 (the points rung 2 reads around the tile). At step t rung
+// 1 computes plane t - 4 of level 1 and rung 2 plane t - 8 of level 2 (a
+// wavefront in z). Each rung's input level lives in shared memory as a ring
+// of the planes from its centre up: 7 p_cur planes on the tile grown by 4 T
+// (t - 4 .. t + 2) and, for T = 2, 5 level-1 planes on rung 1's area (t - 8
+// .. t - 4, written by rung 1). The 4 planes below a rung's centre are a
+// queue in the thread's registers, its own column only: so a quad's rung is
+// 15 float4 loads from shared memory (3 along x, 8 along y, 4 above) and 4
+// from registers, and a level takes 5 planes of shared memory where a ring
+// for both sides takes 9. Every read of device memory is a cp.async issued
+// two steps ahead, one group a step: p_cur's plane t + 2, and p_prev's and
+// vel2's plane t - 2 on rung 1's area into rings of their own (vel2's keeps
+// the planes down to t - 8 for rung 2), so no load's latency is waited on.
+// A point outside [0, Z) x [0, Y) x [0, X) is +0.0f on every level and is
+// never computed, as the ladder re-pads every rung; the halo points of level
+// 1 inside the domain are recomputed by every CTA that needs them. Only level
+// T - 1 (the new p_prev, T = 2) and level T reach device memory.
 
-constexpr int kMsThreads = 256;
-constexpr int kMsPasses = 2;  // quads a thread computes a rung, at most
+constexpr int kZq = 4;    // planes below a rung's centre, in registers
+constexpr int kRing0 = 7;  // p_cur planes in shared memory: t - 4 .. t + 2
+constexpr int kRing1 = 6;  // level-1 planes: t - 9 .. t - 4
+// rung 2 runs 9 planes behind the front: its inputs, level 1 up to plane
+// t - 5, were all written before the step's one barrier
+constexpr int kLag2 = 9;
 
 template <int T, int TY, int TX>
-struct Geo {
+struct Ms {
+  static_assert(T == 1 || T == 2, "one or two rungs a launch");
   static_assert(TX % 4 == 0, "quads along x");
-  __host__ __device__ static constexpr int halo(int L) { return 4 * (T - L); }
-  __host__ __device__ static constexpr int wid(int L) {
-    return TX + 2 * halo(L);
-  }
-  __host__ __device__ static constexpr int area(int L) {
-    return (TY + 2 * halo(L)) * wid(L);
-  }
-  __host__ __device__ static constexpr int passes(int L) {
-    return (area(L) / 4 + kMsThreads - 1) / kMsThreads;
-  }
-  __host__ __device__ static constexpr int planes(int L) {
-    return L == 0 ? 10 : 9;
-  }
-  // first float of level L; offset(T) is the whole shared memory
-  __host__ __device__ static constexpr int offset(int L) {
-    return L == 0 ? 0 : offset(L - 1) + planes(L - 1) * area(L - 1);
-  }
+  static constexpr int H1 = 4 * (T - 1);  // rung 1's area around the tile
+  static constexpr int W1 = TX + 2 * H1, R1 = TY + 2 * H1, A1 = R1 * W1;
+  static constexpr int QW = W1 / 4, NQ = R1 * QW;  // quads, one a thread
+  static constexpr int kThreads = (NQ + 31) / 32 * 32;
+  static constexpr int W0 = W1 + 8, R0 = R1 + 8, A0 = R0 * W0;  // p_cur
+  static constexpr int kFloats = kRing0 * A0 + (T == 2 ? kRing1 * A1 : 0);
+  static constexpr int kMinBlocks = T == 1 ? 5 : 1;
 };
-
-// ring slot of plane z >= -2N
-template <int N>
-__device__ __forceinline__ int ring(int z) {
-  return (z + 2 * N) % N;
-}
 
 // cp.async of `bytes` (4 or 16); src-size 0 zero-fills and reads nothing
 template <int kBytes>
@@ -144,229 +134,202 @@ __device__ __forceinline__ float comp(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-// Where quad q of rung R's area lies: (ly, lx) in the area, (gy, gx) in
-// the field.
-template <int T, int TY, int TX, int R>
-struct Quad {
-  int ly, lx, gy, gx;
-  __device__ __forceinline__ Quad(int q, int y0, int x0) {
-    using G = Geo<T, TY, TX>;
-    constexpr int QW = G::wid(R) / 4, H = G::halo(R);
-    ly = q / QW;
-    lx = 4 * (q % QW);
-    gy = y0 - H + ly;
-    gx = x0 - H + lx;
-  }
-  __device__ __forceinline__ bool in(int j, int Y, int X) const {
-    return gy >= 0 && gy < Y && gx + j >= 0 && gx + j < X;
-  }
-};
-
-// vel2 (and for R = 1 p_prev) of rung R's quads at plane zr, 0 outside.
-template <int T, int TY, int TX, int R>
-__device__ __forceinline__ void fetch(float4* v2r, float4* ppr, int zr,
-                                      const float* __restrict__ pp,
-                                      const float* __restrict__ v2, int Z,
-                                      int Y, int X, int y0, int x0) {
-  using G = Geo<T, TY, TX>;
-  const bool zin = zr >= 0 && zr < Z;
-  const long long zo = (long long)zr * Y * X;
+__device__ __forceinline__ void push(float4 (&q)[kZq], float4 v) {
 #pragma unroll
-  for (int p = 0; p < G::passes(R); ++p) {
-    const int q = threadIdx.x + p * kMsThreads;
-    const Quad<T, TY, TX, R> g(q, y0, x0);
-    float a[4] = {0.f, 0.f, 0.f, 0.f}, b[4] = {0.f, 0.f, 0.f, 0.f};
-    if (zin && q < G::area(R) / 4) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        if (g.in(j, Y, X)) {
-          const long long gi = zo + (long long)g.gy * X + g.gx + j;
-          a[j] = __ldg(v2 + gi);
-          if (R == 1) b[j] = __ldg(pp + gi);
-        }
-      }
-    }
-    v2r[p] = make_float4(a[0], a[1], a[2], a[3]);
-    if (R == 1) ppr[p] = make_float4(b[0], b[1], b[2], b[3]);
-  }
+  for (int i = 0; i < kZq - 1; ++i) q[i] = q[i + 1];
+  q[kZq - 1] = v;
 }
 
-// Rung R at plane zr: level R from levels R - 1 and R - 2.
-template <int T, int TY, int TX, int R>
-__device__ __forceinline__ void rung(float* smem, int zr, const float4* v2r,
-                                     const float4* ppr,
-                                     float* __restrict__ out_prev,
-                                     float* __restrict__ out_cur, int Z,
-                                     int Y, int X, int y0, int x0) {
-  using G = Geo<T, TY, TX>;
-  constexpr int H = G::halo(R), QA = G::area(R) / 4;
-  constexpr int WI = G::wid(R - 1), AI = G::area(R - 1);
-  constexpr int NI = G::planes(R - 1);
-  // level R < T holds planes -4..Z+3 (zeros outside [0, Z)); level T [0, Z)
-  if (zr < (R == T ? 0 : -4) || zr >= (R == T ? Z : Z + 4)) return;
-  const bool zin = zr >= 0 && zr < Z;
-  const float* lin = smem + G::offset(R - 1);
-  const float* in = lin + ring<NI>(zr) * AI;
-  const long long zo = (long long)zr * Y * X;
+// The quad at a[i .. i + 3]; a point whose bit in `in` is clear is 0 and is
+// not read.
+__device__ __forceinline__ float4 load_quad(const float* __restrict__ a,
+                                            long long i, unsigned in,
+                                            bool vec) {
+  if (vec && in == 0xFu) return __ldg((const float4*)(a + i));
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-  for (int p = 0; p < G::passes(R); ++p) {
-    const int q = threadIdx.x + p * kMsThreads;
-    if (q >= QA) break;
-    const Quad<T, TY, TX, R> g(q, y0, x0);
-    const bool any = zin && g.gy >= 0 && g.gy < Y && g.gx + 3 >= 0 &&
-                     g.gx < X;
-    float v[4] = {0.f, 0.f, 0.f, 0.f};
-    if (any) {
-      // level R - 1 index of the quad's first point, (ly + 4, lx + 4)
-      const int ci = (g.ly + 4) * WI + g.lx + 4;
-      float xr[12];
-      const float4* row = (const float4*)(in + ci - 4);
+  for (int j = 0; j < 4; ++j)
+    if (in >> j & 1u) v[j] = __ldg(a + i + j);
+  return make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// Stores the points of a quad that `in` marks.
+__device__ __forceinline__ void store_quad(float* __restrict__ a, long long i,
+                                           float4 v, unsigned in, bool vec) {
+  if (vec && in == 0xFu) {
+    *(float4*)(a + i) = v;
+    return;
+  }
 #pragma unroll
-      for (int i = 0; i < 3; ++i) {
-        const float4 r4 = row[i];
-        xr[4 * i] = r4.x;
-        xr[4 * i + 1] = r4.y;
-        xr[4 * i + 2] = r4.z;
-        xr[4 * i + 3] = r4.w;
-      }
-      float lap[4];
+  for (int j = 0; j < 4; ++j)
+    if (in >> j & 1u) a[i + j] = comp(v, j);
+}
+
+// One rung at a quad. The input level's ring of N planes of A floats (row
+// stride W) in shared memory holds the centre plane in slot `cs` and the
+// planes above it in the next slots; ci is the quad's first point in a
+// plane; q holds the 4 planes below (q[3] next to the centre). Sums in the
+// reference's order; then (2 c - prev) + v2 lap at the points `in` marks,
+// +0.0f at the others. `centre` gets the quad's input values.
+template <int N, int A, int W>
+__device__ __forceinline__ float4 rung_quad(const float* ring, int cs, int ci,
+                                            const float4 (&q)[kZq],
+                                            float4 prev, float4 v2,
+                                            unsigned in, float4& centre) {
+  const float* s = ring + cs * A;
+  float xr[12];
+  const float4* row = (const float4*)(s + ci - 4);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) lap[j] = kC3C0 * xr[4 + j];
+  for (int i = 0; i < 3; ++i) {
+    const float4 r4 = row[i];
+    xr[4 * i] = r4.x;
+    xr[4 * i + 1] = r4.y;
+    xr[4 * i + 2] = r4.z;
+    xr[4 * i + 3] = r4.w;
+  }
+  centre = make_float4(xr[4], xr[5], xr[6], xr[7]);
+  float lap[4];
 #pragma unroll
-      for (int k = 1; k <= kHalo; ++k) {
-        const float4 zp = *(const float4*)(lin + ring<NI>(zr + k) * AI + ci);
-        const float4 zm = *(const float4*)(lin + ring<NI>(zr - k) * AI + ci);
-        const float4 yp = *(const float4*)(in + ci + k * WI);
-        const float4 ym = *(const float4*)(in + ci - k * WI);
+  for (int j = 0; j < 4; ++j) lap[j] = kC3C0 * xr[4 + j];
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          float s = comp(zp, j) + comp(zm, j);
-          s = s + comp(yp, j);
-          s = s + comp(ym, j);
-          s = s + xr[4 + j + k];
-          s = s + xr[4 + j - k];
-          lap[j] = lap[j] + kC[k - 1] * s;
-        }
-      }
-      float4 prev;
-      if constexpr (R == 1) {
-        prev = ppr[p];
-      } else {
-        constexpr int N2 = G::planes(R - 2);
-        prev = *(const float4*)(smem + G::offset(R - 2) +
-                                ring<N2>(zr) * G::area(R - 2) +
-                                (g.ly + 8) * G::wid(R - 2) + g.lx + 8);
-      }
+  for (int k = 1; k <= kHalo; ++k) {
+    const int up = cs + k < N ? cs + k : cs + k - N;
+    const float4 zp = *(const float4*)(ring + up * A + ci);
+    const float4 yp = *(const float4*)(s + ci + k * W);
+    const float4 ym = *(const float4*)(s + ci - k * W);
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (g.in(j, Y, X))
-          v[j] = (2.0f * xr[4 + j] - comp(prev, j)) +
-                 comp(v2r[p], j) * lap[j];
-    }
-    if constexpr (R < T) {
-      *(float4*)(smem + G::offset(R) + ring<9>(zr) * G::area(R) + 4 * q) =
-          make_float4(v[0], v[1], v[2], v[3]);
-      if (R == T - 1 && any && g.ly >= H && g.ly < H + TY && g.lx >= H &&
-          g.lx < H + TX) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          if (g.in(j, Y, X))
-            out_prev[zo + (long long)g.gy * X + g.gx + j] = v[j];
-      }
-    } else if (any) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (g.in(j, Y, X))
-          out_cur[zo + (long long)g.gy * X + g.gx + j] = v[j];
+    for (int j = 0; j < 4; ++j) {
+      float t = comp(zp, j) + comp(q[kZq - k], j);
+      t = t + comp(yp, j);
+      t = t + comp(ym, j);
+      t = t + xr[4 + j + k];
+      t = t + xr[4 + j - k];
+      lap[j] = lap[j] + kC[k - 1] * t;
     }
   }
+  float v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    v[j] = (in >> j & 1u)
+               ? (2.0f * xr[4 + j] - comp(prev, j)) + comp(v2, j) * lap[j]
+               : 0.f;
+  return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// One step t of every rung R..T: fetch their vel2/p_prev, wait for the
-// step's plane, then the rungs in order, one barrier between two.
-template <int T, int TY, int TX, int R>
-__device__ __forceinline__ void rungs_from(float* smem, int t,
-                                          float4 (*v2r)[kMsPasses],
-                                          float4* ppr,
-                                          float* __restrict__ out_prev,
-                                          float* __restrict__ out_cur, int Z,
-                                          int Y, int X, int y0, int x0) {
-  rung<T, TY, TX, R>(smem, t - 4 * R, v2r[R - 1], ppr, out_prev, out_cur, Z,
-                     Y, X, y0, x0);
-  if constexpr (R < T) {
-    __syncthreads();
-    rungs_from<T, TY, TX, R + 1>(smem, t, v2r, ppr, out_prev, out_cur, Z, Y,
-                                 X, y0, x0);
-  }
-}
-
-template <int T, int TY, int TX, int R>
-__device__ __forceinline__ void fetch_from(float4 (*v2r)[kMsPasses],
-                                           float4* ppr, int t,
-                                           const float* __restrict__ pp,
-                                           const float* __restrict__ v2,
-                                           int Z, int Y, int X, int y0,
-                                           int x0) {
-  static_assert(Geo<T, TY, TX>::passes(R) <= kMsPasses, "tile too large");
-  fetch<T, TY, TX, R>(v2r[R - 1], ppr, t - 4 * R, pp, v2, Z, Y, X, y0, x0);
-  if constexpr (R < T)
-    fetch_from<T, TY, TX, R + 1>(v2r, ppr, t, pp, v2, Z, Y, X, y0, x0);
-}
-
-// Issue the copies of plane z of p_cur into level 0's ring: 16 bytes a copy
-// when rows are 16-byte aligned (X % 4 == 0 and an aligned base), else 4.
+// Issue the copies of p_cur's plane z (grown tile) into its ring slot and
+// commit them as one group: zeros for the planes Z .. Z + 3 that rung 1
+// reads above the last, an empty group past them. 16 bytes a copy when rows
+// are 16-byte aligned, else 4.
 template <int T, int TY, int TX>
-__device__ __forceinline__ void load_plane(float* smem, int z,
+__device__ __forceinline__ void load_plane(float* ring, int z,
                                            const float* __restrict__ pc,
                                            int Z, int Y, int X, int y0,
                                            int x0, bool vec) {
-  using G = Geo<T, TY, TX>;
-  constexpr int H0 = G::halo(0), W0 = G::wid(0), A0 = G::area(0);
-  float* dst = smem + ring<10>(z) * A0;
-  const bool zin = z >= 0 && z < Z;
-  const long long zo = (long long)z * Y * X;
-  if (vec) {
-    for (int q = threadIdx.x; q < A0 / 4; q += kMsThreads) {
-      const int gy = y0 - H0 + q / (W0 / 4), gx = x0 - H0 + 4 * (q % (W0 / 4));
-      const bool in = zin && gy >= 0 && gy < Y && gx >= 0 && gx < X;
-      cp_async<16>(dst + 4 * q, in ? pc + zo + (long long)gy * X + gx : pc,
-                   in);
-    }
-  } else {
-    for (int e = threadIdx.x; e < A0; e += kMsThreads) {
-      const int gy = y0 - H0 + e / W0, gx = x0 - H0 + e % W0;
-      const bool in = zin && gy >= 0 && gy < Y && gx >= 0 && gx < X;
-      cp_async<4>(dst + e, in ? pc + zo + (long long)gy * X + gx : pc, in);
+  using G = Ms<T, TY, TX>;
+  constexpr int H0 = G::H1 + 4;
+  if (z < Z + 4) {
+    float* dst = ring + (z % kRing0) * G::A0;
+    const bool zin = z < Z;
+    const long long zo = (long long)z * Y * X;
+    if (vec) {
+      for (int e = threadIdx.x; e < G::A0 / 4; e += G::kThreads) {
+        const int gy = y0 - H0 + e / (G::W0 / 4);
+        const int gx = x0 - H0 + 4 * (e % (G::W0 / 4));
+        const bool in = zin && gy >= 0 && gy < Y && gx >= 0 && gx < X;
+        cp_async<16>(dst + 4 * e, in ? pc + zo + (long long)gy * X + gx : pc,
+                     in);
+      }
+    } else {
+      for (int e = threadIdx.x; e < G::A0; e += G::kThreads) {
+        const int gy = y0 - H0 + e / G::W0, gx = x0 - H0 + e % G::W0;
+        const bool in = zin && gy >= 0 && gy < Y && gx >= 0 && gx < X;
+        cp_async<4>(dst + e, in ? pc + zo + (long long)gy * X + gx : pc, in);
+      }
     }
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Interior (Z, Y, X) fields; out_prev is written when T > 1 (for T = 1 the
+// Interior (Z, Y, X) fields; out_prev is written when T = 2 (for T = 1 the
 // new p_prev is p_cur itself).
 template <int T, int TY, int TX>
-__global__ void __launch_bounds__(kMsThreads)
+__global__ void __launch_bounds__(Ms<T, TY, TX>::kThreads,
+                                  Ms<T, TY, TX>::kMinBlocks)
     wave_multistep_kernel(const float* __restrict__ pp,
                           const float* __restrict__ pc,
                           const float* __restrict__ v2,
                           float* __restrict__ out_prev,
                           float* __restrict__ out_cur, int Z, int Y, int X,
                           bool vec) {
+  using G = Ms<T, TY, TX>;
   extern __shared__ float4 smem4[];
-  float* smem = (float*)smem4;
+  float* ring0 = (float*)smem4;
+  float* ring1 = ring0 + kRing0 * G::A0;
   const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  float4 v2r[T][kMsPasses], ppr[kMsPasses];
+  const int qi = threadIdx.x;
+  const bool own = qi < G::NQ;
+  const int ly = own ? qi / G::QW : 0, lx = own ? 4 * (qi % G::QW) : 0;
+  const int gy = y0 - G::H1 + ly, gx = x0 - G::H1 + lx;
+  unsigned in_yx = 0u;  // the quad's points inside [0, Y) x [0, X)
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    if (own && gy >= 0 && gy < Y && gx + j >= 0 && gx + j < X)
+      in_yx |= 1u << j;
+  // T = 2: the quad is in the output tile
+  const bool out2 = ly >= G::H1 && ly < G::H1 + TY && lx >= G::H1 &&
+                    lx < G::H1 + TX;
+  const long long col = (long long)gy * X + gx, plane = (long long)Y * X;
+  const int c0 = (ly + 4) * G::W0 + lx + 4;  // the quad in a p_cur plane
+  const int c1 = ly * G::W1 + lx;            // and in a level-1 plane
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  // levels 0 and 1 below their rung's centre: planes t - 8 .. t - 5 and
+  // t - 12 .. t - 9 (zeros below the domain)
+  float4 q0[kZq], q1[kZq];
+#pragma unroll
+  for (int i = 0; i < kZq; ++i) q0[i] = q1[i] = zero;
 
-  load_plane<T, TY, TX>(smem, -4, pc, Z, Y, X, y0, x0, vec);
-  // rung T's last plane, Z - 1, is computed at step Z - 1 + 4 T
-  for (int t = -4; t < Z + 4 * T; ++t) {
-    fetch_from<T, TY, TX, 1>(v2r, ppr, t, pp, v2, Z, Y, X, y0, x0);
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-    __syncthreads();  // plane t landed; step t - 1 is done with its slots
-    if (t + 1 < Z + 4)  // rung 1 reads up to plane Z + 3
-      load_plane<T, TY, TX>(smem, t + 1, pc, Z, Y, X, y0, x0, vec);
-    rungs_from<T, TY, TX, 1>(smem, t, v2r, ppr, out_prev, out_cur, Z, Y, X,
-                             y0, x0);
+  load_plane<T, TY, TX>(ring0, 0, pc, Z, Y, X, y0, x0, vec);
+  load_plane<T, TY, TX>(ring0, 1, pc, Z, Y, X, y0, x0, vec);
+  int s0 = kRing0 - 4;  // ring-0 slot of plane t - 4
+  int s1 = kRing1 - 3;  // ring-1 slot of plane t - 9
+  float4 prev2 = zero;  // level 0 at plane t - 9: rung 2's p_prev
+  // rung T's last plane, Z - 1, is computed at step Z - 1 + its lag
+  for (int t = 0; t < Z + (T == 1 ? 4 : kLag2); ++t) {
+    const int z1 = t - 4, z2 = t - kLag2;
+    const unsigned in1 = z1 >= 0 && z1 < Z ? in_yx : 0u;
+    const unsigned in2 = T == 2 && out2 && z2 >= 0 && z2 < Z ? in_yx : 0u;
+    // this step's p_prev and vel2, loaded before the barrier
+    const float4 pp1 = load_quad(pp, z1 * plane + col, in1, vec);
+    const float4 v21 = load_quad(v2, z1 * plane + col, in1, vec);
+    const float4 v22 = load_quad(v2, z2 * plane + col, in2, vec);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();  // plane t landed; every thread is past step t - 1
+    load_plane<T, TY, TX>(ring0, t + 2, pc, Z, Y, X, y0, x0, vec);
+    float4 c = zero, v1 = zero;
+    if (in1)
+      v1 = rung_quad<kRing0, G::A0, G::W0>(ring0, s0, c0, q0, pp1, v21, in1,
+                                           c);
+    if constexpr (T == 1) {
+      store_quad(out_cur, z1 * plane + col, v1, in1, vec);
+    } else {
+      float4 c2 = zero;
+      if (in2)
+        store_quad(out_cur, z2 * plane + col,
+                   rung_quad<kRing1, G::A1, G::W1>(ring1, s1, c1, q1, prev2,
+                                                   v22, in2, c2),
+                   in2, vec);
+      push(q1, c2);
+      // rung 1's plane t - 4 goes into the slot of plane t - 10, which no
+      // rung reads this step: after rung 2, so that the two rungs' loads
+      // and arithmetic interleave
+      if (out2) store_quad(out_prev, z1 * plane + col, v1, in1, vec);
+      const int w1 = s1 + 5 < kRing1 ? s1 + 5 : s1 + 5 - kRing1;
+      if (own) *(float4*)(ring1 + w1 * G::A1 + c1) = v1;
+      prev2 = q0[0];
+      s1 = s1 == kRing1 - 1 ? 0 : s1 + 1;
+    }
+    push(q0, c);
+    s0 = s0 == kRing0 - 1 ? 0 : s0 + 1;
   }
 }
 
@@ -374,22 +337,26 @@ template <int T, int TY, int TX>
 int launch_multistep(const void* pp, const void* pc, const void* v2,
                      void* out_prev, void* out_cur, int Z, int Y, int X,
                      cudaStream_t stream) {
-  const int smem = Geo<T, TY, TX>::offset(T) * (int)sizeof(float);
+  using G = Ms<T, TY, TX>;
+  const int smem = G::kFloats * (int)sizeof(float);
   auto kern = wave_multistep_kernel<T, TY, TX>;
   const cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((X + TX - 1) / TX, (Y + TY - 1) / TY);
-  const bool vec = X % 4 == 0 && (size_t)pc % 16 == 0;
-  kern<<<grid, kMsThreads, smem, stream>>>(
+  bool vec = X % 4 == 0;
+  for (const void* p : {pp, pc, v2, (const void*)out_prev, (const void*)out_cur})
+    vec &= (size_t)p % 16 == 0;
+  kern<<<grid, G::kThreads, smem, stream>>>(
       (const float*)pp, (const float*)pc, (const float*)v2, (float*)out_prev,
       (float*)out_cur, Z, Y, X, vec);
   return (int)cudaGetLastError();
 }
 
-// The output tile of each rung count: it shrinks as the rungs grow so that
-// the rings fit in shared memory.
-#define MULTISTEP_TILES(X) X(1, 32, 32) X(2, 16, 32) X(3, 16, 32) X(4, 16, 16)
+// The output tile of each rung count: 16 x 32 at one rung (128 threads, 5
+// CTAs an SM), 24 x 56 at two (rung 1's area 32 x 64, 512 threads, one CTA
+// an SM).
+#define MULTISTEP_TILES(X) X(1, 16, 32) X(2, 24, 56)
 dim3 grid_of(int Z, int Y, int X) {
   return dim3((X + kBX - 1) / kBX, (Y + kBY - 1) / kBY, Z);
 }
@@ -407,7 +374,7 @@ int stencil_wave_step(const void* pp, const void* pc, const void* v2, void* pn,
   return (int)cudaGetLastError();
 }
 
-// `rungs` (1..4) steps of the ladder on interior (Z, Y, X) fields in one
+// `rungs` (1 or 2) steps of the ladder on interior (Z, Y, X) fields in one
 // launch: out_cur = p_cur after them, out_prev = p_prev after them (not
 // written when rungs = 1).
 int stencil_wave_multistep(const void* pp, const void* pc, const void* v2,
@@ -429,7 +396,7 @@ int stencil_wave_multistep(const void* pp, const void* pc, const void* v2,
 int stencil_multistep_smem_bytes(int rungs) {
 #define CASE(T, TY, TX) \
   case T:               \
-    return Geo<T, TY, TX>::offset(T) * (int)sizeof(float);
+    return Ms<T, TY, TX>::kFloats * (int)sizeof(float);
   switch (rungs) {
     MULTISTEP_TILES(CASE)
     default:

@@ -4,24 +4,19 @@
 and ``wave_multistep`` replaces ``wave_multistep_pallas``. The TPU
 multistep kernel keeps all rungs of a ``(Z, 3K, X)`` y-tile on chip;
 that tile (159 MB at the paper's block) cannot fit an SM, so the Hopper
-kernel fuses ``rungs`` (at most ``MAX_RUNGS``) rungs a launch instead: a
-CTA streams its (y, x) tile along z and keeps each intermediate rung as
-a ring of planes in shared memory, the zero boundary applied by index on
-every rung (no ``pad_bc`` copies), any Y. ``rung_groups`` splits
-``steps`` into launches of ``rungs`` and one remainder launch; ``RUNGS``
-is the count measured fastest on the (240, 1152, 1152) block
-(``chip_smoke.py``, PERF.md): 1, because at the tiles whose rings fit
-in shared memory (16 x 32 at 2 rungs) the halo that a fused rung
-recomputes and reads costs more than the pass over device memory it
-saves. The bound is bytes: 5 arrays once per call (1.90 ms at that
-block and 12 steps on an H100); each launch moves 4 arrays (one rung)
-or 5 (fused rungs).
+version runs the ladder's rungs as one launch each over ping-pong
+device buffers. Each launch is a 2.5-D z-streaming kernel: a CTA walks
+its (y, x) tile along z with the z-neighbours below the centre in a
+register queue and p_cur's planes in shared memory, the zero boundary
+applied by index instead of ``pad_bc`` copies, any Y. A rung moves 4
+arrays (p_prev, p_cur, vel2 in; p_next out); the call's bound is 5
+arrays once (1.90 ms at the (240, 1152, 1152) block and 12 steps on an
+H100), which only fused rungs could approach: two rungs a launch of
+the same design were not faster on the H100, so none are fused.
 
 On a CPU tensor each wrapper runs the plain version (``ref``); on a
-CUDA tensor it launches the kernel or raises. ``launches`` counts calls
-that reach the card, one per ``wave_step`` and one per
-``wave_multistep``; ``device_launches`` counts the multistep kernel's
-launches (one per rung group).
+CUDA tensor it launches the kernel or raises. ``launches`` counts kernel
+launches: one per ``wave_step`` call, one per rung of ``wave_multistep``.
 """
 
 from __future__ import annotations
@@ -36,37 +31,14 @@ from repro_torch.kernels.stencil import ref
 from repro_torch.kernels.stencil.ref import HALO
 
 launches = {"wave_step": 0, "wave_multistep": 0}
-device_launches = {"wave_multistep": 0}
-
-MAX_RUNGS = 4
-# rungs a launch: the fastest of 1..4 at (240, 1152, 1152) on an H100
-# (PERF.md): a fused rung's halo costs more than the pass it saves
-RUNGS = 1
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 
 
 def reset_launches() -> None:
-    for counts in (launches, device_launches):
-        for k in counts:
-            counts[k] = 0
-
-
-def rung_groups(steps: int, rungs: int):
-    """Rungs of each launch: ``steps // rungs`` launches of ``rungs``,
-    then one of the remainder, if any."""
-    if not 1 <= rungs <= MAX_RUNGS:
-        raise ValueError(f"rungs must be 1..{MAX_RUNGS}, got {rungs}")
-    n, rem = divmod(int(steps), rungs)
-    return [rungs] * n + ([rem] if rem else [])
-
-
-def smem_bytes(rungs: int) -> int:
-    """Dynamic shared memory of one multistep CTA at ``rungs`` (CUDA
-    build only)."""
-    fn = _build.bind("stencil", "stencil_multistep_smem_bytes", [_I])
-    return int(fn(int(rungs)))
+    for k in launches:
+        launches[k] = 0
 
 
 def _require(shape, *tensors: torch.Tensor) -> None:
@@ -107,16 +79,25 @@ def wave_step(p_prev: torch.Tensor, p_cur: torch.Tensor, vel2: torch.Tensor
     return p_next, lap
 
 
+def rung_groups(steps: int):
+    """Rungs of each multistep launch: two a launch, then one for an
+    odd count."""
+    return [2] * (steps // 2) + [1] * (steps % 2)
+
+
 def wave_multistep(p_prev: torch.Tensor, p_cur: torch.Tensor,
-                   vel2: torch.Tensor, steps: int, rungs: int = None
+                   vel2: torch.Tensor, steps: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``steps`` steps on interior (Z, Y, X) fields with the zero BC
     re-applied every rung: (p_prev, p_cur) after ``steps`` steps, bit
-    for bit ``ref.ladder_steps``; ``rungs`` fused a launch (default
-    ``RUNGS``). The inputs are not modified."""
-    groups = rung_groups(steps, RUNGS if rungs is None else rungs)
+    for bit ``ref.ladder_steps``. The inputs are not modified."""
+    return launch_groups(p_prev, p_cur, vel2, rung_groups(steps))
+
+
+def launch_groups(p_prev, p_cur, vel2, groups):
+    """The ladder as one launch per entry of ``groups`` (1 or 2 rungs)."""
     if p_cur.device.type == "cpu":
-        return ref.ladder_steps(p_prev, p_cur, vel2, steps)
+        return ref.ladder_steps(p_prev, p_cur, vel2, sum(groups))
     shape = tuple(p_cur.shape)
     if len(shape) != 3 or tuple(p_prev.shape) != shape:
         raise ValueError("p_prev, p_cur and vel2 must share one 3-D shape")
@@ -128,17 +109,14 @@ def wave_multistep(p_prev: torch.Tensor, p_cur: torch.Tensor,
     free = []  # buffers of this call no launch still reads
     for t in groups:
         out_c = free.pop() if free else torch.empty_like(p_cur)
-        out_p = None
-        if t > 1:
-            out_p = free.pop() if free else torch.empty_like(p_cur)
+        out_p = (free.pop() if free else torch.empty_like(p_cur)) \
+            if t > 1 else None
         err = fn(pp.data_ptr(), pc.data_ptr(), vel2.data_ptr(),
                  None if out_p is None else out_p.data_ptr(),
                  out_c.data_ptr(), z, y, x, t, _stream())
         _build.check("stencil", err, "stencil_wave_multistep")
-        device_launches["wave_multistep"] += 1
+        launches["wave_multistep"] += 1
         done = (pp, pc) if t > 1 else (pp,)
         free += [b for b in done if b is not p_prev and b is not p_cur]
         pp, pc = (out_p, out_c) if t > 1 else (pc, out_c)
-    if groups:
-        launches["wave_multistep"] += 1
     return pp, pc
