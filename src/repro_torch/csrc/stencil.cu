@@ -2,7 +2,7 @@
 // Hopper (sm_90a).
 //
 // wave_step_kernel replaces wave_step_pallas (_wave_kernel) and
-// wave_multistep_kernel replaces wave_multistep_pallas (_multistep_kernel),
+// wave_rung_kernel replaces wave_multistep_pallas (_multistep_kernel),
 // both in src/repro/kernels/stencil/kernel.py. Bit for bit equal to the plain
 // PyTorch version, src/repro_torch/kernels/stencil/ref.py (wave_step and
 // ladder_steps): the build uses -fmad=false and every sum is taken in the
@@ -20,15 +20,16 @@
 // from device memory (x fastest across the warp; the y/z planes hit in
 // L1/L2). Its 2.5-D redesign is later work.
 //
-// wave_multistep_kernel keeps the TPU kernel's idea, intermediate rungs
-// never reach device memory, laid out for an SM (below): two rungs a launch
-// (one for the remainder of an odd step count), each thread holding its
-// column's z-neighbours in a register queue and each level's current plane
-// in shared memory, p_cur brought in by cp.async two planes ahead. Two rungs
-// a launch move 5 arrays for 2 steps where one rung a launch moves 8; the
-// halo that the fused rung recomputes (rung 1 on 1.52x the tile's points)
-// is what it costs. Left: more rungs a launch, which the register file does
-// not hold at tiles whose halo pays.
+// wave_rung_kernel, one launch a rung of the ladder, is a 2.5-D z-streaming
+// kernel (below): a CTA walks its tile's column along z, the z-neighbours
+// below the centre in a register queue and p_cur's planes in shared memory,
+// brought in by cp.async two planes ahead. It moves 4 arrays a rung (p_prev,
+// p_cur, vel2 in, p_next out), so a 12-step call is bound by 48 array passes
+// where the TPU kernel's fused rungs need 5; on an H100 it runs at about 80%
+// of the memory rate. Left: fused rungs (the TPU kernel's design, the
+// intermediate rungs kept on chip). Two rungs a launch of this design did
+// not beat one: rung 1's halo and both levels' queues leave one CTA an SM,
+// held by its on-chip work, not by bytes.
 
 #include <cuda_runtime.h>
 
@@ -76,49 +77,30 @@ __global__ void wave_step_kernel(const float* __restrict__ pp,
 }
 
 // ---------------------------------------------------------------------------
-// Multistep: T = 1 or 2 rungs of the ladder a launch, 2.5-D z-streaming with
-// register z-queues.
+// One rung of the multistep ladder a launch, 2.5-D z-streaming with a
+// register z-queue.
 //
-// Level L is the field after L rungs: level 0 is p_cur, level T the launch's
-// new p_cur. A CTA owns a TY x TX output tile and walks z once; each thread
-// owns one quad (4 points along x) of rung 1's area, the tile grown by 4 in y
-// and x for T = 2 (the points rung 2 reads around the tile). At step t rung
-// 1 computes plane t - 4 of level 1 and rung 2 plane t - 8 of level 2 (a
-// wavefront in z). Each rung's input level lives in shared memory as a ring
-// of the planes from its centre up: 7 p_cur planes on the tile grown by 4 T
-// (t - 4 .. t + 2) and, for T = 2, 5 level-1 planes on rung 1's area (t - 8
-// .. t - 4, written by rung 1). The 4 planes below a rung's centre are a
-// queue in the thread's registers, its own column only: so a quad's rung is
-// 15 float4 loads from shared memory (3 along x, 8 along y, 4 above) and 4
-// from registers, and a level takes 5 planes of shared memory where a ring
-// for both sides takes 9. Every read of device memory is a cp.async issued
-// two steps ahead, one group a step: p_cur's plane t + 2, and p_prev's and
-// vel2's plane t - 2 on rung 1's area into rings of their own (vel2's keeps
-// the planes down to t - 8 for rung 2), so no load's latency is waited on.
-// A point outside [0, Z) x [0, Y) x [0, X) is +0.0f on every level and is
-// never computed, as the ladder re-pads every rung; the halo points of level
-// 1 inside the domain are recomputed by every CTA that needs them. Only level
-// T - 1 (the new p_prev, T = 2) and level T reach device memory.
+// A CTA owns a TY x TX output tile and walks z once; each thread owns one
+// quad (4 points along x). At step t the CTA computes plane t - 4. p_cur's
+// planes t - 4 .. t + 2 sit in shared memory as a ring on the tile grown by
+// 4 (p_cur arrives by cp.async two planes ahead): the centre plane gives the
+// x- and y-neighbours, the planes above it the z+ ones. The 4 planes below
+// the centre are a queue in the thread's registers, its own column only. So
+// a quad is 15 float4 loads from shared memory (3 along x, 8 along y, 4
+// above) and 4 from registers, where a ring of 9 planes in shared memory
+// takes 19 and needs twice the shared memory. Each thread loads its quad's
+// p_prev and vel2 before the step's barrier. A point outside [0, Z) x [0, Y)
+// x [0, X) is +0.0f and is never computed, as the ladder re-pads every rung.
 
-constexpr int kZq = 4;    // planes below a rung's centre, in registers
-constexpr int kRing0 = 7;  // p_cur planes in shared memory: t - 4 .. t + 2
-constexpr int kRing1 = 6;  // level-1 planes: t - 9 .. t - 4
-// rung 2 runs 9 planes behind the front: its inputs, level 1 up to plane
-// t - 5, were all written before the step's one barrier
-constexpr int kLag2 = 9;
-
-template <int T, int TY, int TX>
-struct Ms {
-  static_assert(T == 1 || T == 2, "one or two rungs a launch");
-  static_assert(TX % 4 == 0, "quads along x");
-  static constexpr int H1 = 4 * (T - 1);  // rung 1's area around the tile
-  static constexpr int W1 = TX + 2 * H1, R1 = TY + 2 * H1, A1 = R1 * W1;
-  static constexpr int QW = W1 / 4, NQ = R1 * QW;  // quads, one a thread
-  static constexpr int kThreads = (NQ + 31) / 32 * 32;
-  static constexpr int W0 = W1 + 8, R0 = R1 + 8, A0 = R0 * W0;  // p_cur
-  static constexpr int kFloats = kRing0 * A0 + (T == 2 ? kRing1 * A1 : 0);
-  static constexpr int kMinBlocks = T == 1 ? 5 : 1;
-};
+constexpr int kRungThreads = 128;
+constexpr int kTY = 16, kTX = 32;  // the output tile: 5 CTAs an SM
+constexpr int kQW = kTX / 4;       // quads a row
+constexpr int kZq = 4;             // planes below the centre, in registers
+constexpr int kRing = 7;           // p_cur planes in shared memory: t - 4 .. t + 2
+constexpr int kW0 = kTX + 8, kR0 = kTY + 8, kA0 = kR0 * kW0;  // grown tile
+constexpr int kRungSmem = kRing * kA0 * (int)sizeof(float);
+static_assert(kTY * kQW == kRungThreads, "one quad a thread");
+static_assert(kRungSmem <= 48 * 1024, "no opt-in to more shared memory");
 
 // cp.async of `bytes` (4 or 16); src-size 0 zero-fills and reads nothing
 template <int kBytes>
@@ -134,12 +116,6 @@ __device__ __forceinline__ float comp(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
 
-__device__ __forceinline__ void push(float4 (&q)[kZq], float4 v) {
-#pragma unroll
-  for (int i = 0; i < kZq - 1; ++i) q[i] = q[i + 1];
-  q[kZq - 1] = v;
-}
-
 // The quad at a[i .. i + 3]; a point whose bit in `in` is clear is 0 and is
 // not read.
 __device__ __forceinline__ float4 load_quad(const float* __restrict__ a,
@@ -153,95 +129,28 @@ __device__ __forceinline__ float4 load_quad(const float* __restrict__ a,
   return make_float4(v[0], v[1], v[2], v[3]);
 }
 
-// Stores the points of a quad that `in` marks.
-__device__ __forceinline__ void store_quad(float* __restrict__ a, long long i,
-                                           float4 v, unsigned in, bool vec) {
-  if (vec && in == 0xFu) {
-    *(float4*)(a + i) = v;
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    if (in >> j & 1u) a[i + j] = comp(v, j);
-}
-
-// One rung at a quad. The input level's ring of N planes of A floats (row
-// stride W) in shared memory holds the centre plane in slot `cs` and the
-// planes above it in the next slots; ci is the quad's first point in a
-// plane; q holds the 4 planes below (q[3] next to the centre). Sums in the
-// reference's order; then (2 c - prev) + v2 lap at the points `in` marks,
-// +0.0f at the others. `centre` gets the quad's input values.
-template <int N, int A, int W>
-__device__ __forceinline__ float4 rung_quad(const float* ring, int cs, int ci,
-                                            const float4 (&q)[kZq],
-                                            float4 prev, float4 v2,
-                                            unsigned in, float4& centre) {
-  const float* s = ring + cs * A;
-  float xr[12];
-  const float4* row = (const float4*)(s + ci - 4);
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const float4 r4 = row[i];
-    xr[4 * i] = r4.x;
-    xr[4 * i + 1] = r4.y;
-    xr[4 * i + 2] = r4.z;
-    xr[4 * i + 3] = r4.w;
-  }
-  centre = make_float4(xr[4], xr[5], xr[6], xr[7]);
-  float lap[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j) lap[j] = kC3C0 * xr[4 + j];
-#pragma unroll
-  for (int k = 1; k <= kHalo; ++k) {
-    const int up = cs + k < N ? cs + k : cs + k - N;
-    const float4 zp = *(const float4*)(ring + up * A + ci);
-    const float4 yp = *(const float4*)(s + ci + k * W);
-    const float4 ym = *(const float4*)(s + ci - k * W);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      float t = comp(zp, j) + comp(q[kZq - k], j);
-      t = t + comp(yp, j);
-      t = t + comp(ym, j);
-      t = t + xr[4 + j + k];
-      t = t + xr[4 + j - k];
-      lap[j] = lap[j] + kC[k - 1] * t;
-    }
-  }
-  float v[4];
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    v[j] = (in >> j & 1u)
-               ? (2.0f * xr[4 + j] - comp(prev, j)) + comp(v2, j) * lap[j]
-               : 0.f;
-  return make_float4(v[0], v[1], v[2], v[3]);
-}
-
 // Issue the copies of p_cur's plane z (grown tile) into its ring slot and
-// commit them as one group: zeros for the planes Z .. Z + 3 that rung 1
-// reads above the last, an empty group past them. 16 bytes a copy when rows
-// are 16-byte aligned, else 4.
-template <int T, int TY, int TX>
+// commit them as one group: zeros for the planes Z .. Z + 3 read above the
+// last, an empty group past them. 16 bytes a copy when rows are 16-byte
+// aligned, else 4.
 __device__ __forceinline__ void load_plane(float* ring, int z,
                                            const float* __restrict__ pc,
                                            int Z, int Y, int X, int y0,
                                            int x0, bool vec) {
-  using G = Ms<T, TY, TX>;
-  constexpr int H0 = G::H1 + 4;
   if (z < Z + 4) {
-    float* dst = ring + (z % kRing0) * G::A0;
+    float* dst = ring + (z % kRing) * kA0;
     const bool zin = z < Z;
     const long long zo = (long long)z * Y * X;
     if (vec) {
-      for (int e = threadIdx.x; e < G::A0 / 4; e += G::kThreads) {
-        const int gy = y0 - H0 + e / (G::W0 / 4);
-        const int gx = x0 - H0 + 4 * (e % (G::W0 / 4));
+      for (int e = threadIdx.x; e < kA0 / 4; e += kRungThreads) {
+        const int gy = y0 - 4 + e / (kW0 / 4), gx = x0 - 4 + 4 * (e % (kW0 / 4));
         const bool in = zin && gy >= 0 && gy < Y && gx >= 0 && gx < X;
         cp_async<16>(dst + 4 * e, in ? pc + zo + (long long)gy * X + gx : pc,
                      in);
       }
     } else {
-      for (int e = threadIdx.x; e < G::A0; e += G::kThreads) {
-        const int gy = y0 - H0 + e / G::W0, gx = x0 - H0 + e % G::W0;
+      for (int e = threadIdx.x; e < kA0; e += kRungThreads) {
+        const int gy = y0 - 4 + e / kW0, gx = x0 - 4 + e % kW0;
         const bool in = zin && gy >= 0 && gy < Y && gx >= 0 && gx < X;
         cp_async<4>(dst + e, in ? pc + zo + (long long)gy * X + gx : pc, in);
       }
@@ -250,113 +159,96 @@ __device__ __forceinline__ void load_plane(float* ring, int z,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Interior (Z, Y, X) fields; out_prev is written when T = 2 (for T = 1 the
-// new p_prev is p_cur itself).
-template <int T, int TY, int TX>
-__global__ void __launch_bounds__(Ms<T, TY, TX>::kThreads,
-                                  Ms<T, TY, TX>::kMinBlocks)
-    wave_multistep_kernel(const float* __restrict__ pp,
-                          const float* __restrict__ pc,
-                          const float* __restrict__ v2,
-                          float* __restrict__ out_prev,
-                          float* __restrict__ out_cur, int Z, int Y, int X,
-                          bool vec) {
-  using G = Ms<T, TY, TX>;
+// Interior (Z, Y, X) fields: pn = one ladder step from (pp, pc).
+__global__ void __launch_bounds__(kRungThreads, 5)
+    wave_rung_kernel(const float* __restrict__ pp,
+                     const float* __restrict__ pc,
+                     const float* __restrict__ v2, float* __restrict__ pn,
+                     int Z, int Y, int X, bool vec) {
   extern __shared__ float4 smem4[];
-  float* ring0 = (float*)smem4;
-  float* ring1 = ring0 + kRing0 * G::A0;
-  const int y0 = blockIdx.y * TY, x0 = blockIdx.x * TX;
-  const int qi = threadIdx.x;
-  const bool own = qi < G::NQ;
-  const int ly = own ? qi / G::QW : 0, lx = own ? 4 * (qi % G::QW) : 0;
-  const int gy = y0 - G::H1 + ly, gx = x0 - G::H1 + lx;
+  float* ring = (float*)smem4;
+  const int y0 = blockIdx.y * kTY, x0 = blockIdx.x * kTX;
+  const int ly = threadIdx.x / kQW, lx = 4 * (threadIdx.x % kQW);
+  const int gy = y0 + ly, gx = x0 + lx;
   unsigned in_yx = 0u;  // the quad's points inside [0, Y) x [0, X)
 #pragma unroll
   for (int j = 0; j < 4; ++j)
-    if (own && gy >= 0 && gy < Y && gx + j >= 0 && gx + j < X)
-      in_yx |= 1u << j;
-  // T = 2: the quad is in the output tile
-  const bool out2 = ly >= G::H1 && ly < G::H1 + TY && lx >= G::H1 &&
-                    lx < G::H1 + TX;
+    if (gy < Y && gx + j < X) in_yx |= 1u << j;
   const long long col = (long long)gy * X + gx, plane = (long long)Y * X;
-  const int c0 = (ly + 4) * G::W0 + lx + 4;  // the quad in a p_cur plane
-  const int c1 = ly * G::W1 + lx;            // and in a level-1 plane
+  const int ci = (ly + 4) * kW0 + lx + 4;  // the quad in a ring plane
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-  // levels 0 and 1 below their rung's centre: planes t - 8 .. t - 5 and
-  // t - 12 .. t - 9 (zeros below the domain)
-  float4 q0[kZq], q1[kZq];
+  float4 q[kZq];  // p_cur at planes t - 8 .. t - 5 (zeros below the domain)
 #pragma unroll
-  for (int i = 0; i < kZq; ++i) q0[i] = q1[i] = zero;
+  for (int i = 0; i < kZq; ++i) q[i] = zero;
 
-  load_plane<T, TY, TX>(ring0, 0, pc, Z, Y, X, y0, x0, vec);
-  load_plane<T, TY, TX>(ring0, 1, pc, Z, Y, X, y0, x0, vec);
-  int s0 = kRing0 - 4;  // ring-0 slot of plane t - 4
-  int s1 = kRing1 - 3;  // ring-1 slot of plane t - 9
-  float4 prev2 = zero;  // level 0 at plane t - 9: rung 2's p_prev
-  // rung T's last plane, Z - 1, is computed at step Z - 1 + its lag
-  for (int t = 0; t < Z + (T == 1 ? 4 : kLag2); ++t) {
-    const int z1 = t - 4, z2 = t - kLag2;
-    const unsigned in1 = z1 >= 0 && z1 < Z ? in_yx : 0u;
-    const unsigned in2 = T == 2 && out2 && z2 >= 0 && z2 < Z ? in_yx : 0u;
+  load_plane(ring, 0, pc, Z, Y, X, y0, x0, vec);
+  load_plane(ring, 1, pc, Z, Y, X, y0, x0, vec);
+  int cs = kRing - 4;  // ring slot of plane t - 4
+  // plane Z - 1 is computed at step Z + 3
+  for (int t = 0; t < Z + 4; ++t) {
+    const int zc = t - 4;
+    const unsigned in = zc >= 0 && zc < Z ? in_yx : 0u;
     // this step's p_prev and vel2, loaded before the barrier
-    const float4 pp1 = load_quad(pp, z1 * plane + col, in1, vec);
-    const float4 v21 = load_quad(v2, z1 * plane + col, in1, vec);
-    const float4 v22 = load_quad(v2, z2 * plane + col, in2, vec);
+    const float4 prev = load_quad(pp, zc * plane + col, in, vec);
+    const float4 vel = load_quad(v2, zc * plane + col, in, vec);
     asm volatile("cp.async.wait_group 1;\n" ::: "memory");
     __syncthreads();  // plane t landed; every thread is past step t - 1
-    load_plane<T, TY, TX>(ring0, t + 2, pc, Z, Y, X, y0, x0, vec);
-    float4 c = zero, v1 = zero;
-    if (in1)
-      v1 = rung_quad<kRing0, G::A0, G::W0>(ring0, s0, c0, q0, pp1, v21, in1,
-                                           c);
-    if constexpr (T == 1) {
-      store_quad(out_cur, z1 * plane + col, v1, in1, vec);
-    } else {
-      float4 c2 = zero;
-      if (in2)
-        store_quad(out_cur, z2 * plane + col,
-                   rung_quad<kRing1, G::A1, G::W1>(ring1, s1, c1, q1, prev2,
-                                                   v22, in2, c2),
-                   in2, vec);
-      push(q1, c2);
-      // rung 1's plane t - 4 goes into the slot of plane t - 10, which no
-      // rung reads this step: after rung 2, so that the two rungs' loads
-      // and arithmetic interleave
-      if (out2) store_quad(out_prev, z1 * plane + col, v1, in1, vec);
-      const int w1 = s1 + 5 < kRing1 ? s1 + 5 : s1 + 5 - kRing1;
-      if (own) *(float4*)(ring1 + w1 * G::A1 + c1) = v1;
-      prev2 = q0[0];
-      s1 = s1 == kRing1 - 1 ? 0 : s1 + 1;
+    load_plane(ring, t + 2, pc, Z, Y, X, y0, x0, vec);
+    float4 c = zero;
+    if (in) {
+      // the centre row from x - 4 to x + 7, then the sums in the
+      // reference's order
+      const float* s = ring + cs * kA0;
+      float xr[12];
+      const float4* row = (const float4*)(s + ci - 4);
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const float4 r4 = row[i];
+        xr[4 * i] = r4.x;
+        xr[4 * i + 1] = r4.y;
+        xr[4 * i + 2] = r4.z;
+        xr[4 * i + 3] = r4.w;
+      }
+      c = make_float4(xr[4], xr[5], xr[6], xr[7]);
+      float lap[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) lap[j] = kC3C0 * xr[4 + j];
+#pragma unroll
+      for (int k = 1; k <= kHalo; ++k) {
+        const int up = cs + k < kRing ? cs + k : cs + k - kRing;
+        const float4 zp = *(const float4*)(ring + up * kA0 + ci);
+        const float4 yp = *(const float4*)(s + ci + k * kW0);
+        const float4 ym = *(const float4*)(s + ci - k * kW0);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float sum = comp(zp, j) + comp(q[kZq - k], j);
+          sum = sum + comp(yp, j);
+          sum = sum + comp(ym, j);
+          sum = sum + xr[4 + j + k];
+          sum = sum + xr[4 + j - k];
+          lap[j] = lap[j] + kC[k - 1] * sum;
+        }
+      }
+      float v[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        v[j] = (2.0f * xr[4 + j] - comp(prev, j)) + comp(vel, j) * lap[j];
+      const long long i = zc * plane + col;
+      if (vec && in == 0xFu) {
+        *(float4*)(pn + i) = make_float4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (in >> j & 1u) pn[i + j] = v[j];
+      }
     }
-    push(q0, c);
-    s0 = s0 == kRing0 - 1 ? 0 : s0 + 1;
+#pragma unroll
+    for (int i = 0; i < kZq - 1; ++i) q[i] = q[i + 1];
+    q[kZq - 1] = c;
+    cs = cs == kRing - 1 ? 0 : cs + 1;
   }
 }
 
-template <int T, int TY, int TX>
-int launch_multistep(const void* pp, const void* pc, const void* v2,
-                     void* out_prev, void* out_cur, int Z, int Y, int X,
-                     cudaStream_t stream) {
-  using G = Ms<T, TY, TX>;
-  const int smem = G::kFloats * (int)sizeof(float);
-  auto kern = wave_multistep_kernel<T, TY, TX>;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((X + TX - 1) / TX, (Y + TY - 1) / TY);
-  bool vec = X % 4 == 0;
-  for (const void* p : {pp, pc, v2, (const void*)out_prev, (const void*)out_cur})
-    vec &= (size_t)p % 16 == 0;
-  kern<<<grid, G::kThreads, smem, stream>>>(
-      (const float*)pp, (const float*)pc, (const float*)v2, (float*)out_prev,
-      (float*)out_cur, Z, Y, X, vec);
-  return (int)cudaGetLastError();
-}
-
-// The output tile of each rung count: 16 x 32 at one rung (128 threads, 5
-// CTAs an SM), 24 x 56 at two (rung 1's area 32 x 64, 512 threads, one CTA
-// an SM).
-#define MULTISTEP_TILES(X) X(1, 16, 32) X(2, 24, 56)
 dim3 grid_of(int Z, int Y, int X) {
   return dim3((X + kBX - 1) / kBX, (Y + kBY - 1) / kBY, Z);
 }
@@ -374,35 +266,17 @@ int stencil_wave_step(const void* pp, const void* pc, const void* v2, void* pn,
   return (int)cudaGetLastError();
 }
 
-// `rungs` (1 or 2) steps of the ladder on interior (Z, Y, X) fields in one
-// launch: out_cur = p_cur after them, out_prev = p_prev after them (not
-// written when rungs = 1).
-int stencil_wave_multistep(const void* pp, const void* pc, const void* v2,
-                           void* out_prev, void* out_cur, int Z, int Y, int X,
-                           int rungs, void* stream) {
-#define CASE(T, TY, TX)                                                 \
-  case T:                                                               \
-    return launch_multistep<T, TY, TX>(pp, pc, v2, out_prev, out_cur, Z, \
-                                       Y, X, (cudaStream_t)stream);
-  switch (rungs) {
-    MULTISTEP_TILES(CASE)
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
-#undef CASE
-}
-
-// Dynamic shared memory of one multistep CTA at `rungs`, in bytes.
-int stencil_multistep_smem_bytes(int rungs) {
-#define CASE(T, TY, TX) \
-  case T:               \
-    return Ms<T, TY, TX>::kFloats * (int)sizeof(float);
-  switch (rungs) {
-    MULTISTEP_TILES(CASE)
-    default:
-      return -1;
-  }
-#undef CASE
+// One step of the ladder on interior (Z, Y, X) fields: pn from (pp, pc).
+int stencil_wave_rung(const void* pp, const void* pc, const void* v2,
+                      void* pn, int Z, int Y, int X, void* stream) {
+  bool vec = X % 4 == 0;
+  for (const void* p : {pp, pc, v2, (const void*)pn})
+    vec &= (size_t)p % 16 == 0;
+  const dim3 grid((X + kTX - 1) / kTX, (Y + kTY - 1) / kTY);
+  wave_rung_kernel<<<grid, kRungThreads, kRungSmem, (cudaStream_t)stream>>>(
+      (const float*)pp, (const float*)pc, (const float*)v2, (float*)pn, Z, Y,
+      X, vec);
+  return (int)cudaGetLastError();
 }
 
 const char* stencil_error_string(int err) {

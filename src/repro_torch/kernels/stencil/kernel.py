@@ -79,44 +79,30 @@ def wave_step(p_prev: torch.Tensor, p_cur: torch.Tensor, vel2: torch.Tensor
     return p_next, lap
 
 
-def rung_groups(steps: int):
-    """Rungs of each multistep launch: two a launch, then one for an
-    odd count."""
-    return [2] * (steps // 2) + [1] * (steps % 2)
-
-
 def wave_multistep(p_prev: torch.Tensor, p_cur: torch.Tensor,
                    vel2: torch.Tensor, steps: int
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``steps`` steps on interior (Z, Y, X) fields with the zero BC
     re-applied every rung: (p_prev, p_cur) after ``steps`` steps, bit
     for bit ``ref.ladder_steps``. The inputs are not modified."""
-    return launch_groups(p_prev, p_cur, vel2, rung_groups(steps))
-
-
-def launch_groups(p_prev, p_cur, vel2, groups):
-    """The ladder as one launch per entry of ``groups`` (1 or 2 rungs)."""
     if p_cur.device.type == "cpu":
-        return ref.ladder_steps(p_prev, p_cur, vel2, sum(groups))
+        return ref.ladder_steps(p_prev, p_cur, vel2, steps)
     shape = tuple(p_cur.shape)
     if len(shape) != 3 or tuple(p_prev.shape) != shape:
         raise ValueError("p_prev, p_cur and vel2 must share one 3-D shape")
     _require(shape, p_prev, p_cur, vel2)
-    fn = _build.bind("stencil", "stencil_wave_multistep",
-                     [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P])
+    fn = _build.bind("stencil", "stencil_wave_rung",
+                     [_P, _P, _P, _P, _I, _I, _I, _P])
     z, y, x = shape
     pp, pc = p_prev, p_cur
-    free = []  # buffers of this call no launch still reads
-    for t in groups:
-        out_c = free.pop() if free else torch.empty_like(p_cur)
-        out_p = (free.pop() if free else torch.empty_like(p_cur)) \
-            if t > 1 else None
+    free = []  # buffers of this call no rung still reads
+    for _ in range(steps):
+        out = free.pop() if free else torch.empty_like(p_cur)
         err = fn(pp.data_ptr(), pc.data_ptr(), vel2.data_ptr(),
-                 None if out_p is None else out_p.data_ptr(),
-                 out_c.data_ptr(), z, y, x, t, _stream())
-        _build.check("stencil", err, "stencil_wave_multistep")
+                 out.data_ptr(), z, y, x, _stream())
+        _build.check("stencil", err, "stencil_wave_rung")
         launches["wave_multistep"] += 1
-        done = (pp, pc) if t > 1 else (pp,)
-        free += [b for b in done if b is not p_prev and b is not p_cur]
-        pp, pc = (out_p, out_c) if t > 1 else (pc, out_c)
+        if pp is not p_prev and pp is not p_cur:
+            free.append(pp)
+        pp, pc = pc, out
     return pp, pc

@@ -128,29 +128,24 @@ def test_multistep_kernel_bitwise(cuda_device, steps):
     pp, pc, v2 = (torch.from_numpy(a).to(cuda_device)
                   for a in _fields(shape, steps))
     before = stencil_kernel.launches["wave_multistep"]
-    dev_before = stencil_kernel.device_launches["wave_multistep"]
     kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, steps)
     rp, rc = stencil_ref.ladder_steps(pp, pc, v2, steps)
-    # one count per call; one device launch per group of fused rungs
-    assert stencil_kernel.launches["wave_multistep"] == before + 1
-    assert (stencil_kernel.device_launches["wave_multistep"] - dev_before
-            == len(stencil_kernel.rung_groups(steps, stencil_kernel.RUNGS)))
+    assert stencil_kernel.launches["wave_multistep"] == before + steps
     np.testing.assert_array_equal(kp.cpu().numpy(), rp.cpu().numpy())
     np.testing.assert_array_equal(kc.cpu().numpy(), rc.cpu().numpy())
 
 
-# (37, 45, 70) crosses the tiles of every rung count in y and x; (9, 3, 5)
-# and (6, 7, 2) are narrower than the halo of 4 rungs in y and x
-@pytest.mark.parametrize("shape", [(37, 45, 70), (9, 3, 5), (6, 7, 2)])
+# (37, 45, 70) and (20, 33, 65) cross the 16 x 32 tiles in y and x; (9, 3,
+# 5) and (6, 7, 2) are narrower than the halo in y and x
+@pytest.mark.parametrize("shape", [(37, 45, 70), (20, 33, 65), (9, 3, 5),
+                                   (6, 7, 2)])
 @pytest.mark.parametrize("steps", [1, 2, 3, 5, 12])
-@pytest.mark.parametrize("rungs", [1, 2, 3, 4])
-def test_multistep_fused_rungs_bitwise(cuda_device, shape, steps, rungs):
-    """Every rung count a launch, bit for bit the ladder, remainder
-    launches and ragged tiles included; the inputs are left as they
-    were."""
-    arrays = _fields(shape, 100 * steps + rungs)
+def test_multistep_ragged_bitwise(cuda_device, shape, steps):
+    """Bit for bit the ladder on tiles cut in y and x and on fields
+    thinner than the halo; the inputs are left as they were."""
+    arrays = _fields(shape, 100 * steps + sum(shape))
     pp, pc, v2 = (torch.from_numpy(a).to(cuda_device) for a in arrays)
-    kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, steps, rungs=rungs)
+    kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, steps)
     rp, rc = stencil_ref.ladder_steps(pp, pc, v2, steps)
     np.testing.assert_array_equal(kp.cpu().numpy(), rp.cpu().numpy())
     np.testing.assert_array_equal(kc.cpu().numpy(), rc.cpu().numpy())

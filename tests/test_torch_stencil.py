@@ -135,30 +135,17 @@ def test_ladder_fallback_equals_temporal_steps():
         np.testing.assert_array_equal(x.numpy(), z.numpy())
 
 
-@pytest.mark.parametrize("rungs", [1, 2, 3, 4])
-def test_rung_groups_cover_every_step_once(rungs):
-    """The multistep wrapper's launches: full groups of ``rungs``, then
-    one remainder launch, every step exactly once."""
-    for steps in range(1, 14):
-        groups = tkernel.rung_groups(steps, rungs)
-        assert sum(groups) == steps
-        assert all(1 <= g <= rungs for g in groups)
-        assert groups[:-1] == [rungs] * (len(groups) - 1)
-        assert len(groups) == -(-steps // rungs)
-    assert tkernel.rung_groups(0, rungs) == []
-    with pytest.raises(ValueError, match="rungs"):
-        tkernel.rung_groups(4, tkernel.MAX_RUNGS + 1)
-
-
-def test_multistep_on_cpu_takes_any_rung_count():
-    """On a CPU tensor the wrapper is the plain ladder whatever the
-    rung count."""
-    pp, pc, v2 = _t(*_fields((9, 10, 11), 5))
-    want = tref.ladder_steps(pp, pc, v2, 5)
-    for rungs in (1, 2, 3, 4):
-        got = tkernel.wave_multistep(pp, pc, v2, 5, rungs=rungs)
-        for g, w in zip(got, want):
-            assert torch.equal(g, w)
+@pytest.mark.parametrize("steps", [0, 1, 5])
+def test_multistep_on_cpu_is_the_ladder(steps):
+    """On a CPU tensor the multistep wrapper is the plain ladder and
+    leaves its inputs as they were."""
+    arrays = _fields((9, 10, 11), 5)
+    pp, pc, v2 = _t(*arrays)
+    got = tkernel.wave_multistep(pp, pc, v2, steps)
+    for g, w in zip(got, tref.ladder_steps(pp, pc, v2, steps)):
+        assert torch.equal(g, w)
+    for t, a in zip((pp, pc, v2), _fields((9, 10, 11), 5)):
+        np.testing.assert_array_equal(t.numpy(), a)
 
 
 def test_ricker_source_within_float_tolerance():
