@@ -14,7 +14,10 @@ non-zero:
 3. kernels vs their plain PyTorch versions, on the card, at the main
    path's shapes: the codec on a 96-plane common-region unit
    (96, 1152, 1152) at 12 and 16 planes and a ragged (50, 1150, 1149)
-   unit, the single step on one fetched block (240, 1152, 1152), the
+   unit (with the codec kernels' device time a launch from
+   ``torch.profiler`` and the decoder's ``ptxas`` line, which must show
+   no spill and no stack frame), the single step on one fetched block
+   (240, 1152, 1152), the
    multistep kernel at 12 steps on the same block (one launch a rung),
    then on the ragged unit at 12 steps and on the block at 5 steps,
    with their launches. Each must be
@@ -52,7 +55,8 @@ non-zero:
    engine's own cache after its run, cdecode is held to its plain
    version (within 2e-5) on every layer's history with that layer's
    last query, and the chunk-flush encode of every layer's tail to the
-   plain codec (bit for bit); the cdecode kernel's own decoded K and V
+   plain codec (bit for bit), with that encode's time and bound at the
+   flush shape; the cdecode kernel's own decoded K and V
    tiles of the first chunk against the plain codec's decode (bit for
    bit); the cache's split (``nsplit_per``, CTAs) and the kernel's
    device time per launch (``torch.profiler``) beside its CUDA-event
@@ -64,8 +68,13 @@ non-zero:
    (S = 1), the slice's prefill (S = 128), prefill at length (S = 4096)
    and a ragged S = 100, each from a non-zero ``h0`` and writing
    ``h_last`` in place over it; ``y`` and ``h_last`` within rtol 1e-4 /
-   atol 1e-5; median kernel and plain times and the bound. No single
-   PyTorch call computes this function;
+   atol 1e-5; median kernel and plain times, the kernel's device time a
+   launch (profiler), its ``ptxas`` line, and the bound (bytes, float32
+   operations, and exponentials at the SFU rate). No single PyTorch call
+   computes this function. Then the kernel and the plain version against
+   a float64 recurrence over every 16th channel at S = 128 and 4096:
+   which side carries the error, and the kernel within the tolerance of
+   float64;
 9. the SSM slice at full width: falcon-mamba-7b in bfloat16, random
    weights from a seeded generator on the card, 8 requests in 8 slots
    (128-token prompts, 32 new tokens, greedy) through ``ServeEngine``;
@@ -95,8 +104,10 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import json
 import statistics
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -133,6 +144,7 @@ from repro_torch.kernels.zfp import ref as zfp_ref  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
+SFU_PER_CLOCK_SM = 16  # exponentials a clock an SM (sm_90 SFU)
 STENCIL_FLOPS = 33  # float32 operations per point per step
 SEED = 0
 PAPER = (1152, 1152, 1152)
@@ -158,6 +170,8 @@ SSCAN_SHAPES = ((8, 1, 8192, 16), (8, 128, 8192, 16), (8, 4096, 8192, 16),
                 (8, 100, 8192, 16))  # (B, S, D, N)
 SSCAN_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_sscan_kernel.py's bound
 SSCAN_CHUNK = 64  # the plain version's chunk (the configs' ssm_chunk)
+SSCAN_WITNESS = ((8, 128, 8192, 16), (8, 4096, 8192, 16))
+SSCAN_WITNESS_STRIDE = 16  # the float64 recurrence's channels: 512 of 8192
 SSM_WINDOW = (16, 32)  # profiled decode steps: warm-up, then the window
 
 
@@ -189,22 +203,41 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def kernel_device_ms(fn, name: str, reps: int) -> float:
+def kernel_device_ms(fn, name: str, reps: int):
     """Device time of one launch of the kernels whose name holds
-    ``name``, from ``torch.profiler`` (CUPTI) over ``reps`` calls of
-    ``fn``: the kernel alone, without the host's wrapper around it."""
+    ``name``: from ``torch.profiler`` (CUPTI) over ``reps`` calls of
+    ``fn``, the kernel alone without the host's wrapper around it
+    (``device_ms_by`` "profiler"). The profiler has come back without the
+    kernel's records in three windows running; then the time is CUDA
+    events around ``reps`` back-to-back calls, over ``reps``
+    ("events_batch": the device time where a launch outlasts the host's
+    call, the host's where it does not), with the keys the profiler saw.
+    Returns a dict for the caller's record."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    found = [e for e in prof.key_averages() if name in e.key]
-    check(bool(found), f"the profiler saw no {name} launch")
-    return (sum(e.self_device_time_total for e in found) / 1e3
-            / sum(e.count for e in found))
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        found = [e for e in events if name in e.key]
+        if found:
+            return {"device_ms": sum(e.self_device_time_total for e in found)
+                    / 1e3 / sum(e.count for e in found),
+                    "device_ms_by": "profiler"}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return {"device_ms": start.elapsed_time(end) / reps,
+            "device_ms_by": "events_batch",
+            "profiler_keys": [e.key[:60] for e in events][:8]}
 
 
 def build_log(name: str) -> str:
@@ -215,8 +248,9 @@ def build_log(name: str) -> str:
 
 
 def ptxas_summary(log: str):
-    """Registers, static shared memory and spills of each kernel from
-    ``nvcc -Xptxas -v`` output (dynamic shared memory is not in it)."""
+    """Registers, static shared memory, stack frame and spills of each
+    kernel from ``nvcc -Xptxas -v`` output (dynamic shared memory is not
+    in it)."""
     import re
 
     out, entry = [], None
@@ -226,6 +260,9 @@ def ptxas_summary(log: str):
             entry = {"entry": m.group(1)}
             out.append(entry)
         elif entry is not None:
+            m = re.search(r"(\d+) bytes stack frame", line)
+            if m:
+                entry["stack_frame"] = int(m.group(1))
             m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                           line)
             if m:
@@ -239,10 +276,36 @@ def ptxas_summary(log: str):
     return out
 
 
-def bound_ms(nbytes: float, flops: float = 0.0):
+def bound_ms(nbytes: float, flops: float = 0.0, exps: float = 0.0):
+    """The least time for the work: bytes over the memory rate, float32
+    operations over the float32 rate and exponentials over the SFU rate,
+    whichever is largest."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOP_PER_S * 1e3
+    t_ops = max(flops / FP32_FLOP_PER_S, exps / sfu_per_s() if exps else 0.0)
+    t_ops *= 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+@functools.lru_cache(maxsize=None)
+def sm_clock_hz() -> float:
+    """The card's highest SM clock (``nvidia-smi clocks.max.sm``), Hz."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout
+    return float(out.strip().splitlines()[0]) * 1e6
+
+
+def sfu_per_s() -> float:
+    """Exponentials a second: 16 a clock an SM (the SFU rate of sm_90)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return SFU_PER_CLOCK_SM * sms * sm_clock_hz()
+
+
+def kernel_ptxas(source: str, entry: str):
+    """The ptxas lines of the kernels of ``csrc/<source>.cu`` whose
+    mangled name holds ``entry``."""
+    return [e for e in ptxas_summary(build_log(source)) if entry in e["entry"]]
 
 
 def bits(t: torch.Tensor) -> torch.Tensor:
@@ -282,31 +345,43 @@ def codec_case(shape, planes, gen, results):
     nb = emax.numel()
     in_bytes = x.numel() * 4
     out_bytes = payload.numel() * 4 + nb * 4
+    enc_fn = lambda: zfp_kernel.encode(x, planes)
+    dec_fn = lambda: zfp_kernel.decode(payload, emax, shape, planes)
     enc = {
         "max_abs_err": max(max_abs(payload, rp), max_abs(emax, re)),
-        "ms": median_ms(lambda: zfp_kernel.encode(x, planes), 10),
+        "ms": median_ms(enc_fn, 10),
+        **kernel_device_ms(enc_fn, "encode_kernel", 10),
         "plain_ms": median_ms(
             lambda: zfp_ref.encode_blocks(zfp_ref.blockify(x, 3), planes, 3), 3),
         "bound": bound_ms(in_bytes + out_bytes),
     }
     dec = {
         "max_abs_err": max_abs(y, ry),
-        "ms": median_ms(
-            lambda: zfp_kernel.decode(payload, emax, shape, planes), 10),
+        "ms": median_ms(dec_fn, 10),
+        **kernel_device_ms(dec_fn, "decode_kernel", 10),
         "plain_ms": median_ms(lambda: zfp_ref.unblockify(
             zfp_ref.decode_blocks(payload, emax, planes, 3), shape, 3), 3),
         "bound": bound_ms(in_bytes + out_bytes),
     }
-    for name, r, ok in (("zfp_encode", enc, enc_ok),
-                        ("zfp_decode", dec, dec_ok)):
+    # the decoder keeps its block in registers: no spill, no stack frame
+    dec_ptxas = kernel_ptxas("zfp", "decode_kernel")
+    for name, r, ok, ptxas in (
+            ("zfp_encode", enc, enc_ok, kernel_ptxas("zfp", "encode_kernel")),
+            ("zfp_decode", dec, dec_ok, dec_ptxas)):
         emit({"phase": "kernel_vs_plain", "kernel": name,
-              "shape": list(shape), "planes": planes, "bitwise": ok,
-              "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+              "shape": list(shape), "planes": planes,
+              "stream_order": zfp_kernel.stream_order(planes, 3),
+              "bitwise": ok, "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+              "device_ms": r["device_ms"], "device_ms_by": r["device_ms_by"],
               "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-              "bound_by": r["bound"][1]})
+              "bound_by": r["bound"][1], "ptxas": ptxas})
         check(ok, f"{name} differs from its plain version at {shape}, "
                   f"{planes} planes")
         results.setdefault((name, shape, planes), r)
+    check(len(dec_ptxas) == 5 and all(
+        e.get("spill_stores", 0) == 0 and e.get("stack_frame", 0) == 0
+        for e in dec_ptxas), f"zfp decode_kernel spills or keeps a stack "
+                             f"frame: {dec_ptxas}")
 
 
 def stencil_cases(gen, results):
@@ -815,6 +890,19 @@ def serve_kernels_on_cache(cfg, eng, seen):
             a = kvcache._encode_chunk(tail, SERVE_PLANES, "cuda")
             b = kvcache._encode_chunk(tail, SERVE_PLANES, "ref")
             same &= same_bits(a[0], b[0]) and same_bits(a[1], b[1])
+    # the chunk-flush encode as the path launches it: one (B, KVH, CHUNK,
+    # D) window, 2-D blocks
+    xt = eng.cache.tail_k[0].movedim(2, 1).float().contiguous()
+    flush = lambda: zfp_kernel.encode(xt, SERVE_PLANES, 2)
+    fp, fe = flush()
+    flush_bound = bound_ms(xt.numel() * 4 + fp.numel() * 4 + fe.numel() * 4)
+    encode_flush = {
+        "shape": list(xt.shape), "planes": SERVE_PLANES,
+        "ms": median_ms(flush, 20),
+        **kernel_device_ms(flush, "encode_kernel", 20),
+        "plain_ms": median_ms(lambda: zfp_ref.encode_blocks(
+            zfp_ref.blockify(xt, 2), SERVE_PLANES, 2), 5),
+        "bound_ms": flush_bound[0], "bound_by": flush_bound[1]}
     emit({"phase": "serve_kernels_on_cache", "layers": len(seen),
           "cdecode_rows": args[0].shape[0], "max_len": SERVE_MAX_LEN,
           "length": seen[0][1].length, "hist_len": args[5],
@@ -823,7 +911,7 @@ def serve_kernels_on_cache(cfg, eng, seen):
           "max_abs_err": err,
           "ms": median_ms(lambda: cdecode_kernel.cdecode_partials(
               *args, **kw), 20),
-          "device_ms": kernel_device_ms(lambda: cdecode_kernel.cdecode_partials(
+          **kernel_device_ms(lambda: cdecode_kernel.cdecode_partials(
               *args, **kw), "cdecode_kernel", 20),
           "merged_ms": median_ms(
               lambda: cdecode_kernel.fused_cdecode_attention(*args, **kw), 20),
@@ -833,7 +921,7 @@ def serve_kernels_on_cache(cfg, eng, seen):
           "smem_bytes": cdecode_kernel.smem_bytes(
               cfg.head_dim, kw["qpk"], args[0].shape[-1]),
           "encode_shape": list(eng.cache.tail_k[0].movedim(2, 1).shape),
-          "encode_bitwise": same})
+          "encode_bitwise": same, "encode_flush": encode_flush})
     check(ok, f"cdecode differs from its plain version on the serving "
               f"cache (max |d| {err})")
     check(tiles_ok, "cdecode's decoded tiles differ from the codec's decode")
@@ -969,25 +1057,34 @@ def profile_window(eng, warm, steps, label):
 
 def sscan_bound(bsz, s, d, n):
     """Bytes one scan must move (dt, x and y; B and C; A; h0 and h_last,
-    each once) and its bound: the larger of those bytes over the memory
-    rate and its float32 operations (per (b, t, d, n): dt*A, exp, dt*B,
-    *x, decay*h, +, C*h, +) over the float32 rate."""
+    each once) and its bound: the largest of those bytes over the memory
+    rate, its float32 operations (dt*x per (b, t, d); per (b, t, d, n):
+    dt*A, B*(dt x), decay*h +, C*h +) over the float32 rate, and its
+    exponentials (one per (b, t, d, n)) over the SFU rate."""
     nbytes = 4 * (3 * bsz * s * d + 2 * bsz * s * n + d * n + 2 * bsz * d * n)
-    return nbytes, bound_ms(nbytes, 8 * bsz * s * d * n)
+    elems = bsz * s * d * n
+    return nbytes, bound_ms(nbytes, 6 * elems + bsz * s * d, elems)
+
+
+def sscan_inputs(shape, gen):
+    """((dt, a, b_in, c_in, x), h0) on the card, distributed as
+    ``tests/test_sscan_kernel.py`` draws them, with a non-zero ``h0``."""
+    bsz, s, d, n = shape
+    dt = torch.nn.functional.softplus(normal((bsz, s, d), gen, 1.0))
+    a = -torch.exp(normal((d, n), gen, 0.3))
+    b_in, c_in = normal((bsz, s, n), gen, 1.0), normal((bsz, s, n), gen, 1.0)
+    x = normal((bsz, s, d), gen, 1.0)
+    return (dt, a, b_in, c_in, x), normal((bsz, d, n), gen, 0.1)
 
 
 def sscan_cases(gen, results):
-    """The kernel against its plain version on normal inputs distributed
-    as ``tests/test_sscan_kernel.py`` draws them, from a non-zero ``h0``
-    that the kernel overwrites in place with ``h_last``."""
+    """The kernel against its plain version, from a non-zero ``h0`` that
+    the kernel overwrites in place with ``h_last``; the kernel's device
+    time a launch (profiler) beside the CUDA-event time of the call."""
+    ptxas = kernel_ptxas("sscan", "sscan_kernel")
     for shape in SSCAN_SHAPES:
         bsz, s, d, n = shape
-        dt = torch.nn.functional.softplus(normal((bsz, s, d), gen, 1.0))
-        a = -torch.exp(normal((d, n), gen, 0.3))
-        b_in, c_in = normal((bsz, s, n), gen, 1.0), normal((bsz, s, n), gen, 1.0)
-        x = normal((bsz, s, d), gen, 1.0)
-        h0 = normal((bsz, d, n), gen, 0.1)
-        args = (dt, a, b_in, c_in, x)
+        args, h0 = sscan_inputs(shape, gen)
         want_y, want_h = sscan_ref.selective_scan_ref(*args, h0, SSCAN_CHUNK)
         h_io = h0.clone()
         y, h = sscan_kernel.selective_scan(*args, h_io, h_out=h_io)
@@ -997,10 +1094,11 @@ def sscan_cases(gen, results):
         err = max(max_abs(y, want_y), max_abs(h_io, want_h))
         nbytes, bound = sscan_bound(*shape)
         long = s > 1000
+        call = lambda: sscan_kernel.selective_scan(*args, h0)
         r = {
             "max_abs_err": err,
-            "ms": median_ms(lambda: sscan_kernel.selective_scan(*args, h0),
-                            5 if long else 20),
+            "ms": median_ms(call, 5 if long else 20),
+            **kernel_device_ms(call, "sscan_kernel", 5 if long else 20),
             "plain_ms": median_ms(lambda: sscan_ref.selective_scan_ref(
                 *args, h0, SSCAN_CHUNK), 2 if long else 5),
             "bound": bound,
@@ -1008,15 +1106,61 @@ def sscan_cases(gen, results):
         results[("sscan", shape, SSCAN_CHUNK)] = r
         emit({"phase": "kernel_vs_plain", "kernel": "sscan",
               "shape_bsdn": list(shape), "within_tol": ok, "tol": SSCAN_TOL,
-              "max_abs_err": err, "ms": r["ms"], "plain_ms": r["plain_ms"],
+              "max_abs_err": err, "ms": r["ms"], "device_ms": r["device_ms"],
+              "device_ms_by": r["device_ms_by"], "plain_ms": r["plain_ms"],
               "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
-              "bound_bytes": nbytes, "library_ms": None,
+              "bound_bytes": nbytes,
+              "sfu_per_s": sfu_per_s(), "library_ms": None,
               "library_note": "no single PyTorch call computes the "
-                              "selective scan"})
+                              "selective scan", "ptxas": ptxas})
         check(ok, f"sscan differs from its plain version at {shape} "
                   f"(max |d| {err})")
-        del dt, a, b_in, c_in, x, h0, h_io, y, want_y, want_h
+        del args, h0, h_io, y, want_y, want_h
         torch.cuda.empty_cache()
+
+
+def sscan_f64_witness(gen):
+    """Which side of the kernel/plain comparison carries the error: at
+    falcon-mamba's widths, S = 128 and 4096, the kernel's and the plain
+    version's y and h_last against the float64 recurrence
+    (``ref.selective_scan_f64``) over every SSCAN_WITNESS_STRIDE-th
+    channel (a slice of every CTA): per output the largest
+    |d| / (atol + rtol |f64|) with SSCAN_TOL, 1 at the bound. The kernel
+    must lie within the bound of float64. The mean of the same ratio
+    is printed beside the largest."""
+    cases = []
+    for shape in SSCAN_WITNESS:
+        bsz, s, d, n = shape
+        args, h0 = sscan_inputs(shape, gen)
+        sides = {"kernel": sscan_kernel.selective_scan(*args, h0),
+                 "plain": sscan_ref.selective_scan_ref(*args, h0,
+                                                       SSCAN_CHUNK)}
+        sl = slice(0, d, SSCAN_WITNESS_STRIDE)
+        dt, a, b_in, c_in, x = args
+        want = sscan_ref.selective_scan_f64(dt[:, :, sl], a[sl], b_in, c_in,
+                                            x[:, :, sl], h0[:, sl])
+        case = {"shape_bsdn": list(shape), "channels": want[1].shape[1]}
+        for side, (y, h) in sides.items():
+            case[side] = {}
+            for k, g, w in (("y", y[:, :, sl], want[0]),
+                            ("h", h[:, sl], want[1])):
+                r = ((g.double() - w).abs()
+                     / (SSCAN_TOL["atol"] + SSCAN_TOL["rtol"] * w.abs()))
+                case[side][k] = float(r.max())
+                case[side][f"{k}_mean"] = float(r.mean())
+        case["carries"] = {k: max(("kernel", "plain"),
+                                  key=lambda side: case[side][k])
+                           for k in ("y", "h")}
+        cases.append(case)
+        del args, h0, sides, want, dt, a, b_in, c_in, x
+        torch.cuda.empty_cache()
+    worst = {side: {k: max(c[side][k] for c in cases) for k in ("y", "h")}
+             for side in ("kernel", "plain")}
+    emit({"phase": "sscan_f64_witness", "tol": SSCAN_TOL,
+          "channel_stride": SSCAN_WITNESS_STRIDE, "cases": cases,
+          "worst": worst})
+    check(max(worst["kernel"].values()) < 1.0,
+          f"sscan is not within {SSCAN_TOL} of float64: {worst['kernel']}")
 
 
 # ----------------------------------------------------------------------
@@ -1268,6 +1412,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     sscan_cases(gen, results)
+    sscan_f64_witness(gen)
     ssm_counts = ssm_slice()
     emit({"phase": "launches", "path": "ssm_serving", **ssm_counts})
 
@@ -1301,6 +1446,8 @@ def main() -> int:
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
             "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
             "bound_by": r["bound"][1], "library_ms": None,
+            **({k: r[k] for k in ("device_ms", "device_ms_by")}
+               if "device_ms" in r else {}),
             **({"launches_per_call": r["launches_per_call"],
                 "ms_per": "call"} if "launches_per_call" in r else {}),
         })

@@ -51,6 +51,7 @@
 
 #include <math.h>
 
+#include "cp_async.cuh"
 #include "zfp_common.cuh"
 
 namespace {
@@ -99,17 +100,6 @@ struct Layout {
   __host__ __device__ int words() const { return mlc() + 4 * qpk; }
 };
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src)
-               : "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
 // x = x * c + y, compensated (Kahan): e carries what x's rounding lost,
 // so that a history of ~2000 bands sums to the accuracy of one. Explicit
 // roundings: no contraction may merge these steps.
@@ -139,8 +129,8 @@ __device__ __forceinline__ void stage_band(uint32_t* st,
   int b = threadIdx.x / w, j = threadIdx.x - b * w;
   const int db = kThreads / w, dj = kThreads - db * w;
   for (int i = threadIdx.x; i < n; i += kThreads) {
-    cp_async4(st + b * L.ws + j, gk + i);
-    cp_async4(sv + b * L.ws + j, gv + i);
+    cp_async<4>(st + b * L.ws + j, gk + i);
+    cp_async<4>(sv + b * L.ws + j, gv + i);
     b += db;
     j += dj;
     if (j >= w) {
@@ -150,10 +140,10 @@ __device__ __forceinline__ void stage_band(uint32_t* st,
   }
   uint32_t* se = st + 2 * L.nbb * L.ws;
   for (int i = threadIdx.x; i < L.nbb; i += kThreads) {
-    cp_async4(se + i, ek + blk0 + i);
-    cp_async4(se + L.nbb + i, ev + blk0 + i);
+    cp_async<4>(se + i, ek + blk0 + i);
+    cp_async<4>(se + L.nbb + i, ev + blk0 + i);
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  cp_async_commit();
 }
 
 // Stream position p -> coefficient of a 2-D block (ref.level_order): the
@@ -190,7 +180,7 @@ __device__ __forceinline__ void transpose_step(uint32_t* a) {
 }
 
 // One 2-D block's plane-major stream -> its 16 transform coefficients, the
-// same bits as zfp_common.cuh's unpack_block2. Plane j's contributors are
+// same bits as zfp_common.cuh's unpack_regs<2>. Plane j's contributors are
 // the first counts[j] stream positions, one field of the stream, and
 // position p takes bit p of it: a bit matrix of planes x positions to
 // transpose. Planes j and 16 + j share row j (low and high half); after the

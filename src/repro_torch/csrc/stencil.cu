@@ -33,6 +33,8 @@
 
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace {
 
 constexpr int kHalo = 4;
@@ -102,16 +104,6 @@ constexpr int kRungSmem = kRing * kA0 * (int)sizeof(float);
 static_assert(kTY * kQW == kRungThreads, "one quad a thread");
 static_assert(kRungSmem <= 48 * 1024, "no opt-in to more shared memory");
 
-// cp.async of `bytes` (4 or 16); src-size 0 zero-fills and reads nothing
-template <int kBytes>
-__device__ __forceinline__ void cp_async(float* dst, const float* src,
-                                         bool valid) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-               "l"(src), "n"(kBytes), "r"(valid ? kBytes : 0)
-               : "memory");
-}
-
 __device__ __forceinline__ float comp(const float4& v, int j) {
   return j == 0 ? v.x : j == 1 ? v.y : j == 2 ? v.z : v.w;
 }
@@ -156,7 +148,7 @@ __device__ __forceinline__ void load_plane(float* ring, int z,
       }
     }
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  cp_async_commit();
 }
 
 // Interior (Z, Y, X) fields: pn = one ladder step from (pp, pc).
@@ -191,7 +183,7 @@ __global__ void __launch_bounds__(kRungThreads, 5)
     // this step's p_prev and vel2, loaded before the barrier
     const float4 prev = load_quad(pp, zc * plane + col, in, vec);
     const float4 vel = load_quad(v2, zc * plane + col, in, vec);
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    cp_async_wait<1>();
     __syncthreads();  // plane t landed; every thread is past step t - 1
     load_plane(ring, t + 2, pc, Z, Y, X, y0, x0, vec);
     float4 c = zero;

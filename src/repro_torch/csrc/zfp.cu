@@ -20,15 +20,28 @@
 //  * The lift, negabinary and truncation are unrolled over compile-time
 //    indices, so the block stays in registers. Integer adds wrap explicitly
 //    (through unsigned), matching the 32-bit wrap of the plain version.
-//  * The plane-major stream walks the static level order, passed by value as
-//    a small table; the coefficient it reads is a run-time index, so that one
-//    array lives in local memory (per-thread interleaved, L1-cached).
-// Known costs left for a later change: each thread writes W consecutive words
-// (uncoalesced across the warp) and the stream loop is sequential per block.
+//  * Encode: the plane-major stream walks the static level order, passed by
+//    value as a small table; the coefficient it reads is a run-time index,
+//    so that one array lives in local memory (per-thread interleaved,
+//    L1-cached), and each thread writes its W words alone.
+//  * Decode: each warp first copies its 32 blocks' payload rows, one
+//    contiguous run of 32 W words, with coalesced cp.async into shared
+//    memory at an odd row stride (conflict-free reads of a row per lane).
+//    Each thread then unpacks its block in registers (zfp_common.cuh's
+//    unpack_regs: one <= 64-bit field a plane, a 32 x 32 bit transpose per
+//    32 stream positions, the stream order a compile-time permutation, one
+//    of the two that ref.level_order yields, chosen per launch), lifts, and
+//    stores each row of 4 values as one float4 when the unit's rows are
+//    16-byte aligned and the block is whole; the cropped edge goes out
+//    value by value.
+// Known costs left for a later change: the encoder's local-memory stream
+// loop and uncoalesced W-word rows (the next redesign); the decoder's
+// block -> coordinate arithmetic in 64 bits.
 // The build uses -fmad=false; no floating-point expression here could contract.
 // The tables, the lift and the stream unpacking live in zfp_common.cuh, which
-// the fused attention kernel (cdecode.cu) decodes through as well.
+// the fused attention kernel (cdecode.cu) shares.
 
+#include "cp_async.cuh"
 #include "zfp_common.cuh"
 
 namespace {
@@ -113,29 +126,92 @@ __global__ void encode_kernel(const float* __restrict__ x,
   emax_out[b] = emax;
 }
 
-template <int ND>
-__global__ void decode_kernel(const uint32_t* __restrict__ payload,
-                              const int* __restrict__ emax_in,
-                              float* __restrict__ x, Geometry g, Tables t) {
+constexpr int kDecodeThreads = 128;
+
+// The decoder's staging geometry: a block's payload row sits at `stride`
+// words (nwords, made odd) in shared memory, and lane l of a warp copies the
+// warp's rows word by word, l + 32 m for m = 0, 1, ...: `dq` rows and `dr`
+// words further each time (32 = dq * nwords + dr).
+struct Staging {
+  int stride, dq, dr;
+};
+
+Staging make_staging(int nwords) {
+  Staging s;
+  s.stride = nwords | 1;
+  s.dq = 32 / nwords;
+  s.dr = 32 - s.dq * nwords;
+  return s;
+}
+
+// Dynamic shared memory of one decode CTA: its blocks' rows, and two words
+// that unpack_regs may read past the last row.
+size_t decode_smem_bytes(int nwords) {
+  return ((size_t)kDecodeThreads * make_staging(nwords).stride + 2) *
+         sizeof(uint32_t);
+}
+
+// One thread per 4^ND block, kSub: the stream order (stream_pos). vec: the
+// rows of the output are 16-byte aligned (d2 % 4 == 0), so a whole row of a
+// block goes out as one float4.
+template <int ND, bool kSub>
+__global__ void __launch_bounds__(kDecodeThreads)
+    decode_kernel(const uint32_t* __restrict__ payload,
+                  const int* __restrict__ emax_in, float* __restrict__ x,
+                  Geometry g, Tables t, Staging st, bool vec) {
   constexpr int E0 = ND >= 3 ? 4 : 1, E1 = ND >= 2 ? 4 : 1, N = E0 * E1 * 4;
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  extern __shared__ uint32_t rows[];
+  const int lane = threadIdx.x & 31;
+  const int w = t.nwords;
+  // the warp's 32 blocks: their payload rows are one contiguous run of
+  // words, copied with coalesced loads into rows at an odd stride, so that
+  // the 32 lanes reading word i of their own rows hit 32 banks
+  uint32_t* wrows = rows + (threadIdx.x - lane) * st.stride;
+  const long long b0 = (long long)blockIdx.x * kDecodeThreads +
+                       (threadIdx.x - lane);
+  if (b0 >= g.nb) return;  // the whole warp
+  const int total = (int)min(32LL, g.nb - b0) * w;
+  const uint32_t* src = payload + b0 * w;
+  int r = lane / w, c = lane - (lane / w) * w;
+  for (int i = lane; i < total; i += 32) {
+    cp_async<4>(wrows + r * st.stride + c, src + i);
+    r += st.dq;
+    c += st.dr;
+    if (c >= w) {
+      c -= w;
+      ++r;
+    }
+  }
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncwarp();
+  const long long b = b0 + lane;
   if (b >= g.nb) return;
 
-  int c[N];
-  unpack_block<ND>(payload + b * t.nwords, t, c);
-  lift_inv<ND>(c);
+  int v[N];
+  unpack_regs<ND, kSub>(wrows + lane * st.stride, t, v);
+  lift_inv<ND>(v);
 
-  const int emax = emax_in[b];
-  const float scale = decode_scale(emax);
+  const float scale = decode_scale(emax_in[b]);
   long long bb;
   int z0, y0, x0;
   block_origin<ND>(g, b, &bb, &z0, &y0, &x0);
+  const bool whole = z0 + E0 <= g.d0 && y0 + E1 <= g.d1 && x0 + 4 <= g.d2;
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int zi = z0 + i / (E1 * 4), yi = y0 + (i / 4) % E1, xi = x0 + i % 4;
-    if (zi < g.d0 && yi < g.d1 && xi < g.d2)
-      x[((bb * g.d0 + zi) * g.d1 + yi) * (long long)g.d2 + xi] =
-          __fmul_rn(__int2float_rn(c[i]), scale);
+  for (int rw = 0; rw < E0 * E1; ++rw) {
+    const int zi = z0 + rw / E1, yi = y0 + rw % E1;
+    float* out = x + ((bb * g.d0 + zi) * g.d1 + yi) * (long long)g.d2 + x0;
+    float f[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      f[k] = __fmul_rn(__int2float_rn(v[4 * rw + k]), scale);
+    if (vec && whole) {
+      *(float4*)out = make_float4(f[0], f[1], f[2], f[3]);
+    } else if (zi < g.d0 && yi < g.d1) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (x0 + k < g.d2) out[k] = f[k];
+    }
   }
 }
 
@@ -160,6 +236,9 @@ extern "C" {
 
 // x: (batch, d0, d1, d2) float32, contiguous, on the device. For ndim 2
 // pass d0 = 1, for ndim 1 d0 = d1 = 1. Table pointers are host memory.
+// zfp_decode also takes the stream order of its tables (1: the subband
+// order, 0: the identity; kernel.stream_order picks it) and refuses a
+// launch whose perm table is not that order.
 int zfp_encode(const void* x, void* payload, void* emax, long long batch,
                int d0, int d1, int d2, int ndim, const void* masks,
                const void* perm, const void* counts, int nplanes, int nwords,
@@ -184,21 +263,41 @@ int zfp_encode(const void* x, void* payload, void* emax, long long batch,
 int zfp_decode(const void* payload, const void* emax, void* x, long long batch,
                int d0, int d1, int d2, int ndim, const void* masks,
                const void* perm, const void* counts, int nplanes, int nwords,
-               void* stream) {
+               int order, void* stream) {
   const Geometry g = make_geometry(batch, d0, d1, d2, ndim);
   const Tables t = make_tables(ndim, (const uint32_t*)masks, (const int*)perm,
                                (const int*)counts, nplanes, nwords);
-  const unsigned grid = (unsigned)((g.nb + kThreads - 1) / kThreads);
+  // the order the caller chose must be the one its tables describe
+  const int have = ndim == 3   ? stream_order_of<3>((const int*)perm)
+                   : ndim == 2 ? stream_order_of<2>((const int*)perm)
+                               : stream_order_of<1>((const int*)perm);
+  if (order < 0 || have != order)
+    return (int)cudaErrorInvalidValue;
+  if (g.nb == 0) return (int)cudaSuccess;
+  const Staging st = make_staging(nwords);
+  const size_t smem = decode_smem_bytes(nwords);
+  const unsigned grid =
+      (unsigned)((g.nb + kDecodeThreads - 1) / kDecodeThreads);
+  const bool vec = d2 % 4 == 0 && ((size_t)x & 15) == 0;
   cudaStream_t s = (cudaStream_t)stream;
   const uint32_t* p = (const uint32_t*)payload;
   const int* e = (const int*)emax;
   float* xf = (float*)x;
-  if (ndim == 3)
-    decode_kernel<3><<<grid, kThreads, 0, s>>>(p, e, xf, g, t);
+  if (ndim == 3 && order)
+    decode_kernel<3, true><<<grid, kDecodeThreads, smem, s>>>(p, e, xf, g, t,
+                                                              st, vec);
+  else if (ndim == 3)
+    decode_kernel<3, false><<<grid, kDecodeThreads, smem, s>>>(p, e, xf, g, t,
+                                                               st, vec);
+  else if (ndim == 2 && order)
+    decode_kernel<2, true><<<grid, kDecodeThreads, smem, s>>>(p, e, xf, g, t,
+                                                              st, vec);
   else if (ndim == 2)
-    decode_kernel<2><<<grid, kThreads, 0, s>>>(p, e, xf, g, t);
+    decode_kernel<2, false><<<grid, kDecodeThreads, smem, s>>>(p, e, xf, g, t,
+                                                               st, vec);
   else
-    decode_kernel<1><<<grid, kThreads, 0, s>>>(p, e, xf, g, t);
+    decode_kernel<1, false><<<grid, kDecodeThreads, smem, s>>>(p, e, xf, g, t,
+                                                               st, vec);
   return (int)cudaGetLastError();
 }
 

@@ -1,9 +1,9 @@
 // Device code shared by the codec kernels (zfp.cu) and the fused
 // ZFP-decode attention kernel (cdecode.cu): the static stream tables, the
-// wrapping integer adds, the two-level Haar lift and its inverse, and the
-// unpacking of one block's plane-major stream (a general loop, and a 2-D
-// one that keeps the block in registers; both give the same bits). A value
-// decoded inside the attention kernel is bit for bit the codec's decode.
+// wrapping integer adds, the two-level Haar lift and its inverse, the
+// compile-time stream orders and the unpacking of one block's plane-major
+// stream in registers. A value decoded inside the attention kernel is bit for
+// bit the codec's decode.
 
 #pragma once
 
@@ -19,7 +19,6 @@ constexpr int kEmaxFloor = -90;
 struct Tables {
   uint32_t mask[64];   // keep-mask of each coefficient (natural order)
   uint8_t perm[64];    // coefficient at sorted stream position p
-  uint8_t inv[64];     // stream position of coefficient i (perm's inverse)
   uint8_t counts[32];  // contributors to plane j: a prefix of perm
   int nplanes;         // planes that have contributors
   int nwords;          // payload words per block
@@ -81,60 +80,142 @@ __device__ __forceinline__ void lift_inv(int* c) {
   }
 }
 
-// One block's plane-major stream `in` -> its 4^ND transform coefficients
-// (negabinary undone, two's complement, natural order). The stream walks the
-// static level order; the coefficient it writes is a run-time index, so the
-// word array lives in local memory.
-template <int ND>
-__device__ __forceinline__ void unpack_block(const uint32_t* __restrict__ in,
-                                             const Tables& t, int* c) {
-  constexpr int N = 1 << (2 * ND);
-  uint32_t u[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) u[i] = 0u;
-  uint32_t word = 0;
-  int bit = 32, w = 0;
-  for (int j = 0; j < t.nplanes; ++j) {
-    const int k = t.counts[j];
-    for (int p = 0; p < k; ++p) {
-      if (bit == 32) {
-        word = in[w++];
-        bit = 0;
-      }
-      u[t.perm[p]] |= ((word >> bit) & 1u) << (31 - j);
-      ++bit;
-    }
+// Subband level of coefficient i of a 4^ND block: the per-axis Haar levels
+// [ss, ds, d0, d1] = [0, 1, 2, 2], summed over the axes (ref.coeff_levels).
+__host__ __device__ constexpr int coeff_level(int nd, int i) {
+  int lv = 0;
+  for (int a = 0; a < nd; ++a) {
+    const int r = (i >> (2 * a)) & 3;
+    lv += r == 0 ? 0 : r == 1 ? 1 : 2;
   }
-#pragma unroll
-  for (int i = 0; i < N; ++i) c[i] = (int)((u[i] ^ kNbMask) - kNbMask);
+  return lv;
 }
 
-// The same for a 2-D block, with the block in registers: plane j's
-// contributors are the first counts[j] stream positions, so their bits are
-// one field of the stream, and coefficient i takes bit inv[i] of it. No
-// run-time index into the block, so no local memory and no per-bit loop.
-__device__ __forceinline__ void unpack_block2(const uint32_t* __restrict__ in,
-                                              const Tables& t, int* c) {
-  int inv[16];
-  uint32_t u[16];
+// Stream position of coefficient i (ref.level_order's inverse permutation).
+// Two orders exist: the identity, and for kSub the subband order, sorted by
+// level and then by index (the coefficients with more planes first), which
+// ref.level_order yields for 4 <= planes <= 27 at ndim 2 and 3. At ndim 1
+// the two are the same.
+template <int ND, bool kSub>
+__host__ __device__ constexpr int stream_pos(int i) {
+  if (!kSub) return i;
+  const int li = coeff_level(ND, i);
+  int pos = 0;
+  for (int k = 0; k < (1 << (2 * ND)); ++k) {
+    const int lk = coeff_level(ND, k);
+    pos += lk < li || (lk == li && k < i);
+  }
+  return pos;
+}
+
+// The order ref.level_order gives for `perm` (stream position -> coefficient):
+// 0 for the identity, else 1 for the subband order, -1 for neither.
+template <int ND>
+int stream_order_of(const int* perm) {
+  bool sub = true, ident = true;
+  for (int i = 0; i < (1 << (2 * ND)); ++i) {
+    sub &= perm[stream_pos<ND, true>(i)] == i;
+    ident &= perm[i] == i;
+  }
+  return ident ? 0 : sub ? 1 : -1;
+}
+
+// One step of a 32 x 32 bit transpose (Hacker's Delight's transpose32):
+// word k + S takes the bits of columns c + S of word k at columns c, word k
+// takes those of word k + S the other way, for the k and c with bit S clear.
+// After the steps S = 16, 8, 4, 2, 1, bit r of word c is bit c of the
+// original word r. The 16- and 8-bit steps are byte permutes.
+template <int S>
+__device__ __forceinline__ void transpose32_step(uint32_t* a) {
+  constexpr uint32_t M = S == 4 ? 0x0F0F0F0Fu
+                         : S == 2 ? 0x33333333u
+                                  : 0x55555555u;  // S == 1
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
-    inv[i] = t.inv[i];
-    u[i] = 0u;
+    const int k = (i / S) * 2 * S + i % S;
+    const uint32_t x = a[k], y = a[k + S];
+    if constexpr (S == 16) {
+      a[k] = __byte_perm(x, y, 0x5410);
+      a[k + S] = __byte_perm(x, y, 0x7632);
+    } else if constexpr (S == 8) {
+      a[k] = __byte_perm(x, y, 0x6240);
+      a[k + S] = __byte_perm(x, y, 0x7351);
+    } else {
+      const uint32_t t = ((x >> S) ^ y) & M;
+      a[k + S] = y ^ t;
+      a[k] = x ^ (t << S);
+    }
   }
+}
+
+__device__ __forceinline__ void transpose32(uint32_t* a) {
+  transpose32_step<16>(a);
+  transpose32_step<8>(a);
+  transpose32_step<4>(a);
+  transpose32_step<2>(a);
+  transpose32_step<1>(a);
+}
+
+// c[I..] from the transposed planes: coefficient i is at stream position
+// stream_pos(i), a compile-time index into lo (positions 0-31) or hi (32-63);
+// negabinary undone.
+template <int ND, bool kSub, int I = 0>
+__device__ __forceinline__ void gather_coeffs(const uint32_t* lo,
+                                              const uint32_t* hi, int* c) {
+  if constexpr (I < (1 << (2 * ND))) {
+    constexpr int p = stream_pos<ND, kSub>(I);
+    uint32_t u;
+    if constexpr (p < 32) {
+      u = lo[p];
+    } else {
+      u = hi[p - 32];
+    }
+    c[I] = (int)((u ^ kNbMask) - kNbMask);
+    gather_coeffs<ND, kSub, I + 1>(lo, hi, c);
+  }
+}
+
+// One block's plane-major stream `in` -> its 4^ND transform coefficients
+// (negabinary undone, two's complement, natural order), with the block in
+// registers. Plane j's contributors are the first counts[j] stream
+// positions, so their bits are one field of the stream (at most 64 bits,
+// taken with funnel shifts), and position p takes bit p of it. Field j
+// becomes row 31 - j of a planes x positions bit matrix (low and high 32
+// positions apart); transposed, word p holds position p's bit of plane j at
+// bit 31 - j, as the codec packs it. The stream order is a compile-time
+// permutation, so no index into the block is known only at run time and
+// nothing goes to local memory. `in` may be read up to two words past the
+// block's last word (those bits are masked off).
+template <int ND, bool kSub>
+__device__ __forceinline__ void unpack_regs(const uint32_t* in,
+                                            const Tables& t, int* c) {
+  constexpr bool kHi = ND == 3;  // 64 positions: two 32-bit halves
+  uint32_t lo[32], hi[32];
   int off = 0;
-  for (int j = 0; j < t.nplanes; ++j) {
-    const int k = t.counts[j];  // 1..16
-    const int wi = off >> 5, sh = off & 31;
-    uint32_t field = in[wi] >> sh;
-    if (sh + k > 32) field |= in[wi + 1] << (32 - sh);
-    field &= (1u << k) - 1u;  // the bits past k belong to the next plane
 #pragma unroll
-    for (int i = 0; i < 16; ++i) u[i] |= ((field >> inv[i]) & 1u) << (31 - j);
-    off += k;
+  for (int j = 0; j < 32; ++j) {
+    uint32_t flo = 0u, fhi = 0u;
+    if (j < t.nplanes) {
+      const int k = t.counts[j];
+      const int wi = off >> 5, sh = off & 31;
+      const uint32_t w1 = in[wi + 1];
+      flo = __funnelshift_r(in[wi], w1, sh);
+      if constexpr (kHi) fhi = __funnelshift_r(w1, in[wi + 2], sh);
+      // the bits past k belong to the next plane
+      if (k < 32) {
+        flo &= (1u << k) - 1u;
+        fhi = 0u;
+      } else if (kHi && k < 64) {
+        fhi &= (1u << (k - 32)) - 1u;
+      }
+      off += k;
+    }
+    lo[31 - j] = flo;
+    if constexpr (kHi) hi[31 - j] = fhi;
   }
-#pragma unroll
-  for (int i = 0; i < 16; ++i) c[i] = (int)((u[i] ^ kNbMask) - kNbMask);
+  transpose32(lo);
+  if constexpr (kHi) transpose32(hi);
+  gather_coeffs<ND, kSub>(lo, hi, c);
 }
 
 // 2^(emax - kFrac), exact, from IEEE bits: the fixed-point -> float scale.
@@ -149,7 +230,6 @@ inline Tables make_tables(int ndim, const uint32_t* masks, const int* perm,
   for (int i = 0; i < n; ++i) {
     t.mask[i] = masks[i];
     t.perm[i] = (uint8_t)perm[i];
-    t.inv[perm[i]] = (uint8_t)i;
   }
   for (int j = 0; j < nplanes; ++j) t.counts[j] = (uint8_t)counts[j];
   t.nplanes = nplanes;

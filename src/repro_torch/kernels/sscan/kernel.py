@@ -4,9 +4,10 @@
 ``repro.kernels.sscan.kernel.selective_scan_pallas``. The TPU kernel
 walks ``(B, D-tiles, S-chunks)`` grid steps, the chunk axis in order,
 and scans each chunk associatively on a ``(d_tile, N)`` state held in
-VMEM. On Hopper one thread owns one ``(b, d)`` channel and runs the
-recurrence step by step with its ``N`` states in registers, so there is
-no chunk and no ``S % chunk`` or ``D % d_tile`` constraint.
+VMEM. On Hopper each ``(b, d)`` channel's ``N`` states sit in registers
+(four lanes of four states at decode, one lane at prefill) and run the
+recurrence step by step over a stream staged in shared memory, so there
+is no chunk and no ``S % chunk`` or ``D % d_tile`` constraint.
 
 ``h_out`` (optional) receives ``h_last`` in place, as the serving cache
 wants; it may be ``h0`` itself. On a CPU tensor the wrapper runs the
@@ -30,7 +31,7 @@ launches = {"sscan": 0}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
-MAX_STATE = 16  # csrc/sscan.cu kMaxN: the states a thread keeps in registers
+MAX_STATE = 16  # csrc/sscan.cu kMaxN: the states a channel keeps in registers
 
 
 def reset_launches() -> None:

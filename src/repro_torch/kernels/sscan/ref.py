@@ -73,3 +73,25 @@ def selective_scan_ref(
         del decay, inp, acum, bcum, h_chunk
     y = torch.cat(ys, dim=1)[:, :s]
     return y, h.contiguous()
+
+
+def selective_scan_f64(
+    dt: torch.Tensor,  # (B, S, D)
+    a: torch.Tensor,  # (D, N)
+    b_in: torch.Tensor,  # (B, S, N)
+    c_in: torch.Tensor,  # (B, S, N)
+    x: torch.Tensor,  # (B, S, D)
+    h0: torch.Tensor,  # (B, D, N)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The same recurrence step by step in float64: the yardstick both
+    float32 versions (the kernel, step by step; ``selective_scan_ref``,
+    chunked) are measured against. Returns float64 (y, h_last)."""
+    dt, a, b_in, c_in, x, h = (t.double() for t in (dt, a, b_in, c_in, x,
+                                                     h0))
+    ys = []
+    for t in range(x.shape[1]):
+        dtt = dt[:, t, :, None]
+        h = torch.exp(dtt * a) * h + dtt * b_in[:, t, None, :] * x[:, t, :,
+                                                                   None]
+        ys.append((h * c_in[:, t, None, :]).sum(-1))
+    return torch.stack(ys, dim=1), h

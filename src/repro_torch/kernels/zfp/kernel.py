@@ -4,7 +4,10 @@
 ``decode`` replaces ``decode_pallas``. Unlike the TPU kernels they take
 the unit itself, ``(..., s1..s_ndim)``: blockify, its edge padding and
 unblockify's crop are folded into the kernels' indexing, so there is no
-tile padding (``ops.bucket_tile`` stays only for parity).
+tile padding (``ops.bucket_tile`` stays only for parity). The decoder is
+compiled for the two stream orders that ``ref.level_order`` yields;
+``stream_order`` picks one per launch, and the C entry refuses a launch
+whose tables are not in that order.
 
 On a CPU tensor each wrapper runs the plain version (``ref``); on a
 CUDA tensor it launches the kernel or raises. ``launches`` counts kernel
@@ -27,14 +30,37 @@ from repro_torch.kernels.zfp import ref
 launches = {"encode": 0, "decode": 0}
 
 _P = ctypes.c_void_p
-_ARGS = [_P, _P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-         ctypes.c_int, ctypes.c_int, _P, _P, _P, ctypes.c_int, ctypes.c_int,
-         _P]
+_I = ctypes.c_int
+_ARGS = {
+    "zfp_encode": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P,
+                   _I, _I, _P],
+    # the decoder also takes the stream order (``stream_order``)
+    "zfp_decode": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P,
+                   _I, _I, _I, _P],
+}
 
 
 def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
+
+
+def stream_order(planes: int, ndim: int) -> int:
+    """The stream order the decode kernel is compiled for at ``planes``
+    and ``ndim``: 1 for the subband order (coefficients by level, then by
+    index), where ``ref.subband_planes`` gives the levels different plane
+    counts (4 <= planes <= 27 at ndim 2 and 3); 0 for the identity
+    elsewhere, and always at ndim 1, where the two orders are one."""
+    return int(ndim > 1 and 4 <= planes <= ref._WIDTH - 5)
+
+
+def order_perm(order: int, ndim: int) -> Tuple[int, ...]:
+    """Stream position -> coefficient of ``order`` (``stream_order``), as
+    ``csrc/zfp_common.cuh``'s ``stream_pos`` lays it out."""
+    n = ref.block_size(ndim)
+    if not order:
+        return tuple(range(n))
+    return tuple(sorted(range(n), key=lambda i: (ref.coeff_levels(ndim)[i], i)))
 
 
 @functools.lru_cache(maxsize=None)
@@ -59,10 +85,11 @@ def _geometry(shape: Tuple[int, ...], ndim: int):
 def _launch(symbol: str, a, b, c, shape, ndim: int, planes: int) -> None:
     masks, perm, counts, nplanes, nwords = _tables(int(planes), ndim)
     batch, (d0, d1, d2), _ = _geometry(shape, ndim)
-    fn = _build.bind("zfp", symbol, _ARGS)
+    fn = _build.bind("zfp", symbol, _ARGS[symbol])
+    order = (stream_order(int(planes), ndim),) if symbol == "zfp_decode" else ()
     err = fn(a, b, c, batch, d0, d1, d2, ndim,
              masks.ctypes.data, perm.ctypes.data, counts.ctypes.data,
-             nplanes, nwords, torch.cuda.current_stream().cuda_stream)
+             nplanes, nwords, *order, torch.cuda.current_stream().cuda_stream)
     _build.check("zfp", err, symbol)
 
 

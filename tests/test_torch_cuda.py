@@ -38,12 +38,18 @@ from repro_torch.serving.engine import ServeEngine
 
 pytestmark = pytest.mark.cuda
 
+# X % 4 == 0 (whole rows, the decoder's float4 stores) beside X % 4 != 0
+# (the cropped edge); the larger 3-D shapes span several CTAs and a
+# partial last warp
 SHAPES = {
     1: [(4,), (1000,), (3, 4097)],
     2: [(4, 4), (30, 50), (2, 9, 13)],
-    3: [(4, 4, 4), (10, 11, 12), (50, 34, 33), (2, 5, 6, 7)],
+    3: [(4, 4, 4), (10, 11, 12), (50, 34, 33), (2, 5, 6, 7), (20, 36, 64),
+        (9, 130, 131)],
 }
-PLANES = [32, 24, 16, 12, 8, 4, 1]
+# both stream orders: the identity (1-3 and 28-32 planes) and the subband
+# order (4-27), with the edges of each
+PLANES = [32, 28, 27, 24, 16, 12, 8, 4, 3, 2, 1]
 
 
 @pytest.fixture(scope="module")
@@ -339,14 +345,16 @@ def test_serving_cuda_equals_ref_on_card(cuda_device):
 # ----------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n", [4, 16])
-@pytest.mark.parametrize("d", [8, 256])
-@pytest.mark.parametrize("s", [1, 7, 64, 130])
+@pytest.mark.parametrize("n", [1, 4, 5, 16])
+@pytest.mark.parametrize("d", [8, 200, 256])
+@pytest.mark.parametrize("s", [1, 7, 33, 64, 130])
 @pytest.mark.parametrize("b", [1, 2])
 def test_sscan_kernel_against_plain(cuda_device, b, s, d, n):
     """y and h_last within rtol 1e-4 / atol 1e-5 of the plain version;
     ``h_out`` is written in place (here ``h0`` itself, as the serving
-    cache passes it)."""
+    cache passes it). N of 1 and 5 mask lanes of the 4-lane split (and 5
+    takes the scalar state path), D = 200 ends in a partial CTA of 64
+    channels, S = 33 and 130 in a partial stage of 16 steps."""
     rng = np.random.default_rng(1000 * b + 10 * s + d + n)
     f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
     dt = np.log1p(np.exp(f(b, s, d)))

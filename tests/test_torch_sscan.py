@@ -13,6 +13,7 @@ import torch
 from repro.kernels.sscan import kernel as JK
 from repro.kernels.sscan import ops as JO
 from repro.kernels.sscan import ref as JR
+from repro.models.ssm import chunked_selective_scan
 from repro_torch.kernels.sscan import kernel as K
 from repro_torch.kernels.sscan import ops as O
 from repro_torch.kernels.sscan import ref as R
@@ -107,3 +108,17 @@ def test_kernel_wrapper_runs_plain_version_on_cpu():
 def test_traffic_model_is_the_reference(shape, fused):
     assert O.hbm_traffic_bytes(*shape, fused=fused) == \
         JO.hbm_traffic_bytes(*shape, fused=fused)
+
+
+@pytest.mark.parametrize("B,S,D,N,chunk", [(2, 48, 16, 16, 16),
+                                           (1, 37, 8, 5, 8)])
+def test_float64_recurrence_matches_reference(B, S, D, N, chunk):
+    """``selective_scan_f64``, the yardstick of the kernel's float64
+    witness, against ``repro.models.ssm.chunked_selective_scan`` on the
+    same inputs, within the scan's tolerance (float32 against float64)."""
+    arrays = _inputs(B, S, D, N, seed=11 + S)
+    y64, h64 = R.selective_scan_f64(*_torch(arrays))
+    assert y64.dtype == h64.dtype == torch.float64
+    yj, hj = chunked_selective_scan(*(jnp.asarray(a) for a in arrays), chunk)
+    np.testing.assert_allclose(y64.numpy(), np.asarray(yj), **TOL)
+    np.testing.assert_allclose(h64.numpy(), np.asarray(hj), **TOL)

@@ -182,3 +182,19 @@ def test_float64_codec_not_ported_raises():
     x = torch.zeros((4, 4, 4), dtype=torch.float64)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tops.compress(x, planes=24)
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_decode_stream_order_is_level_order(ndim):
+    """The decode kernel is compiled for two stream orders; the one its
+    wrapper picks at each plane count must be ``level_order``'s perm, in
+    the JAX reference and in the port (a wrong compile-time table would
+    decode wrong bits)."""
+    seen = set()
+    for planes in range(1, 33):
+        order = tkernel.stream_order(planes, ndim)
+        perm = tkernel.order_perm(order, ndim)
+        assert perm == tuple(jref.level_order(planes, ndim, 32)[0])
+        assert perm == tuple(tref.level_order(planes, ndim, 32)[0])
+        seen.add(order)
+    assert seen == ({0} if ndim == 1 else {0, 1})
