@@ -15,9 +15,12 @@ non-zero:
    path's shapes: the codec on a 96-plane common-region unit
    (96, 1152, 1152) at 12 and 16 planes and a ragged (50, 1150, 1149)
    unit (with the codec kernels' device time a launch from
-   ``torch.profiler`` and the decoder's ``ptxas`` line, which must show
-   no spill and no stack frame), the single step on one fetched block
-   (240, 1152, 1152), the
+   ``torch.profiler`` and their ``ptxas`` lines: every instance of the
+   encoder and of the decoder must show no spill and no stack frame),
+   the single step on one fetched block (240, 1152, 1152) and at the
+   shape the bt 1 engine launches it, (20, 1152, 1152) padded to
+   (28, 1160, 1160), both on random padded fields (a non-zero halo),
+   with its device time a launch and its ``ptxas`` line (printed), the
    multistep kernel at 12 steps on the same block (one launch a rung),
    then on the ragged unit at 12 steps and on the block at 5 steps,
    with their launches. Each must be
@@ -106,6 +109,7 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -152,6 +156,8 @@ NDIV, BT = 8, 12
 UNIT = (96, 1152, 1152)  # a common region C_i at the paper's size
 RAGGED = (50, 1150, 1149)
 BLOCK = (240, 1152, 1152)  # one fetched block, B + 2H planes
+# the bt 1 engine's block: B + 2H = 12 + 8 planes of SMALL_Z at ndiv 8
+STEP_PATH = (20, 1152, 1152)
 SMALL_Z = 96  # phase 5's volume depth (bt=1)
 # phase 6: the fused attention kernel at the decode_32k context
 CTX = SHAPES["decode_32k"].seq_len
@@ -363,11 +369,11 @@ def codec_case(shape, planes, gen, results):
             zfp_ref.decode_blocks(payload, emax, planes, 3), shape, 3), 3),
         "bound": bound_ms(in_bytes + out_bytes),
     }
-    # the decoder keeps its block in registers: no spill, no stack frame
+    # both kernels keep their block in registers: no spill, no stack frame
+    enc_ptxas = kernel_ptxas("zfp", "encode_kernel")
     dec_ptxas = kernel_ptxas("zfp", "decode_kernel")
-    for name, r, ok, ptxas in (
-            ("zfp_encode", enc, enc_ok, kernel_ptxas("zfp", "encode_kernel")),
-            ("zfp_decode", dec, dec_ok, dec_ptxas)):
+    for name, r, ok, ptxas in (("zfp_encode", enc, enc_ok, enc_ptxas),
+                               ("zfp_decode", dec, dec_ok, dec_ptxas)):
         emit({"phase": "kernel_vs_plain", "kernel": name,
               "shape": list(shape), "planes": planes,
               "stream_order": zfp_kernel.stream_order(planes, 3),
@@ -378,35 +384,53 @@ def codec_case(shape, planes, gen, results):
         check(ok, f"{name} differs from its plain version at {shape}, "
                   f"{planes} planes")
         results.setdefault((name, shape, planes), r)
-    check(len(dec_ptxas) == 5 and all(
-        e.get("spill_stores", 0) == 0 and e.get("stack_frame", 0) == 0
-        for e in dec_ptxas), f"zfp decode_kernel spills or keeps a stack "
-                             f"frame: {dec_ptxas}")
+    for name, ptxas in (("encode_kernel", enc_ptxas),
+                        ("decode_kernel", dec_ptxas)):
+        # ndim 3 and 2 in both stream orders, ndim 1 in one
+        check(len(ptxas) == 5 and all(
+            e.get("spill_stores", 0) == 0 and e.get("stack_frame", 0) == 0
+            for e in ptxas), f"zfp {name} spills or keeps a stack frame: "
+                             f"{ptxas}")
 
 
-def stencil_cases(gen, results):
-    z, y, x = BLOCK
-    n = z * y * x
-    pad = tuple(s + 2 * stencil_ref.HALO for s in BLOCK)
+def wave_step_case(shape, gen, results):
+    """The single step on random padded fields (halo included) of the
+    interior ``shape``: bit for bit ``ref.wave_step``, with its times and
+    bound (both padded inputs, vel2 and both outputs once)."""
+    n = math.prod(shape)
+    pad = tuple(s + 2 * stencil_ref.HALO for s in shape)
     pp, pc = normal(pad, gen, 1.0), normal(pad, gen, 1.0)
-    v2 = 0.05 + 0.01 * normal(BLOCK, gen, 1.0)
+    v2 = 0.05 + 0.01 * normal(shape, gen, 1.0)
     kn, kl = stencil_kernel.wave_step(pp, pc, v2)
     rn, rl = stencil_ref.wave_step(pp, pc, v2)
     ok = same_bits(kn, rn) and same_bits(kl, rl)
+    fn = lambda: stencil_kernel.wave_step(pp, pc, v2)
     r = {
         "max_abs_err": max(max_abs(kn, rn), max_abs(kl, rl)),
-        "ms": median_ms(lambda: stencil_kernel.wave_step(pp, pc, v2), 10),
+        "ms": median_ms(fn, 10),
+        **kernel_device_ms(fn, "wave_step_kernel", 10),
         "plain_ms": median_ms(lambda: stencil_ref.wave_step(pp, pc, v2), 3),
         "bound": bound_ms(2 * pp.numel() * 4 + 3 * n * 4, STENCIL_FLOPS * n),
     }
-    results[("wave_step", BLOCK, 1)] = r
+    results[("wave_step", shape, 1)] = r
     emit({"phase": "kernel_vs_plain", "kernel": "wave_step",
-          "shape": list(BLOCK), "bitwise": ok, "max_abs_err": r["max_abs_err"],
-          "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-          "bound_by": r["bound"][1]})
-    check(ok, "wave_step differs from its plain version")
-    del pp, pc, kn, kl, rn, rl
+          "shape": list(shape), "padded": list(pad), "bitwise": ok,
+          "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+          "device_ms": r["device_ms"], "device_ms_by": r["device_ms_by"],
+          "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+          "bound_by": r["bound"][1],
+          "ptxas": kernel_ptxas("stencil", "wave_step_kernel")})
+    check(ok, f"wave_step differs from its plain version at {shape}")
+    del pp, pc, v2, kn, kl, rn, rl
+    torch.cuda.empty_cache()
 
+
+def stencil_cases(gen, results):
+    for shape in (BLOCK, STEP_PATH):
+        wave_step_case(shape, gen, results)
+    z, y, x = BLOCK
+    n = z * y * x
+    v2 = 0.05 + 0.01 * normal(BLOCK, gen, 1.0)
     steps = BT
     pp, pc = normal(BLOCK, gen, 1.0), normal(BLOCK, gen, 1.0)
     rp, rc = stencil_ref.ladder_steps(pp, pc, v2, steps)
@@ -1422,7 +1446,7 @@ def main() -> int:
         ("zfp_decode", "zfp_decode", "src/repro/kernels/zfp/kernel.py:133",
          "src/repro_torch/csrc/zfp.cu", (UNIT, 12)),
         ("wave_step", "wave_step", "src/repro/kernels/stencil/kernel.py:69",
-         "src/repro_torch/csrc/stencil.cu", (BLOCK, 1)),
+         "src/repro_torch/csrc/stencil.cu", (STEP_PATH, 1)),
         ("wave_multistep", "wave_multistep",
          "src/repro/kernels/stencil/kernel.py:149",
          "src/repro_torch/csrc/stencil.cu", (BLOCK, BT)),
@@ -1441,6 +1465,7 @@ def main() -> int:
                    "ssm_serving": ssm_counts.get(counter, 0)}
         kernels.append({
             "name": name, "route": "cuda", "source": source,
+            "shape": [list(shape), arg],
             "replaces": replaces, "launches": sum(by_path.values()),
             "launches_by_path": by_path,
             "max_abs_err": r["max_abs_err"], "ms": r["ms"],

@@ -9,37 +9,48 @@
 // work per value (a shift-add lift, a negabinary add, a mask, one bit of
 // packing per kept plane) is far below the card's integer rate at 3.35 TB/s.
 //
-// Design: one thread per 4^d block with its 4^d values in registers.
+// Design: one thread per 4^d block with its 4^d values in registers, and
+// each warp's 32 payload rows staged in shared memory at an odd row stride
+// (conflict-free when each lane touches word i of its own row), so that
+// device memory sees one contiguous run of 32 W words a warp, moved with
+// coalesced accesses.
 //  * blockify, its edge padding and unblockify's crop are folded into the
 //    indexing: the encoder reads the (batch, Z, Y, X) unit directly, clamping
 //    each coordinate to the edge, and the decoder writes straight back to it,
-//    dropping the padded coordinates. No (nb, 64) copy is made.
+//    dropping the padded coordinates. No (nb, 64) copy is made. When the
+//    unit's rows are 16-byte aligned (d2 % 4 == 0), each row of 4 values of a
+//    block is one float4: lane l of a warp takes x0 = 4 l, 512 contiguous
+//    bytes a row for the warp.
 //  * emax comes from the IEEE exponent bits (as _emax_tile does): zeros and
 //    denormals map to -126, below the -90 floor, so the floor makes this equal
 //    to the frexp exponent of the plain version for every finite value.
 //  * The lift, negabinary and truncation are unrolled over compile-time
 //    indices, so the block stays in registers. Integer adds wrap explicitly
 //    (through unsigned), matching the 32-bit wrap of the plain version.
-//  * Encode: the plane-major stream walks the static level order, passed by
-//    value as a small table; the coefficient it reads is a run-time index,
-//    so that one array lives in local memory (per-thread interleaved,
-//    L1-cached), and each thread writes its W words alone.
-//  * Decode: each warp first copies its 32 blocks' payload rows, one
-//    contiguous run of 32 W words, with coalesced cp.async into shared
-//    memory at an odd row stride (conflict-free reads of a row per lane).
-//    Each thread then unpacks its block in registers (zfp_common.cuh's
-//    unpack_regs: one <= 64-bit field a plane, a 32 x 32 bit transpose per
-//    32 stream positions, the stream order a compile-time permutation, one
-//    of the two that ref.level_order yields, chosen per launch), lifts, and
-//    stores each row of 4 values as one float4 when the unit's rows are
-//    16-byte aligned and the block is whole; the cropped edge goes out
-//    value by value.
-// Known costs left for a later change: the encoder's local-memory stream
-// loop and uncoalesced W-word rows (the next redesign); the decoder's
-// block -> coordinate arithmetic in 64 bits.
+//  * The stream is packed and unpacked in registers (zfp_common.cuh's
+//    pack_regs / unpack_regs): one <= 64-bit field a plane, a 32 x 32 bit
+//    transpose per 32 stream positions, the stream order a compile-time
+//    permutation, one of the two that ref.level_order yields, chosen per
+//    launch. No index into the block is known only at run time.
+//  * Encode: each thread appends its planes' fields to its own row in shared
+//    memory (the word offsets, sums of the run-time plane counts, are fine
+//    there), then the warp stores its rows with coalesced writes; emax is
+//    one coalesced int32 store a lane. Decode: the warp copies its rows in
+//    with coalesced cp.async first, and each thread stores each row of 4
+//    values as one float4 when the rows are aligned and the block whole;
+//    the cropped edge goes out value by value.
+// What held the first encoder back: its stream loop read the
+// masked coefficient at a run-time index, u[perm[p]], which put the block in
+// local memory (a 256-byte stack frame at ndim 3), and each thread stored
+// its W words alone, W words apart from its neighbours: 1.53 ms a launch at
+// (96, 1152, 1152) and 12 planes against a 0.2115 ms byte bound. Packed in
+// registers and stored through shared memory it takes 0.295-0.316 ms there
+// (device time a launch; tools/kernel_shapes.py; H100 80GB HBM3, 700 W).
+// At ndim <= 2 the transposes beat a direct compile-time gather of each
+// plane's bits at the Qwen flush shape (0.0037 against 0.0048 ms).
 // The build uses -fmad=false; no floating-point expression here could contract.
-// The tables, the lift and the stream unpacking live in zfp_common.cuh, which
-// the fused attention kernel (cdecode.cu) shares.
+// The tables, the lift and the stream packing and unpacking live in
+// zfp_common.cuh, which the fused attention kernel (cdecode.cu) shares.
 
 #include "cp_async.cuh"
 #include "zfp_common.cuh"
@@ -69,67 +80,38 @@ __device__ __forceinline__ void block_origin(const Geometry& g, long long b,
   *x0 = 4 * b2;
 }
 
+// Block b's 4^ND values, x fastest (the (nb, 4^ND) layout of ref.blockify):
+// each coordinate clamped to the edge (edge replication is part of the
+// format). vec: rows of x are 16-byte aligned (d2 % 4 == 0, so x0 + 4 <= d2),
+// and each of the block's rows is one float4 load.
 template <int ND>
-__global__ void encode_kernel(const float* __restrict__ x,
-                              uint32_t* __restrict__ payload,
-                              int* __restrict__ emax_out, Geometry g, Tables t) {
-  constexpr int E0 = ND >= 3 ? 4 : 1, E1 = ND >= 2 ? 4 : 1, N = E0 * E1 * 4;
-  const long long b = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= g.nb) return;
-  long long bb;
-  int z0, y0, x0;
-  block_origin<ND>(g, b, &bb, &z0, &y0, &x0);
-
-  float v[N];
+__device__ __forceinline__ void load_block(const float* __restrict__ x,
+                                           const Geometry& g, long long bb,
+                                           int z0, int y0, int x0, bool vec,
+                                           float* v) {
+  constexpr int E0 = ND >= 3 ? 4 : 1, E1 = ND >= 2 ? 4 : 1;
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int zi = min(z0 + i / (E1 * 4), g.d0 - 1);
-    const int yi = min(y0 + (i / 4) % E1, g.d1 - 1);
-    const int xi = min(x0 + i % 4, g.d2 - 1);
-    v[i] = x[((bb * g.d0 + zi) * g.d1 + yi) * (long long)g.d2 + xi];
-  }
-
-  int emax = -126;
+  for (int rw = 0; rw < E0 * E1; ++rw) {
+    const int zi = min(z0 + rw / E1, g.d0 - 1);
+    const int yi = min(y0 + rw % E1, g.d1 - 1);
+    const float* row = x + ((bb * g.d0 + zi) * g.d1 + yi) * (long long)g.d2;
+    if (vec) {
+      const float4 f = __ldg((const float4*)(row + x0));
+      v[4 * rw] = f.x;
+      v[4 * rw + 1] = f.y;
+      v[4 * rw + 2] = f.z;
+      v[4 * rw + 3] = f.w;
+    } else {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    const int raw = (__float_as_int(v[i]) >> 23) & 0xFF;
-    emax = max(emax, raw == 0 ? -126 : raw - 126);
-  }
-  emax = max(emax, kEmaxFloor);
-  const float scale = __int_as_float((kFrac - emax + 127) << 23);
-
-  int q[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i) q[i] = __float2int_rn(__fmul_rn(v[i], scale));
-  lift_fwd<ND>(q);
-
-  uint32_t u[N];
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-    u[i] = (((uint32_t)q[i] + kNbMask) ^ kNbMask) & t.mask[i];
-
-  uint32_t* out = payload + b * t.nwords;
-  uint32_t word = 0;
-  int bit = 0, w = 0;
-  for (int j = 0; j < t.nplanes; ++j) {
-    const int k = t.counts[j];
-    for (int p = 0; p < k; ++p) {
-      word |= ((u[t.perm[p]] >> (31 - j)) & 1u) << bit;
-      if (++bit == 32) {
-        out[w++] = word;
-        word = 0;
-        bit = 0;
-      }
+      for (int k = 0; k < 4; ++k)
+        v[4 * rw + k] = __ldg(row + min(x0 + k, g.d2 - 1));
     }
   }
-  if (bit) out[w++] = word;
-  emax_out[b] = emax;
 }
 
-constexpr int kDecodeThreads = 128;
-
-// The decoder's staging geometry: a block's payload row sits at `stride`
-// words (nwords, made odd) in shared memory, and lane l of a warp copies the
+// The staging geometry of a warp's payload rows in shared memory: a block's
+// row sits at `stride` words (nwords, made odd, so the 32 lanes touching
+// word i of their own rows hit 32 banks), and lane l of a warp walks the
 // warp's rows word by word, l + 32 m for m = 0, 1, ...: `dq` rows and `dr`
 // words further each time (32 = dq * nwords + dr).
 struct Staging {
@@ -144,12 +126,87 @@ Staging make_staging(int nwords) {
   return s;
 }
 
-// Dynamic shared memory of one decode CTA: its blocks' rows, and two words
-// that unpack_regs may read past the last row.
-size_t decode_smem_bytes(int nwords) {
-  return ((size_t)kDecodeThreads * make_staging(nwords).stride + 2) *
+// Word i of the warp's contiguous run of `total` payload words, for
+// i = lane, lane + 32, ...: fn(global word i, its row, its word in the row).
+template <typename Fn>
+__device__ __forceinline__ void walk_rows(int lane, int total, int w,
+                                          const Staging& st, Fn fn) {
+  int r = lane / w, c = lane - (lane / w) * w;
+  for (int i = lane; i < total; i += 32) {
+    fn(i, r, c);
+    r += st.dq;
+    c += st.dr;
+    if (c >= w) {
+      c -= w;
+      ++r;
+    }
+  }
+}
+
+// Dynamic shared memory of one codec CTA: its blocks' payload rows, and two
+// words that unpack_regs may read past the last row.
+size_t staging_bytes(int threads, int nwords) {
+  return ((size_t)threads * make_staging(nwords).stride + 2) *
          sizeof(uint32_t);
 }
+
+// 64 threads a CTA: the Qwen chunk flush (8192 blocks) fills 128 CTAs, one
+// an SM, where 128 threads would leave half the card idle.
+constexpr int kEncodeThreads = 64;
+
+// One thread per 4^ND block, kSub: the stream order (stream_pos). The block
+// is packed in registers (pack_regs) into its own row in shared memory; the
+// warp's 32 rows, one contiguous run of 32 W words in the payload, then go
+// out with coalesced stores.
+template <int ND, bool kSub>
+__global__ void __launch_bounds__(kEncodeThreads)
+    encode_kernel(const float* __restrict__ x, uint32_t* __restrict__ payload,
+                  int* __restrict__ emax_out, Geometry g, Tables t, Staging st,
+                  bool vec) {
+  constexpr int N = 1 << (2 * ND);
+  extern __shared__ uint32_t rows[];
+  const int lane = threadIdx.x & 31;
+  const int w = t.nwords;
+  uint32_t* wrows = rows + (threadIdx.x - lane) * st.stride;
+  const long long b0 = (long long)blockIdx.x * kEncodeThreads +
+                       (threadIdx.x - lane);
+  if (b0 >= g.nb) return;  // the whole warp
+  const long long b = b0 + lane;
+  if (b < g.nb) {
+    long long bb;
+    int z0, y0, x0;
+    block_origin<ND>(g, b, &bb, &z0, &y0, &x0);
+    float v[N];
+    load_block<ND>(x, g, bb, z0, y0, x0, vec, v);
+
+    int emax = -126;
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const int raw = (__float_as_int(v[i]) >> 23) & 0xFF;
+      emax = max(emax, raw == 0 ? -126 : raw - 126);
+    }
+    emax = max(emax, kEmaxFloor);
+    const float scale = __int_as_float((kFrac - emax + 127) << 23);
+
+    int q[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i) q[i] = __float2int_rn(__fmul_rn(v[i], scale));
+    lift_fwd<ND>(q);
+
+    uint32_t u[N];
+#pragma unroll
+    for (int i = 0; i < N; ++i)
+      u[i] = (((uint32_t)q[i] + kNbMask) ^ kNbMask) & t.mask[i];
+    pack_regs<ND, kSub>(u, t, wrows + lane * st.stride);
+    emax_out[b] = emax;
+  }
+  __syncwarp();
+  uint32_t* dst = payload + b0 * w;
+  walk_rows(lane, (int)min(32LL, g.nb - b0) * w, w, st,
+            [&](int i, int r, int c) { dst[i] = wrows[r * st.stride + c]; });
+}
+
+constexpr int kDecodeThreads = 128;
 
 // One thread per 4^ND block, kSub: the stream order (stream_pos). vec: the
 // rows of the output are 16-byte aligned (d2 % 4 == 0), so a whole row of a
@@ -170,18 +227,11 @@ __global__ void __launch_bounds__(kDecodeThreads)
   const long long b0 = (long long)blockIdx.x * kDecodeThreads +
                        (threadIdx.x - lane);
   if (b0 >= g.nb) return;  // the whole warp
-  const int total = (int)min(32LL, g.nb - b0) * w;
   const uint32_t* src = payload + b0 * w;
-  int r = lane / w, c = lane - (lane / w) * w;
-  for (int i = lane; i < total; i += 32) {
-    cp_async<4>(wrows + r * st.stride + c, src + i);
-    r += st.dq;
-    c += st.dr;
-    if (c >= w) {
-      c -= w;
-      ++r;
-    }
-  }
+  walk_rows(lane, (int)min(32LL, g.nb - b0) * w, w, st,
+            [&](int i, int r, int c) {
+              cp_async<4>(wrows + r * st.stride + c, src + i);
+            });
   cp_async_commit();
   cp_async_wait<0>();
   __syncwarp();
@@ -228,7 +278,13 @@ Geometry make_geometry(long long batch, int d0, int d1, int d2, int ndim) {
   return g;
 }
 
-constexpr int kThreads = 128;
+// The order ref.level_order gives `perm` (stream_order_of), or -1.
+int order_of(int ndim, const void* perm) {
+  const int* pm = (const int*)perm;
+  return ndim == 3   ? stream_order_of<3>(pm)
+         : ndim == 2 ? stream_order_of<2>(pm)
+                     : stream_order_of<1>(pm);
+}
 
 }  // namespace
 
@@ -236,27 +292,43 @@ extern "C" {
 
 // x: (batch, d0, d1, d2) float32, contiguous, on the device. For ndim 2
 // pass d0 = 1, for ndim 1 d0 = d1 = 1. Table pointers are host memory.
-// zfp_decode also takes the stream order of its tables (1: the subband
-// order, 0: the identity; kernel.stream_order picks it) and refuses a
+// Both entries take the stream order of their tables (1: the subband
+// order, 0: the identity; kernel.stream_order picks it) and refuse a
 // launch whose perm table is not that order.
 int zfp_encode(const void* x, void* payload, void* emax, long long batch,
                int d0, int d1, int d2, int ndim, const void* masks,
                const void* perm, const void* counts, int nplanes, int nwords,
-               void* stream) {
+               int order, void* stream) {
+  if (order < 0 || order_of(ndim, perm) != order)
+    return (int)cudaErrorInvalidValue;
   const Geometry g = make_geometry(batch, d0, d1, d2, ndim);
+  if (g.nb == 0) return (int)cudaSuccess;
   const Tables t = make_tables(ndim, (const uint32_t*)masks, (const int*)perm,
                                (const int*)counts, nplanes, nwords);
-  const unsigned grid = (unsigned)((g.nb + kThreads - 1) / kThreads);
+  const Staging st = make_staging(nwords);
+  const size_t smem = staging_bytes(kEncodeThreads, nwords);
+  const unsigned grid =
+      (unsigned)((g.nb + kEncodeThreads - 1) / kEncodeThreads);
+  const bool vec = d2 % 4 == 0 && ((size_t)x & 15) == 0;
   cudaStream_t s = (cudaStream_t)stream;
   const float* xf = (const float*)x;
   uint32_t* p = (uint32_t*)payload;
   int* e = (int*)emax;
-  if (ndim == 3)
-    encode_kernel<3><<<grid, kThreads, 0, s>>>(xf, p, e, g, t);
+  if (ndim == 3 && order)
+    encode_kernel<3, true><<<grid, kEncodeThreads, smem, s>>>(xf, p, e, g, t,
+                                                              st, vec);
+  else if (ndim == 3)
+    encode_kernel<3, false><<<grid, kEncodeThreads, smem, s>>>(xf, p, e, g, t,
+                                                               st, vec);
+  else if (ndim == 2 && order)
+    encode_kernel<2, true><<<grid, kEncodeThreads, smem, s>>>(xf, p, e, g, t,
+                                                              st, vec);
   else if (ndim == 2)
-    encode_kernel<2><<<grid, kThreads, 0, s>>>(xf, p, e, g, t);
+    encode_kernel<2, false><<<grid, kEncodeThreads, smem, s>>>(xf, p, e, g, t,
+                                                               st, vec);
   else
-    encode_kernel<1><<<grid, kThreads, 0, s>>>(xf, p, e, g, t);
+    encode_kernel<1, false><<<grid, kEncodeThreads, smem, s>>>(xf, p, e, g, t,
+                                                               st, vec);
   return (int)cudaGetLastError();
 }
 
@@ -264,18 +336,14 @@ int zfp_decode(const void* payload, const void* emax, void* x, long long batch,
                int d0, int d1, int d2, int ndim, const void* masks,
                const void* perm, const void* counts, int nplanes, int nwords,
                int order, void* stream) {
+  if (order < 0 || order_of(ndim, perm) != order)
+    return (int)cudaErrorInvalidValue;
   const Geometry g = make_geometry(batch, d0, d1, d2, ndim);
+  if (g.nb == 0) return (int)cudaSuccess;
   const Tables t = make_tables(ndim, (const uint32_t*)masks, (const int*)perm,
                                (const int*)counts, nplanes, nwords);
-  // the order the caller chose must be the one its tables describe
-  const int have = ndim == 3   ? stream_order_of<3>((const int*)perm)
-                   : ndim == 2 ? stream_order_of<2>((const int*)perm)
-                               : stream_order_of<1>((const int*)perm);
-  if (order < 0 || have != order)
-    return (int)cudaErrorInvalidValue;
-  if (g.nb == 0) return (int)cudaSuccess;
   const Staging st = make_staging(nwords);
-  const size_t smem = decode_smem_bytes(nwords);
+  const size_t smem = staging_bytes(kDecodeThreads, nwords);
   const unsigned grid =
       (unsigned)((g.nb + kDecodeThreads - 1) / kDecodeThreads);
   const bool vec = d2 % 4 == 0 && ((size_t)x & 15) == 0;

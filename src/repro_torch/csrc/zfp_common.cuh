@@ -1,9 +1,9 @@
 // Device code shared by the codec kernels (zfp.cu) and the fused
 // ZFP-decode attention kernel (cdecode.cu): the static stream tables, the
 // wrapping integer adds, the two-level Haar lift and its inverse, the
-// compile-time stream orders and the unpacking of one block's plane-major
-// stream in registers. A value decoded inside the attention kernel is bit for
-// bit the codec's decode.
+// compile-time stream orders, and the packing and unpacking of one block's
+// plane-major stream in registers. A value decoded inside the attention
+// kernel is bit for bit the codec's decode.
 
 #pragma once
 
@@ -216,6 +216,69 @@ __device__ __forceinline__ void unpack_regs(const uint32_t* in,
   transpose32(lo);
   if constexpr (kHi) transpose32(hi);
   gather_coeffs<ND, kSub>(lo, hi, c);
+}
+
+// lo/hi from the block's masked negabinary words u (natural order): word p
+// (of lo for p < 32, of hi for p >= 32) is the coefficient at stream position
+// p = stream_pos(i), a compile-time index; positions past the block are 0.
+template <int ND, bool kSub, int I = 0>
+__device__ __forceinline__ void scatter_coeffs(const uint32_t* u,
+                                               uint32_t* lo, uint32_t* hi) {
+  if constexpr (I == 0) {
+#pragma unroll
+    for (int p = 1 << (2 * ND); p < 32; ++p) lo[p] = 0u;
+  }
+  if constexpr (I < (1 << (2 * ND))) {
+    constexpr int p = stream_pos<ND, kSub>(I);
+    if constexpr (p < 32) {
+      lo[p] = u[I];
+    } else {
+      hi[p - 32] = u[I];
+    }
+    scatter_coeffs<ND, kSub, I + 1>(u, lo, hi);
+  }
+}
+
+// The inverse of unpack_regs: one block's masked negabinary words u (natural
+// order) -> its plane-major stream, written word by word to out (payload
+// words, the tail bits of the last one 0). u is put in stream order by the
+// compile-time permutation and transposed, so word 31 - j holds plane j's
+// bit of every position (low and high 32 positions apart). The keep-masks
+// clear every position at or past counts[j] in plane j (the contributors of
+// a plane are a prefix of the stream order), so that word, with its high
+// half, is plane j's field already cut to counts[j] bits; the fields are
+// appended in plane order. out's word offsets are known only at run time:
+// it is meant to be shared memory.
+template <int ND, bool kSub>
+__device__ __forceinline__ void pack_regs(const uint32_t* u, const Tables& t,
+                                          uint32_t* out) {
+  constexpr bool kHi = ND == 3;  // 64 positions: two 32-bit halves
+  uint32_t lo[32], hi[32];
+  scatter_coeffs<ND, kSub>(u, lo, hi);
+  transpose32(lo);
+  if constexpr (kHi) transpose32(hi);
+  unsigned long long acc = 0ull;  // bits not yet stored, nacc < 32 of them
+  int nacc = 0, w = 0;
+  const auto append = [&](uint32_t field, int k) {
+    acc |= (unsigned long long)field << nacc;
+    nacc += k;
+    if (nacc >= 32) {
+      out[w++] = (uint32_t)acc;
+      acc >>= 32;
+      nacc -= 32;
+    }
+  };
+#pragma unroll
+  for (int j = 0; j < 32; ++j) {
+    if (j < t.nplanes) {
+      const int k = t.counts[j];
+      append(lo[31 - j], min(k, 32));
+      if constexpr (kHi) {
+        if (k > 32) append(hi[31 - j], k - 32);
+      }
+    }
+  }
+  if (nacc) out[w] = (uint32_t)acc;
 }
 
 // 2^(emax - kFrac), exact, from IEEE bits: the fixed-point -> float scale.

@@ -12,7 +12,9 @@ applied by index instead of ``pad_bc`` copies, any Y. A rung moves 4
 arrays (p_prev, p_cur, vel2 in; p_next out); the call's bound is 5
 arrays once (1.90 ms at the (240, 1152, 1152) block and 12 steps on an
 H100), which only fused rungs could approach: two rungs a launch of
-the same design were not faster on the H100, so none are fused.
+the same design were not faster on the H100, so none are fused. The
+single step is the same streaming kernel on padded fields: it reads
+their shell as data (no zero by index) and writes ``lap`` too.
 
 On a CPU tensor each wrapper runs the plain version (``ref``); on a
 CUDA tensor it launches the kernel or raises. ``launches`` counts kernel

@@ -4,9 +4,9 @@
 ``decode`` replaces ``decode_pallas``. Unlike the TPU kernels they take
 the unit itself, ``(..., s1..s_ndim)``: blockify, its edge padding and
 unblockify's crop are folded into the kernels' indexing, so there is no
-tile padding (``ops.bucket_tile`` stays only for parity). The decoder is
-compiled for the two stream orders that ``ref.level_order`` yields;
-``stream_order`` picks one per launch, and the C entry refuses a launch
+tile padding (``ops.bucket_tile`` stays only for parity). Both kernels
+are compiled for the two stream orders that ``ref.level_order`` yields;
+``stream_order`` picks one per launch, and each C entry refuses a launch
 whose tables are not in that order.
 
 On a CPU tensor each wrapper runs the plain version (``ref``); on a
@@ -31,12 +31,11 @@ launches = {"encode": 0, "decode": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# both entries take the stream order (``stream_order``) before the stream
 _ARGS = {
-    "zfp_encode": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P,
-                   _I, _I, _P],
-    # the decoder also takes the stream order (``stream_order``)
-    "zfp_decode": [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P,
-                   _I, _I, _I, _P],
+    sym: [_P, _P, _P, ctypes.c_longlong, _I, _I, _I, _I, _P, _P, _P, _I, _I,
+          _I, _P]
+    for sym in ("zfp_encode", "zfp_decode")
 }
 
 
@@ -46,7 +45,7 @@ def reset_launches() -> None:
 
 
 def stream_order(planes: int, ndim: int) -> int:
-    """The stream order the decode kernel is compiled for at ``planes``
+    """The stream order the codec kernels are compiled for at ``planes``
     and ``ndim``: 1 for the subband order (coefficients by level, then by
     index), where ``ref.subband_planes`` gives the levels different plane
     counts (4 <= planes <= 27 at ndim 2 and 3); 0 for the identity
@@ -86,10 +85,10 @@ def _launch(symbol: str, a, b, c, shape, ndim: int, planes: int) -> None:
     masks, perm, counts, nplanes, nwords = _tables(int(planes), ndim)
     batch, (d0, d1, d2), _ = _geometry(shape, ndim)
     fn = _build.bind("zfp", symbol, _ARGS[symbol])
-    order = (stream_order(int(planes), ndim),) if symbol == "zfp_decode" else ()
     err = fn(a, b, c, batch, d0, d1, d2, ndim,
              masks.ctypes.data, perm.ctypes.data, counts.ctypes.data,
-             nplanes, nwords, *order, torch.cuda.current_stream().cuda_stream)
+             nplanes, nwords, stream_order(int(planes), ndim),
+             torch.cuda.current_stream().cuda_stream)
     _build.check("zfp", err, symbol)
 
 

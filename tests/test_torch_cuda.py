@@ -107,6 +107,43 @@ def test_zfp_special_values(cuda_device):
             zfp_ops.decompress(cr, backend="ref").cpu())
 
 
+@pytest.mark.parametrize("ndim,shape", [(2, (30, 52)), (2, (3, 9, 16)),
+                                        (3, (10, 12, 16)), (3, (9, 13, 11))])
+@pytest.mark.parametrize("planes", [16, 12, 32])
+def test_zfp_encode_unaligned_input(cuda_device, ndim, shape, planes):
+    """A contiguous view at a 1-float offset: rows not 16-byte aligned, so
+    the encoder takes its 4-byte loads, bit for bit the plain codec."""
+    n = int(np.prod(shape))
+    buf = _normal((n + 1,), 7 * ndim + planes).to(cuda_device)
+    x = buf[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    payload, emax = zfp_kernel.encode(x, planes, ndim)
+    rp, re = zfp_kernel.encode(x.cpu(), planes, ndim)
+    np.testing.assert_array_equal(_u32(payload), rp.view(torch.int32).numpy())
+    np.testing.assert_array_equal(emax.cpu().numpy(), re.numpy())
+
+
+@pytest.mark.parametrize("which", ["encode", "decode"])
+@pytest.mark.parametrize("planes", [12, 32])
+def test_zfp_refuses_perm_not_in_stream_order(cuda_device, monkeypatch,
+                                              which, planes):
+    """Each C entry checks that its perm table is in the stream order it
+    is passed: the subband order's tables (12 planes) passed as the
+    identity, and the identity's (32 planes) passed as the subband order,
+    are refused."""
+    x = _normal((8, 8, 8), planes).to(cuda_device)
+    payload, emax = zfp_kernel.encode(x, planes)
+    real = zfp_kernel.stream_order
+    monkeypatch.setattr(zfp_kernel, "stream_order",
+                        lambda p, nd: 1 - real(p, nd))
+    with pytest.raises(_build.KernelError, match=f"zfp_{which}"):
+        if which == "encode":
+            zfp_kernel.encode(x, planes)
+        else:
+            zfp_kernel.decode(payload, emax, x.shape, planes)
+        torch.cuda.synchronize()
+
+
 def _fields(shape, seed):
     rng = np.random.default_rng(seed)
     pp = rng.standard_normal(shape).astype(np.float32)
@@ -124,6 +161,24 @@ def test_wave_step_kernel_bitwise(cuda_device, shape):
     kn, kl = stencil_ops.wave_step(*args, backend="cuda")
     rn, rl = stencil_ref.wave_step(*args)
     assert stencil_kernel.launches["wave_step"] == before + 1
+    np.testing.assert_array_equal(kn.cpu().numpy(), rn.cpu().numpy())
+    np.testing.assert_array_equal(kl.cpu().numpy(), rl.cpu().numpy())
+
+
+@pytest.mark.parametrize("shape", [(13, 21, 37), (7, 37, 68), (20, 40, 36)])
+def test_wave_step_kernel_random_halo(cuda_device, shape):
+    """Padded fields whose halo is random data, not pad_bc's zeros: the
+    kernel reads the shell as the reference does. X % 4 != 0 (4-byte
+    copies), a tile cut in y and x on aligned rows, and a short Z as the
+    bt 1 engine's blocks."""
+    rng = np.random.default_rng(sum(shape))
+    pad = tuple(s + 2 * stencil_ref.HALO for s in shape)
+    pp, pc = (torch.from_numpy(rng.standard_normal(pad).astype(np.float32))
+              .to(cuda_device) for _ in range(2))
+    v2 = torch.from_numpy((0.05 + 0.01 * rng.standard_normal(shape))
+                          .astype(np.float32)).to(cuda_device)
+    kn, kl = stencil_kernel.wave_step(pp, pc, v2)
+    rn, rl = stencil_ref.wave_step(pp, pc, v2)
     np.testing.assert_array_equal(kn.cpu().numpy(), rn.cpu().numpy())
     np.testing.assert_array_equal(kl.cpu().numpy(), rl.cpu().numpy())
 

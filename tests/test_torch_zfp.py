@@ -198,3 +198,60 @@ def test_decode_stream_order_is_level_order(ndim):
         assert perm == tuple(tref.level_order(planes, ndim, 32)[0])
         seen.add(order)
     assert seen == ({0} if ndim == 1 else {0, 1})
+
+
+_jax_encode = jax.jit(jref.encode_blocks, static_argnums=(1, 2),
+                      compiler_options={"xla_backend_optimization_level": 0})
+
+
+def _register_packed(u: np.ndarray, planes: int, ndim: int) -> np.ndarray:
+    """The payload the encode kernel packs in registers (``pack_regs`` in
+    ``csrc/zfp_common.cuh``): the masked negabinary words ``u`` (nb, N)
+    put in the compile-time stream order (``kernel.order_perm``), each
+    plane's field taken over every stream position (the transposed word)
+    and appended at ``counts[j]`` bits, in plane order."""
+    perm = tkernel.order_perm(tkernel.stream_order(planes, ndim), ndim)
+    _, _, counts = tref.level_order(planes, ndim, 32)
+    nwords = tref.payload_words(ndim, planes)
+    stream = u[:, list(perm)]
+    weights = np.uint64(1) << np.arange(stream.shape[1], dtype=np.uint64)
+    words = np.zeros((u.shape[0], nwords + 2), np.uint64)
+    off = 0
+    for j, k in enumerate(counts):
+        bits = (stream >> np.uint64(31 - j)) & np.uint64(1)
+        field = (bits * weights).sum(axis=1, dtype=np.uint64)
+        # the premise: no position at or past counts[j] has plane j's bit
+        assert k == 64 or not (field >> np.uint64(k)).any(), (planes, j)
+        lo, hi = field & np.uint64(0xFFFFFFFF), field >> np.uint64(32)
+        wi, sh = divmod(off, 32)
+        sh = np.uint64(sh)
+        m32 = np.uint64(0xFFFFFFFF)
+        words[:, wi] |= (lo << sh) & m32
+        words[:, wi + 1] |= (lo >> (np.uint64(32) - sh)) | ((hi << sh) & m32)
+        words[:, wi + 2] |= hi >> (np.uint64(32) - sh)
+        off += k
+    assert off == tref.payload_bits(ndim, planes)
+    assert not words[:, nwords:].any()
+    return words[:, :nwords].astype(np.uint32)
+
+
+@pytest.mark.parametrize("planes", range(1, 33))
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_register_packing_reproduces_reference_payload(ndim, planes):
+    """The premise of the register encoder: with the keep-masks, plane j
+    has no bit at any stream position at or past ``counts[j]`` (the
+    contributors of a plane are a prefix of ``level_order``), so packing
+    each plane's whole transposed field, cut to ``counts[j]`` bits,
+    reproduces the JAX reference's payload bit for bit."""
+    n = tref.block_size(ndim)
+    xb = _data((48, n), 100 * ndim + planes)
+    xb[0] = 0.0  # an all-zero block
+    xb[1] *= 1e-30  # a block at the emax floor
+    emax = tref.block_emax(torch.from_numpy(xb))
+    c = tref.fwd_transform(tref.to_fixedpoint(torch.from_numpy(xb), emax),
+                           ndim)
+    u = tref.truncate_planes(tref.to_negabinary(c), planes, ndim)
+    got = _register_packed(u.numpy().astype(np.uint64), planes, ndim)
+    want, want_emax = _jax_encode(jnp.asarray(xb), planes, ndim)
+    np.testing.assert_array_equal(got, _u32(np.asarray(want)))
+    np.testing.assert_array_equal(emax.numpy(), np.asarray(want_emax))
