@@ -32,10 +32,27 @@ non-zero:
    equal to the in-core ``fused_temporal_steps(backend="cuda")``, code 4
    within 5e-2 relative error of it; transfer summary against the
    ``BlockPlan`` arithmetic; wall time split into device compute
-   (CUDA events around the codec and stencil calls), crc32 and the rest;
+   (CUDA events around the codec and stencil calls), crc32 and the rest.
+   Code 4 then sweeps once more (the live engine's reference);
 5. the single-step dispatch through the engine: bt=1 on a Z-reduced
    volume (96, 1152, 1152), code 4, bit for bit against the same engine
    with ``backend="ref"`` on the card;
+5b. the live engine, ``AsyncExecutor`` on its H2D, compute and D2H
+   streams with pinned staging, schedule depth2, the launch counts
+   zeroed first: codes 4 and 1 at 1152^3, ndiv 8, bt 12, two sweeps
+   each with the window open across the boundary; code 1 bit for bit
+   the in-core run of 24 steps, code 4 bit for bit the synchronous
+   engine's two sweeps and within 5e-2 of the in-core run; transfers
+   equal to the task graph's (``build_sweep_tasks``) and the summary to
+   the plan arithmetic twice. Then write-back residency on the bt 1
+   volume of phase 5 with 90% of its working set's bytes: the
+   transfer records and residency counters those of the task graph at
+   the same budget, wave_step launched once a block a sweep, the fields
+   those of phase 5's bt 1 sync engine bit for bit. Each run prints its
+   sweep walls, each stream's busy time, crc32 seconds on the host
+   threads, on the caller's thread and left on the caller's critical
+   path, the window's peak, the pinned bytes and the idle share, beside
+   the sync engine's rows;
 6. the fused ZFP-decode attention kernel against its plain version at
    the repo's ``decode_32k`` context (32768 tokens): 16 slots, 2 KV
    heads, 6 queries per KV head, head_dim 128, at 16 and 12 planes and
@@ -95,9 +112,9 @@ non-zero:
    against the plain versions, logits within 5e-2 of their largest,
    every layer's ``h`` within the kernel's tolerance;
 10. the kernels line: every kernel with its launches on the main paths
-   (the out-of-core wave of phases 4 and 5, the serving slice of phase
-   7 and the SSM slice of phase 9, each counted from zero), its error
-   and times.
+   (the out-of-core wave of phases 4 and 5, the live engine of phase
+   5b, the serving slice of phase 7 and the SSM slice of phase 9, each
+   counted from zero), its error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -113,6 +130,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -126,8 +144,12 @@ from repro_torch import device as device_mod  # noqa: E402
 from repro_torch.core import outofcore  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import SHAPES  # noqa: E402
+from repro_torch.core.executor import AsyncExecutor  # noqa: E402
 from repro_torch.core.outofcore import (  # noqa: E402
     OOCConfig, OutOfCoreWave, paper_code_fields, to_host,
+)
+from repro_torch.core.taskgraph import (  # noqa: E402
+    build_sweep_tasks, unit_wire_bytes, wire_totals,
 )
 from repro_torch.kernels.cdecode import kernel as cdecode_kernel  # noqa: E402
 from repro_torch.kernels.cdecode import ops as cdecode_ops  # noqa: E402
@@ -159,6 +181,8 @@ BLOCK = (240, 1152, 1152)  # one fetched block, B + 2H planes
 # the bt 1 engine's block: B + 2H = 12 + 8 planes of SMALL_Z at ndiv 8
 STEP_PATH = (20, 1152, 1152)
 SMALL_Z = 96  # phase 5's volume depth (bt=1)
+# phase 5b: the live engine
+LIVE_SCHEDULE, LIVE_SWEEPS = "depth2", 2
 # phase 6: the fused attention kernel at the decode_32k context
 CTX = SHAPES["decode_32k"].seq_len
 CD_SLOTS, CD_KVH, CD_QPK, CD_D = 16, 2, 6, 128
@@ -495,13 +519,22 @@ def multistep_ragged(gen):
 
 
 class DeviceClock:
-    """CUDA events around the engine's codec and stencil calls, and a
-    host clock around its crc32 digests, by wrapping the module
-    attributes ``outofcore`` calls through; ``restore`` undoes it."""
+    """CUDA events around the engines' codec and stencil calls, and a
+    host clock around their crc32 digests, by wrapping the module
+    attributes they call through; ``restore`` undoes it. The events are
+    recorded on the stream current at the call: the caller's for the
+    synchronous engine, the compute stream for the live engine. Digests
+    on the caller's thread add to ``crc_s``, those on other threads (the
+    live engine's host threads) to ``crc_thread_s``; both are the
+    digests' own seconds, summed. How much of the host threads' digests
+    the caller waited on is the engine's own ``crc_wait_s``."""
 
     def __init__(self):
         self.events = []
         self.crc_s = 0.0
+        self.crc_thread_s = 0.0
+        self._caller = threading.get_ident()
+        self._lock = threading.Lock()
         self._saved = []
         for mod, name in ((zfp_ops, "compress"), (zfp_ops, "decompress"),
                           (stencil_ops, "fused_temporal_steps")):
@@ -530,7 +563,12 @@ class DeviceClock:
         def timed(*args, **kwargs):
             t0 = time.perf_counter()
             out = fn(*args, **kwargs)
-            self.crc_s += time.perf_counter() - t0
+            dt = time.perf_counter() - t0
+            with self._lock:
+                if threading.get_ident() == self._caller:
+                    self.crc_s += dt
+                else:
+                    self.crc_thread_s += dt
             return out
 
         outofcore.unit_checksum = timed
@@ -586,12 +624,15 @@ def initial_fields(shape):
     return host
 
 
-def run_engine(cfg, fields, label):
+def run_engine(cfg, fields, label, eng=None):
+    """One sweep of the synchronous engine (seeded here unless ``eng``
+    is given), with its wall, device compute and crc32 seconds."""
     clock = DeviceClock()
     try:
         t0 = time.perf_counter()
-        eng = OutOfCoreWave(cfg, fields["p_prev"], fields["p_cur"],
-                            fields["vel2"])
+        if eng is None:
+            eng = OutOfCoreWave(cfg, fields["p_prev"], fields["p_cur"],
+                                fields["vel2"])
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         dev0, crc0 = clock.device_s(), clock.crc_s
@@ -602,26 +643,39 @@ def run_engine(cfg, fields, label):
     finally:
         clock.restore()
     wall = t2 - t1
-    emit({"phase": label, "seed_s": t1 - t0, "sweep_wall_s": wall,
-          "sweep_device_compute_s": dev1, "sweep_crc32_s": crc1,
-          "sweep_host_other_s": wall - dev1 - crc1,
-          "transfer_summary": eng.transfer_summary()})
+    row = {"phase": label, "seed_s": t1 - t0, "sweep_wall_s": wall,
+           "sweep_device_compute_s": dev1, "sweep_crc32_s": crc1,
+           "sweep_host_other_s": wall - dev1 - crc1,
+           "idle_share": 1.0 - dev1 / wall,
+           "transfer_summary": eng.transfer_summary()}
+    emit(row)
+    eng.smoke_rows = getattr(eng, "smoke_rows", []) + [row]
     return eng
 
 
 def paper_slice():
+    """Phase 4. Returns what the live engine's phase is held to: the
+    host fields, the in-core run of 2 BT steps, code 4's gathered fields
+    after two sweeps of the synchronous engine, and the engine's rows."""
     fields = initial_fields(PAPER)
-    # the in-core ground truth, before the launch counts are zeroed
+    # the in-core ground truth, before the launch counts are zeroed:
+    # BT steps, and BT more from there (the live phase's 2 sweeps)
     dev_in = {k: torch.from_numpy(v).cuda() for k, v in fields.items()}
     ref_pp, ref_pc = stencil_ops.fused_temporal_steps(
         dev_in["p_prev"], dev_in["p_cur"], dev_in["vel2"], steps=BT,
         backend="cuda")
+    del dev_in["p_prev"], dev_in["p_cur"]
+    ref2 = dict(zip(("p_prev", "p_cur"), stencil_ops.fused_temporal_steps(
+        ref_pp, ref_pc, dev_in["vel2"], steps=BT, backend="cuda")))
     del dev_in
     torch.cuda.synchronize()
-    emit({"phase": "incore_reference", "shape": list(PAPER), "steps": BT,
-          "finite": bool(torch.isfinite(ref_pc).all())})
+    emit({"phase": "incore_reference", "shape": list(PAPER),
+          "steps": [BT, 2 * BT],
+          "finite": bool(torch.isfinite(ref_pc).all()
+                         and torch.isfinite(ref2["p_cur"]).all())})
     zfp_kernel.reset_launches()
     stencil_kernel.reset_launches()
+    sync_rows, sync4 = {}, {}
     for code in (4, 1):
         cfg = OOCConfig(PAPER, NDIV, BT, paper_code_fields(code))
         eng = run_engine(cfg, fields, f"paper_code{code}")
@@ -646,10 +700,204 @@ def paper_slice():
         else:
             check(out["p_cur"]["max_rel_err"] < 5e-2,
                   f"code {code} rel err {out['p_cur']['max_rel_err']}")
+            # a second sweep: the live engine's code 4 is held to it
+            run_engine(cfg, fields, f"paper_code{code}_sweep2", eng)
+            sync4 = {n: torch.from_numpy(eng.gather(n)).cuda()
+                     for n in ("p_prev", "p_cur")}
+        sync_rows[code] = eng.smoke_rows
         del eng
+    del ref_pp, ref_pc, ref
+    return fields, ref2, sync4, sync_rows
+
+
+# ----------------------------------------------------------------------
+# phase 5b: the live engine (AsyncExecutor on three streams)
+# ----------------------------------------------------------------------
+
+
+def run_live(cfg, fields, label, **kw):
+    """Seed the live engine and run LIVE_SWEEPS sweeps, the window open
+    across each boundary (drained after the last). Its row: the wall of
+    each sweep (host clock; the last includes the drain), each stream's
+    busy seconds (CUDA events around the engine's copies and compute
+    spans), device compute (events around the codec and stencil calls,
+    on the compute stream), crc32 seconds on the host threads and on the
+    caller's thread, the caller's seconds blocked on the host threads and
+    the crc32 left on its critical path: measured, the part of those
+    waits in which the job waited on was digesting (``crc32_wait_s``),
+    and pro rata, the waits times crc32's share of the jobs' seconds
+    (``crc32_wait_share_s``); the window's peak, the pinned bytes and the
+    idle share, 1 - compute-stream busy / wall."""
+    clock = DeviceClock()
+    try:
+        t0 = time.perf_counter()
+        eng = AsyncExecutor(cfg, fields["p_prev"], fields["p_cur"],
+                            fields["vel2"], schedule=LIVE_SCHEDULE, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dev0, crc0, thr0 = clock.device_s(), clock.crc_s, clock.crc_thread_s
+        walls = []
+        for k in range(LIVE_SWEEPS):
+            ts = time.perf_counter()
+            eng.sweep()
+            if k == LIVE_SWEEPS - 1:
+                eng.finish()
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - ts)
+        dev = clock.device_s() - dev0
+        crc, thr = clock.crc_s - crc0, clock.crc_thread_s - thr0
+    finally:
+        clock.restore()
+    wall = sum(walls)
+    busy = eng.lanes.busy_s()
+    st = eng.stats()
+    row = {"phase": label, "engine": "live", "schedule": LIVE_SCHEDULE,
+           "shape": list(cfg.shape), "bt": cfg.bt, "sweeps": LIVE_SWEEPS,
+           "seed_s": t1 - t0, "sweep_wall_s": walls, "wall_s": wall,
+           "stream_busy_s": busy, "device_compute_s": dev,
+           "crc32_thread_s": thr, "crc32_caller_s": crc,
+           "host_job_s": st["lanes"]["host_job_s"],
+           "host_wait_s": st["lanes"]["host_wait_s"],
+           "crc32_wait_s": st["lanes"]["crc_wait_s"],
+           "crc32_wait_share_s": st["lanes"]["host_wait_s"] * thr
+           / st["lanes"]["host_job_s"],
+           "host_threads": eng.lanes.threads,
+           "max_inflight": st["max_inflight"],
+           "streams": st["lanes"]["streams"],
+           "pinned_bytes": st["lanes"]["pinned_bytes"],
+           "idle_share": 1.0 - busy["compute"] / wall,
+           "cache": {k: st["cache"][k] for k in
+                     ("hits", "misses", "evictions", "flushes",
+                      "d2h_elided")},
+           "transfer_summary": eng.transfer_summary()}
+    check(st["lanes"]["streams"] == 3 and st["lanes"]["pinned_bytes"] > 0,
+          f"{label}: not on three streams with pinned staging")
+    check(busy["h2d"] > 0 and busy["compute"] > 0,
+          f"{label}: a stream did no work: {busy}")
+    return eng, row
+
+
+def live_log(eng):
+    return sorted((t.direction, t.field, t.unit, t.sweep, t.flush,
+                   t.wire_bytes if t.flush else None)
+                  for t in eng.transfers)
+
+
+def model_log(tasks):
+    return sorted((t.kind, t.field, t.unit, t.sweep, t.flush,
+                   int(t.amount) if t.flush else None)
+                  for t in tasks if t.kind in ("h2d", "d2h"))
+
+
+def live_paper(fields, ref2, sync4, sync_rows):
+    """Codes 4 and 1 at 1152^3 through the live engine, two sweeps each:
+    code 1 bit for bit the in-core run of 2 BT steps, code 4 bit for bit
+    the synchronous engine's two sweeps and within 5e-2 of the in-core
+    run; the transfer summary that of the task graph and of the plan
+    arithmetic, twice."""
+    for code in (4, 1):
+        cfg = OOCConfig(PAPER, NDIV, BT, paper_code_fields(code))
+        eng, row = run_live(cfg, fields, f"live_code{code}")
+        summary = eng.transfer_summary()
+        want = {k: LIVE_SWEEPS * v for k, v in expected_summary(cfg).items()}
+        tasks = build_sweep_tasks(cfg, sweeps=LIVE_SWEEPS,
+                                  schedule=LIVE_SCHEDULE)
+        modeled = wire_totals(tasks)
+        check({k: summary[k] for k in want} == want,
+              f"live code {code} summary {summary} != {want}")
+        check(all(round(modeled[d]) == summary[f"{d}_wire"]
+                  for d in ("h2d", "d2h")),
+              f"live code {code} wire {summary} != graph {modeled}")
+        check(model_log(tasks) == live_log(eng),
+              f"live code {code}: transfers differ from the task graph")
+        eng.close()
+        out = {}
+        for name in ("p_cur", "p_prev"):
+            g = torch.from_numpy(eng.gather(name)).cuda()
+            ref = ref2[name]
+            check(bool(torch.isfinite(g).all()),
+                  f"live code {code} {name} not finite")
+            out[name] = {
+                "bitwise_incore": same_bits(g, ref),
+                "max_rel_err_incore": float((g - ref).abs().max())
+                / float(ref.abs().max()),
+            }
+            if code == 4:
+                out[name]["bitwise_sync"] = same_bits(g, sync4[name])
+            del g
+        row["sync"] = sync_rows[code]
+        row["check"] = out
+        emit(row)
+        if code == 1:
+            check(all(v["bitwise_incore"] for v in out.values()),
+                  "live code 1 is not bit for bit the in-core run")
+        else:
+            check(all(v["bitwise_sync"] for v in out.values()),
+                  "live code 4 is not bit for bit the sync engine")
+            check(out["p_cur"]["max_rel_err_incore"] < 5e-2,
+                  f"live code 4 rel err {out['p_cur']}")
+        del eng
+        torch.cuda.empty_cache()
+
+
+def live_residency(fields, want, sync_rows):
+    """Write-back residency at (96, 1152, 1152), bt 1, code 4, with 90%
+    of the working set's bytes: the transfer records (h2d, d2h,
+    flushes) those of the task graph with the same budget, the residency
+    counters its, wave_step launched once a block a sweep, and the
+    gathered fields ``want``, the bt 1 sync engine's after the same 2
+    sweeps from the same ``fields`` (``single_step_dispatch``), bit for
+    bit."""
+    shape = (SMALL_Z,) + PAPER[1:]
+    cfg = OOCConfig(shape, NDIV, 1, paper_code_fields(4))
+    _, y, x = shape
+    ws = sum(unit_wire_bytes(spec, (hi - lo, y, x), 4)
+             for spec in cfg.fields.values()
+             for _, _, (lo, hi) in cfg.plan.units())
+    # LRU over a cyclic sweep keeps nothing a sweep later below ~80% of
+    # the working set (the task graph says so); at 90% part of the
+    # units hit and the rest are evicted and flushed
+    budget = ws * 9 // 10
+    before = stencil_kernel.launches["wave_step"]
+    eng, row = run_live(cfg, fields, "live_residency", cache_bytes=budget)
+    steps = stencil_kernel.launches["wave_step"] - before
+    stats = {}
+    tasks = build_sweep_tasks(cfg, sweeps=LIVE_SWEEPS,
+                              schedule=LIVE_SCHEDULE, cache_bytes=budget,
+                              policy="write-back", stats=stats)
+    same_log = model_log(tasks) == live_log(eng)
+    cache = eng.stats()["cache"]
+    same_cache = all(cache[k] == stats[k] for k in
+                     ("hits", "evictions", "flushes", "d2h_elided"))
+    eng.close()
+    same = {n: bool(np.array_equal(eng.gather(n), want[n]))
+            for n in ("p_prev", "p_cur", "vel2")}
+    row.update(budget_bytes=budget, working_set_bytes=ws,
+               transfers_equal_graph=same_log,
+               cache_equal_graph=same_cache, bitwise_sync=same,
+               wave_step_launches=steps, sync=sync_rows)
+    emit(row)
+    check(steps == LIVE_SWEEPS * NDIV,
+          f"live residency launched wave_step {steps} times")
+    check(same_log and same_cache,
+          "live residency: transfers differ from the task graph")
+    check(cache["hits"] > 0 and row["transfer_summary"]["h2d_count"] > 0,
+          "live residency: the budget kept nothing or everything")
+    check(all(same.values()), "live residency: differs from sync engine")
+
+
+def live_slice(fields, ref2, sync4, sync_rows, bt1):
+    live_paper(fields, ref2, sync4, sync_rows)
+    live_residency(*bt1)
+    return {**{f"zfp_{k}": v for k, v in zfp_kernel.launches.items()},
+            **stencil_kernel.launches}
 
 
 def single_step_dispatch():
+    """The bt 1 sync engine, 2 sweeps at (96, 1152, 1152), code 4, on
+    the kernels and on the plain versions, bit for bit. Returns the
+    path's launch counts, and the fields, the kernels' engine's gathered
+    fields and its rows, which the live residency run is held to."""
     shape = (SMALL_Z,) + PAPER[1:]
     fields = initial_fields(shape)
     engines = {}
@@ -658,7 +906,7 @@ def single_step_dispatch():
                         backend=backend)
         before = dict(stencil_kernel.launches)
         engines[backend] = run_engine(cfg, fields, f"bt1_{backend}")
-        engines[backend].sweep()
+        run_engine(cfg, fields, f"bt1_{backend}_sweep2", engines[backend])
         if backend == "cuda":
             launched = (stencil_kernel.launches["wave_step"]
                         - before["wave_step"])
@@ -666,13 +914,15 @@ def single_step_dispatch():
                   f"bt=1 engine launched wave_step {launched} times")
             counts = {**{f"zfp_{k}": v for k, v in zfp_kernel.launches.items()},
                       **stencil_kernel.launches}
-    same = {name: bool(np.array_equal(engines["cuda"].gather(name),
-                                      engines["ref"].gather(name)))
+    want = {name: engines["cuda"].gather(name)
             for name in ("p_prev", "p_cur", "vel2")}
+    same = {name: bool(np.array_equal(want[name],
+                                      engines["ref"].gather(name)))
+            for name in want}
     emit({"phase": "bt1_cuda_vs_ref", "shape": list(shape), "sweeps": 2,
           "bitwise": same})
     check(all(same.values()), "bt=1 engine: cuda and ref backends differ")
-    return counts
+    return counts, (fields, want, engines["cuda"].smoke_rows)
 
 
 # ----------------------------------------------------------------------
@@ -1422,10 +1672,19 @@ def main() -> int:
     stencil_cases(gen, results)
     torch.cuda.empty_cache()
 
-    paper_slice()
+    fields, ref2, sync4, sync_rows = paper_slice()
     torch.cuda.empty_cache()
-    counts = single_step_dispatch()
+    counts, bt1 = single_step_dispatch()
     emit({"phase": "launches", "path": "ooc_wave", **counts})
+    torch.cuda.empty_cache()
+    zfp_kernel.reset_launches()
+    stencil_kernel.reset_launches()
+    live_counts = live_slice(fields, ref2, sync4, sync_rows, bt1)
+    emit({"phase": "launches", "path": "ooc_live", **live_counts})
+    for name in ("zfp_encode", "zfp_decode", "wave_multistep", "wave_step"):
+        check(live_counts[name] > 0,
+              f"the live engine never launched {name}")
+    del fields, ref2, sync4, bt1
     torch.cuda.empty_cache()
 
     cdecode_cases(gen, results)
@@ -1461,6 +1720,7 @@ def main() -> int:
     for name, counter, replaces, source, (shape, arg) in rows:
         r = results[(name, shape, arg)]
         by_path = {"ooc_wave": counts.get(counter, 0),
+                   "ooc_live": live_counts.get(counter, 0),
                    "serving": serve_counts.get(counter, 0),
                    "ssm_serving": ssm_counts.get(counter, 0)}
         kernels.append({

@@ -13,7 +13,13 @@ once.
 ``stencil_ops.fused_temporal_steps`` -> ``zfp_ops.compress`` ->
 ``HostUnitStore.put``. Host units are numpy arrays; ``stage`` moves a
 unit to the engine's device and ``put``/``gather`` bring values back
-with an explicit copy. Every crossing is crc32-checked.
+with an explicit copy. Every crossing is crc32-checked. The live engine
+(``repro_torch.core.executor.AsyncExecutor``) shares the store: it moves
+units through its own pinned buffers and streams and hands the store
+the digests (``cross_h2d``, ``put(crc=, send=)``), and under write-back
+residency it commits versions that live on the device only
+(``commit_device``), so the store keeps the committed version and the
+host payload's version apart.
 
 The engine runs on the CUDA device unless ``OOCConfig.device`` names the
 CPU. ``backend="cuda"`` (the default) runs the hand-written kernels and
@@ -205,6 +211,17 @@ def _host_value(value):
     return to_host(value)
 
 
+def unit_bytes(value) -> Tuple[int, int]:
+    """``(raw_bytes, wire_bytes)`` of a unit value, host or device: the
+    bytes it stands for and the bytes it crosses the link as."""
+    if isinstance(value, Compressed):
+        n = int(np.prod(value.shape)) * np.dtype(value.dtype).itemsize
+        return n, value.nbytes()
+    n = int(value.nbytes) if isinstance(value, np.ndarray) else (
+        value.numel() * value.element_size())
+    return n, n
+
+
 def unit_checksum(value, version: int) -> int:
     """crc32 integrity digest of one unit: payload (+emax for
     compressed units) chained with the version it realizes, so a stale
@@ -246,6 +263,24 @@ def unit_shards(
     return leaves, meta
 
 
+def engine_device(cfg: OOCConfig) -> torch.device:
+    """The device an engine over ``cfg`` runs on, after checking that
+    its dtype and backend can run there."""
+    if cfg.dtype != "float32":
+        raise NotImplementedError(FLOAT64_TODO)
+    device = device_mod.resolve(cfg.device)
+    if cfg.backend not in ("ref", "cuda"):
+        raise ValueError(
+            f"backend must be 'ref' or 'cuda', got {cfg.backend!r}"
+        )
+    if cfg.backend == "cuda" and device.type != "cuda":
+        raise ValueError(
+            "backend='cuda' runs the CUDA kernels and needs a CUDA "
+            "device; use backend='ref' with device='cpu'"
+        )
+    return device
+
+
 class HostUnitStore:
     """Host-side storage of units, raw (numpy) or compressed payloads:
     seeding, put/get, host->device staging and full-field gather, with
@@ -258,21 +293,32 @@ class HostUnitStore:
         *,
         injector: Optional[FaultInjector] = None,
         retry: Optional[RetryPolicy] = None,
+        stats=None,
+        rates=None,
     ):
         self.cfg = cfg
         self.device = device_mod.resolve(cfg.device)
+        # optional RateController: ``seed`` encodes each unit at its
+        # sweep-0 rate instead of the field spec's (None = raw)
+        self.rates = rates
         # the unit layout this store is decomposed under — a temporal-k
         # engine passes its halo-widened plan
         self.plan = plan if plan is not None else cfg.plan
         self._units: Dict[Tuple[str, str, int], object] = {}
-        # the version each host payload realizes: writebacks since
-        # seeding, in sweeps (seeded units are v0)
+        # committed version of each unit (writebacks since seeding, in
+        # sweeps; seeded units are v0) and the version the host payload
+        # realizes: under write-back residency a version can be
+        # committed on the device only, and the first runs ahead of the
+        # second until a flush puts the payload
         self._versions: Dict[Tuple[str, str, int], int] = {}
+        self._host_versions: Dict[Tuple[str, str, int], int] = {}
         # crc32 of each host payload: recorded at every put, verified
         # at every crossing and at restore
         self._crc: Dict[Tuple[str, str, int], int] = {}
         self.injector = injector
         self.retry = retry
+        # an optional CacheStats mirrored by the wire counters
+        self.stats = stats
         # one (op, field, unit, version, attempts) record per crossing
         self.wire_log: List[Tuple[str, str, str, int, int]] = []
         self.wire_stats: Dict[str, int] = {
@@ -284,8 +330,13 @@ class HostUnitStore:
     # ------------------------------------------------------------------
     # the integrity-checked wire
     # ------------------------------------------------------------------
+    def _count(self, name: str) -> None:
+        self.wire_stats[name] += 1
+        if self.stats is not None:
+            setattr(self.stats, name, getattr(self.stats, name) + 1)
+
     def _wire(self, op: str, field: str, kind: str, idx: int,
-              version: int, host, crc: int):
+              version: int, host, crc: int, send=None):
         """One integrity-checked link crossing under the retry policy.
 
         ``host`` is the host-side value and ``crc`` the checksum it must
@@ -294,13 +345,20 @@ class HostUnitStore:
         ``crc``. Failed attempts retry up to ``retry.attempts`` with
         accounted (never slept) backoff; exhaustion raises
         ``UnrecoverableFault`` chaining the last failure.
+
+        ``send`` is the live engine's transport: called once for each
+        attempt the injector lets through, it returns ``(received,
+        digest)`` of what actually crossed (its first call hands over a
+        copy and a digest its host threads already made; a later call
+        moves the unit again). Without it the received value is
+        ``host`` and the digest is taken here.
         """
         unit = f"{kind}{idx}"
         attempts = self.retry.attempts if self.retry else 1
         last: Optional[Exception] = None
         for attempt in range(attempts):
             if attempt:
-                self.wire_stats[f"{op}_retries"] += 1
+                self._count(f"{op}_retries")
                 if self.retry is not None:
                     self.backoff_s += self.retry.backoff(attempt)
             fault = None
@@ -309,15 +367,14 @@ class HostUnitStore:
                     op, field, unit, version, attempt
                 )
             if fault == "transfer":
-                self.wire_stats["wire_faults"] += 1
+                self._count("wire_faults")
                 last = InjectedFault(
                     f"injected {op} failure: {field}.{unit} "
                     f"v{version} attempt {attempt}"
                 )
                 continue
-            received = host
             if fault == "corrupt":
-                self.wire_stats["wire_faults"] += 1
+                self._count("wire_faults")
                 if isinstance(host, Compressed):
                     received = Compressed(
                         FaultInjector.corrupt(host.payload), host.emax,
@@ -326,9 +383,14 @@ class HostUnitStore:
                     )
                 else:
                     received = FaultInjector.corrupt(host)
-            got = unit_checksum(received, version)
+                got = unit_checksum(received, version)
+            elif send is not None:
+                received, got = send()
+            else:
+                received = host
+                got = unit_checksum(received, version)
             if got != crc:
-                self.wire_stats["checksum_failures"] += 1
+                self._count("checksum_failures")
                 last = ChecksumError(
                     f"{op} checksum mismatch for unit {field}.{unit} "
                     f"v{version}: expected {crc:#010x}, got {got:#010x}"
@@ -337,7 +399,7 @@ class HostUnitStore:
             if self.injector is not None and self.injector.straggle(
                 op, field, unit, version
             ) > 1.0:
-                self.wire_stats["wire_stragglers"] += 1
+                self._count("wire_stragglers")
             self.wire_log.append((op, field, unit, int(version),
                                   attempt + 1))
             return received
@@ -354,36 +416,103 @@ class HostUnitStore:
         self, field: str, kind: str, idx: int, value,
         version: Optional[int] = None,
         on_wire: bool = True,
+        crc: Optional[int] = None,
+        send=None,
     ) -> int:
         """Store; returns wire bytes (what crossed the link).
 
-        ``version`` pins the committed version this payload realizes;
-        without it the counter bumps by one. A device value is copied
-        to the host here (the D2H); the crossing is integrity-checked.
-        ``on_wire=False`` marks a host-local put (seeding) that never
-        crosses the link: exempt from injection, but still digested.
+        ``version`` pins the committed version this payload realizes
+        (deferred writebacks and residency flushes); without it the
+        counter bumps by one. It may not be older than the host's
+        payload. A device value is copied to the host here (the D2H);
+        the crossing is integrity-checked. ``on_wire=False`` marks a
+        host-local put (seeding) that never crosses the link: exempt
+        from injection, but still digested.
+
+        The live engine passes a host value it already brought over,
+        ``crc`` (the digest of the bytes as they left the device, taken
+        on its host threads) and ``send`` (see ``_wire``), so no digest
+        runs here on the clean path.
         """
         key = (field, kind, idx)
         if version is None:
             version = self._versions.get(key, -1) + 1
-        if version < self._versions.get(key, 0):
+        if version < self._host_versions.get(key, 0):
             raise ValueError(f"put of {key} v{version} older than the host")
         host = _host_value(value)
         wire = host.nbytes() if isinstance(host, Compressed) else host.nbytes
-        crc = unit_checksum(host, version)
+        if crc is None:
+            crc = unit_checksum(host, version)
         if on_wire:
-            host = self._wire("d2h", field, kind, idx, version, host, crc)
+            host = self._wire("d2h", field, kind, idx, version, host, crc,
+                              send)
+        # the payload lands before the version maps advance: a put that
+        # fails mid-copy leaves host_current() false, not true over
+        # stale bytes
         self._units[key] = host
         self._crc[key] = crc
-        self._versions[key] = version
+        self._versions[key] = max(version, self._versions.get(key, 0))
+        self._host_versions[key] = version
         return wire
 
     def get(self, field: str, kind: str, idx: int):
+        """The committed host payload. Under write-back residency the
+        committed version may live on the device only: reading the
+        host's stale bytes then raises (flush first)."""
+        if not self.host_current(field, kind, idx):
+            raise RuntimeError(
+                f"host payload of {field}.{kind}{idx} is stale (v"
+                f"{self.host_version_of(field, kind, idx)} < committed v"
+                f"{self.version_of(field, kind, idx)}): flush first"
+            )
         return self._units[(field, kind, idx)]
 
     def version_of(self, field: str, kind: str, idx: int) -> int:
-        """Committed writebacks since seeding (0 = still the seed)."""
+        """Committed writebacks since seeding (0 = still the seed),
+        device-only commits included."""
         return self._versions.get((field, kind, idx), 0)
+
+    def host_version_of(self, field: str, kind: str, idx: int) -> int:
+        """Version of the payload actually held on the host."""
+        return self._host_versions.get((field, kind, idx), 0)
+
+    def host_current(self, field: str, kind: str, idx: int) -> bool:
+        """Whether the host payload realizes the committed version
+        (false only between a device-side commit and its flush)."""
+        key = (field, kind, idx)
+        return (self._host_versions.get(key, 0)
+                == self._versions.get(key, 0))
+
+    def unit_keys(self) -> List[Tuple[str, str, int]]:
+        """All stored unit keys, sorted."""
+        return sorted(self._units)
+
+    def host_payload(self, field: str, kind: str, idx: int,
+                     min_version: int):
+        """The host payload realizing at least ``min_version`` (a
+        snapshot's frozen-cut read, which may be older than a later
+        committed version); raises when the host copy is older."""
+        have = self.host_version_of(field, kind, idx)
+        if have < min_version:
+            raise RuntimeError(
+                f"host payload of {field}.{kind}{idx} is v{have}, older "
+                f"than the cut's v{min_version}"
+            )
+        return self._units[(field, kind, idx)]
+
+    def commit_device(self, field: str, kind: str, idx: int,
+                      version: int) -> None:
+        """Commit ``version`` with its payload resident on the device
+        only (the write-back elision): the host entry is stale until a
+        flush puts it. The caller keeps the payload resident and dirty
+        until then."""
+        key = (field, kind, idx)
+        if version <= self._versions.get(key, 0):
+            raise ValueError(
+                f"device commit of {key} v{version} is not newer than "
+                f"v{self._versions.get(key, 0)}"
+            )
+        self._versions[key] = version
 
     # ------------------------------------------------------------------
     # checkpoint serialization
@@ -395,6 +524,11 @@ class HostUnitStore:
         leaves: Dict[str, np.ndarray] = {}
         units: Dict[str, Dict[str, object]] = {}
         for (field, kind, idx), stored in sorted(self._units.items()):
+            if not self.host_current(field, kind, idx):
+                raise RuntimeError(
+                    f"state_dict of a stale host unit {field}.{kind}"
+                    f"{idx}: flush residency first"
+                )
             uleaves, meta = unit_shards(
                 field, kind, idx, stored,
                 self._versions.get((field, kind, idx), 0),
@@ -414,6 +548,7 @@ class HostUnitStore:
         re-digested and must match, or ``ChecksumError`` names it."""
         self._units.clear()
         self._versions.clear()
+        self._host_versions.clear()
         self._crc.clear()
         for ukey, u in meta["units"].items():
             key = (u["field"], u["kind"], int(u["idx"]))
@@ -440,11 +575,13 @@ class HostUnitStore:
             self._units[key] = value
             self._crc[key] = crc
             self._versions[key] = ver
+            self._host_versions[key] = ver
 
     def seed(self, full: Dict[str, np.ndarray]) -> None:
         """Initial decomposition of full host fields into host units,
         one unit at a time (compressed units are encoded on the
-        device)."""
+        device, each at its sweep-0 rate when a ``RateController`` is
+        attached; rate None stores the unit raw)."""
         cfg, plan = self.cfg, self.plan
         for name, arr in full.items():
             spec = cfg.fields[name]
@@ -453,10 +590,13 @@ class HostUnitStore:
                     f"field {name} has shape {arr.shape}, not {cfg.shape}"
                 )
             for kind, idx, (lo, hi) in plan.units():
-                if spec.compressed:
+                planes = spec.planes
+                if spec.compressed and self.rates is not None:
+                    planes = self.rates.rate_for(name, kind, idx, 0)
+                if planes is not None:
                     unit = zfp_ops.compress(
                         to_device(arr[lo:hi], self.device),
-                        planes=spec.planes, ndim=3, backend=cfg.backend,
+                        planes=planes, ndim=3, backend=cfg.backend,
                     )
                 else:
                     unit = np.array(arr[lo:hi])
@@ -472,10 +612,11 @@ class HostUnitStore:
         when the unit was committed.
         """
         key = (field, kind, idx)
-        stored = self._units[key]
-        version = self._versions.get(key, 0)
-        stored = self._wire("h2d", field, kind, idx, version, stored,
+        stored = self.get(field, kind, idx)
+        stored = self._wire("h2d", field, kind, idx,
+                            self.host_version_of(field, kind, idx), stored,
                             self._crc[key])
+        raw, wire = unit_bytes(stored)
         if isinstance(stored, Compressed):
             dev = Compressed(
                 to_device(stored.payload, self.device),
@@ -483,9 +624,19 @@ class HostUnitStore:
                 stored.shape, stored.planes, stored.ndim_spatial,
                 stored.dtype,
             )
-            raw = int(np.prod(stored.shape)) * np.dtype(stored.dtype).itemsize
-            return dev, raw, stored.nbytes()
-        return to_device(stored, self.device), stored.nbytes, stored.nbytes
+            return dev, raw, wire
+        return to_device(stored, self.device), raw, wire
+
+    def cross_h2d(self, field: str, kind: str, idx: int, send) -> None:
+        """The live engine's H2D crossing of one unit: its transport
+        moved the committed host payload and digested what crossed;
+        ``send`` (see ``_wire``) hands that over and moves the unit
+        again on a retry. Verified against the recorded digest under
+        the retry policy, before the caller may decode the unit."""
+        key = (field, kind, idx)
+        self._wire("h2d", field, kind, idx,
+                   self.host_version_of(field, kind, idx),
+                   self.get(field, kind, idx), self._crc[key], send)
 
     def checksum_of(self, field: str, kind: str, idx: int) -> int:
         """The recorded integrity digest of the committed host payload."""
@@ -525,6 +676,10 @@ class OutOfCoreWave:
     ``temporal=k`` fuses ``k`` sweeps per visit: every visit fetches
     the halo-k widened footprint, advances ``bt*k`` steps on the device,
     and writes each unit back once with ``k`` version bumps.
+
+    ``rates`` (a ``ratecontrol.RateController``) gives each unit its own
+    encode rate per sweep (None = raw) and observes every writeback's
+    round-trip error; ``mode="fixed"`` is bit-identical to none.
     """
 
     def __init__(
@@ -534,8 +689,9 @@ class OutOfCoreWave:
         p_cur: np.ndarray,
         vel2: np.ndarray,
         temporal: int = 1,
+        rates=None,
     ):
-        self._setup(cfg, temporal)
+        self._setup(cfg, temporal, rates)
         self.store.seed({"p_prev": p_prev, "p_cur": p_cur, "vel2": vel2})
 
     @classmethod
@@ -550,7 +706,7 @@ class OutOfCoreWave:
         """An engine whose store holds a ``state_dict`` snapshot (its
         crc32 digests verified) instead of freshly seeded fields."""
         eng = cls.__new__(cls)
-        eng._setup(cfg, temporal)
+        eng._setup(cfg, temporal, None)
         eng.store.load_state(leaves, meta)
         for name in cfg.fields:
             for kind, idx, (lo, hi) in eng.plan.units():
@@ -564,24 +720,14 @@ class OutOfCoreWave:
         eng.sweeps_done = int(sweeps_done)
         return eng
 
-    def _setup(self, cfg: OOCConfig, temporal: int) -> None:
-        if cfg.dtype != "float32":
-            raise NotImplementedError(FLOAT64_TODO)
-        self.device = device_mod.resolve(cfg.device)
-        if cfg.backend not in ("ref", "cuda"):
-            raise ValueError(
-                f"backend must be 'ref' or 'cuda', got {cfg.backend!r}"
-            )
-        if cfg.backend == "cuda" and self.device.type != "cuda":
-            raise ValueError(
-                "backend='cuda' runs the CUDA kernels and needs a CUDA "
-                "device; use backend='ref' with device='cpu'"
-            )
+    def _setup(self, cfg: OOCConfig, temporal: int, rates) -> None:
+        self.device = engine_device(cfg)
         self.cfg = cfg
         self.temporal = temporal
         self.plan = cfg.temporal_plan(temporal)
         self.plan.check_cover()
-        self.store = HostUnitStore(cfg, plan=self.plan)
+        self.rates = rates
+        self.store = HostUnitStore(cfg, plan=self.plan, rates=rates)
         self.transfers: List[Transfer] = []
         self.sweeps_done = 0
 
@@ -605,10 +751,22 @@ class OutOfCoreWave:
         spec = self.cfg.fields[name]
         raw = value.numel() * value.element_size()
         ver = self.store.version_of(name, kind, idx) + bump
-        if spec.compressed:
+        planes = spec.planes
+        if self.rates is not None:
+            planes = self.rates.rate_for(name, kind, idx, sweep)
+        if planes is not None:
+            if self.rates is not None and spec.compressed:
+                q = zfp_ops.quantize(value, planes=planes, ndim=3)
+                self.rates.observe(name, kind, idx, planes,
+                                   float((q - value).abs().max()),
+                                   float(value.abs().max()))
             value = zfp_ops.compress(
-                value, planes=spec.planes, ndim=3, backend=self.cfg.backend
+                value, planes=planes, ndim=3, backend=self.cfg.backend
             )
+        elif self.rates is not None and spec.compressed:
+            # lossless commit: zero error at the unit's amplitude
+            self.rates.observe(name, kind, idx, None, 0.0,
+                               float(value.abs().max()))
         wire = self.store.put(name, kind, idx, value, version=ver)
         self.transfers.append(
             Transfer("d2h", name, (kind, idx), raw, wire, sweep, block)
@@ -687,6 +845,10 @@ class OutOfCoreWave:
                     held[name + str(i)] = owned[b - h : b]
             shared = {n: new_shared.get(n) for n in cfg.fields}
         self.sweeps_done += kr
+        if self.rates is not None:
+            # sweep boundary: the new rate map applies from the next
+            # sweep on (the live engine decides at the same point)
+            self.rates.decide(self.sweeps_done)
 
     def run(self, total_steps: int) -> None:
         if total_steps % self.cfg.bt:
@@ -699,6 +861,10 @@ class OutOfCoreWave:
             kr = min(self.temporal, remaining)
             self.sweep(kr)
             remaining -= kr
+
+    def finish(self) -> None:
+        """The live engine's drain, for a common interface: this engine
+        writes back within each sweep, so there is nothing to drain."""
 
     # ------------------------------------------------------------------
     def gather(self, name: str) -> np.ndarray:

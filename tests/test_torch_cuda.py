@@ -4,6 +4,11 @@ card. Every test here needs a CUDA device and ``nvcc``; without them the
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
+The live engine (``AsyncExecutor``) is held bit for bit to the
+synchronous engine on the card, on three streams of its own with pinned
+staging, against reuse of freed memory across its streams (the
+``record_stream`` hazard) and under injected in-flight corruption.
+
 Contract: the codec and stencil kernels are bit for bit equal to their
 plain versions (``-fmad=false`` and the reference's order of
 operations); the fused ZFP-decode attention kernel decodes bit for bit
@@ -20,8 +25,12 @@ import torch
 
 from repro_torch import _build
 from repro_torch.configs import get_config, smoke
+from repro_torch.core.executor import AsyncExecutor
 from repro_torch.core.outofcore import OOCConfig, OutOfCoreWave, \
     paper_code_fields
+from repro_torch.core.streams import Lanes
+from repro_torch.distributed.fault import FaultInjector, FaultPlan, \
+    FaultSpec, RetryPolicy, UnrecoverableFault
 from repro_torch.kernels.stencil import kernel as stencil_kernel
 from repro_torch.kernels.stencil import ops as stencil_ops
 from repro_torch.kernels.stencil import ref as stencil_ref
@@ -462,3 +471,183 @@ def test_ssm_serving_cuda_equals_ref_on_card(cuda_device):
             assert sscan_kernel.launches["sscan"] == 0
     assert outs["cuda"] == outs["ref"]
     np.testing.assert_allclose(logs["cuda"], logs["ref"], rtol=0, atol=1e-4)
+
+
+# ----------------------------------------------------------------------
+# the live engine: AsyncExecutor on its H2D, compute and D2H streams
+# ----------------------------------------------------------------------
+
+LIVE_SHAPE = (96, 16, 16)
+
+
+def _live_fields():
+    p_cur = stencil_ref.ricker_source(LIVE_SHAPE).numpy()
+    return 0.95 * p_cur, p_cur, np.full(LIVE_SHAPE, 0.07, np.float32)
+
+
+@pytest.mark.parametrize("schedule,budget", [
+    ("depth2", 0), ("depth3", 100_000), ("temporal-2", 1 << 30),
+    ("paper", 100_000),
+])
+def test_live_engine_equals_sync_on_card(cuda_device, monkeypatch,
+                                         schedule, budget):
+    """Bit for bit the synchronous engine on the card; three streams of
+    its own, pinned staging, and every codec and stencil call on the
+    compute stream."""
+    temporal = 2 if schedule.startswith("temporal") else 1
+    bt = 1 if temporal == 2 else 2
+    cfg = OOCConfig(LIVE_SHAPE, 4, bt, paper_code_fields(4))
+    sync = OutOfCoreWave(cfg, *_live_fields(), temporal=temporal)
+    sync.run(4 * bt)
+    streams = []
+    for mod, name in ((zfp_ops, "compress"), (zfp_ops, "decompress"),
+                      (stencil_ops, "fused_temporal_steps")):
+        fn = getattr(mod, name)
+
+        def seen(*a, fn=fn, **kw):
+            streams.append(torch.cuda.current_stream().cuda_stream)
+            return fn(*a, **kw)
+
+        monkeypatch.setattr(mod, name, seen)
+    zfp_kernel.reset_launches()
+    stencil_kernel.reset_launches()
+    live = AsyncExecutor(cfg, *_live_fields(), schedule=schedule,
+                         cache_bytes=budget)
+    streams.clear()  # seeding encodes on the caller's stream
+    live.run(4 * bt)
+    lanes = live.lanes
+    compute = lanes.streams["compute"].cuda_stream
+    assert streams and set(streams) == {compute}
+    ids = {s.cuda_stream for s in lanes.streams.values()}
+    assert len(ids) == 3
+    assert torch.cuda.current_stream().cuda_stream not in ids
+    assert all(slot.tensor.is_pinned() for slot in lanes._slots)
+    assert live.stats()["lanes"]["pinned_bytes"] > 0
+    busy = lanes.busy_s()
+    assert busy["h2d"] > 0 and busy["compute"] > 0
+    assert zfp_kernel.launches["encode"] > 0
+    assert zfp_kernel.launches["decode"] > 0
+    assert stencil_kernel.launches["wave_multistep"] > 0
+    monkeypatch.undo()
+    for name in ("p_prev", "p_cur", "vel2"):
+        np.testing.assert_array_equal(live.gather(name), sync.gather(name))
+    live.close()
+
+
+def test_live_engine_adaptive_rates_on_card(cuda_device):
+    """Adaptive rates on the card: the live engine and the sync engine,
+    each with its own controller, decide the same rates and end bit for
+    bit equal, with units moving at more than one rate."""
+    from repro_torch.core.ratecontrol import RateController
+
+    cfg = OOCConfig(LIVE_SHAPE, 4, 2, paper_code_fields(4))
+    sync = OutOfCoreWave(cfg, *_live_fields(), rates=RateController(
+        cfg, mode="adaptive", error_budget=1e-2))
+    sync.run(8)
+    rates = RateController(cfg, mode="adaptive", error_budget=1e-2)
+    live = AsyncExecutor(cfg, *_live_fields(), cache_bytes=100_000,
+                         rates=rates)
+    live.run(8)
+    assert rates.state_dict() == sync.rates.state_dict()
+    assert len({t.wire_bytes for t in live.transfers
+                if t.field == "p_prev" and t.unit == ("R", 1)}) > 1
+    for name in ("p_prev", "p_cur"):
+        np.testing.assert_array_equal(live.gather(name), sync.gather(name))
+
+
+def test_staged_unit_survives_reuse_of_its_memory(cuda_device):
+    """A staged unit is allocated on the h2d stream and read on the
+    compute stream. Freed while the compute stream is still behind, its
+    block must not go to a new h2d allocation until that read is done:
+    the junk written there would reach the result otherwise."""
+    host = np.random.default_rng(0).standard_normal(1 << 22).astype(
+        np.float32)
+    lanes = Lanes(cuda_device, slot_bytes=host.nbytes, slots=2, threads=2)
+    fetch = lanes.fetch(host, 0)
+    fetch.send()
+    dev = fetch.value()
+    with lanes.on("compute"):
+        torch.cuda._sleep(400_000_000)  # hold the compute stream back
+        out = dev * 2.0
+    del dev, fetch
+    with lanes.on("h2d"):
+        junk = torch.empty(host.nbytes, dtype=torch.uint8,
+                           device=cuda_device)
+        junk.fill_(255)
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(out.cpu().numpy(), host * 2.0)
+    lanes.close()
+
+
+def test_parked_payload_survives_reuse_of_its_memory(cuda_device):
+    """A writeback's payload is allocated on the compute stream and read
+    by the d2h stream. Freed while that copy still waits, its block must
+    not go to a new compute allocation until the copy is done."""
+    host = np.random.default_rng(1).standard_normal(1 << 22).astype(
+        np.float32)
+    lanes = Lanes(cuda_device, slot_bytes=host.nbytes, slots=2, threads=2)
+    with lanes.on("compute"):
+        val = torch.from_numpy(host).to(cuda_device) * 1.0
+    with lanes.on("d2h"):
+        torch.cuda._sleep(400_000_000)  # hold the d2h stream back
+    wb = lanes.writeback(val, 3, lanes.mark("compute"))
+    del val
+    with lanes.on("compute"):
+        junk = torch.empty(host.nbytes, dtype=torch.uint8,
+                           device=cuda_device)
+        junk.fill_(255)
+    back, crc = wb.result()
+    wb.release()
+    np.testing.assert_array_equal(back, host)
+    from repro_torch.core.outofcore import unit_checksum
+    assert crc == unit_checksum(host, 3)
+    lanes.close()
+
+
+def test_live_engine_with_allocator_churn_on_card(cuda_device, monkeypatch):
+    """After every visit, blocks of every size the engine frees are
+    handed out again on the h2d and compute streams and overwritten
+    with NaN: no unit is corrupted."""
+    cfg = OOCConfig(LIVE_SHAPE, 4, 2, paper_code_fields(4))
+    sync = OutOfCoreWave(cfg, *_live_fields())
+    sync.run(8)
+    park = AsyncExecutor._park_writebacks
+
+    def churn(self, *a, **kw):
+        park(self, *a, **kw)
+        for lane in ("h2d", "compute"):
+            with self.lanes.on(lane):
+                for n in (1 << 12, 1 << 14, 1 << 16, 1 << 18):
+                    torch.empty(n, device=cuda_device).fill_(float("nan"))
+
+    monkeypatch.setattr(AsyncExecutor, "_park_writebacks", churn)
+    live = AsyncExecutor(cfg, *_live_fields(), cache_bytes=100_000)
+    live.run(8)
+    for name in ("p_prev", "p_cur"):
+        np.testing.assert_array_equal(live.gather(name), sync.gather(name))
+
+
+def test_live_engine_crc_mismatch_on_card(cuda_device):
+    """Injected in-flight corruption on the card: retried and bit for bit
+    with a retry; without one, a corrupt writeback raises before it is
+    committed."""
+    cfg = OOCConfig(LIVE_SHAPE, 4, 2, paper_code_fields(4))
+    sync = OutOfCoreWave(cfg, *_live_fields())
+    sync.run(4)
+    specs = [FaultSpec("corrupt", op="h2d", field="p_prev", unit="R1"),
+             FaultSpec("corrupt", op="d2h", field="p_cur", unit="C0")]
+    live = AsyncExecutor(cfg, *_live_fields(),
+                         injector=FaultInjector(FaultPlan(specs)),
+                         retry=RetryPolicy(attempts=2))
+    live.run(4)
+    assert live.store.wire_stats["checksum_failures"] > 0
+    for name in ("p_prev", "p_cur"):
+        np.testing.assert_array_equal(live.gather(name), sync.gather(name))
+    live = AsyncExecutor(cfg, *_live_fields(), injector=FaultInjector(
+        FaultPlan([FaultSpec("corrupt", op="d2h", field="p_prev",
+                             unit="R0", version=1)])))
+    crc0 = live.store.checksum_of("p_prev", "R", 0)
+    with pytest.raises(UnrecoverableFault, match="d2h of unit p_prev.R0"):
+        live.run(4)
+    assert live.store.version_of("p_prev", "R", 0) == 0
+    assert live.store.checksum_of("p_prev", "R", 0) == crc0
