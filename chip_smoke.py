@@ -27,6 +27,14 @@ non-zero:
    bit for bit equal; median kernel and plain times (CUDA events) and
    the bound (bytes over 3.35 TB/s, or float32 operations over 67
    TFLOP/s);
+3f. the float64 kernels (``csrc/zfp64.cu``, ``csrc/stencil64.cu``)
+   against their plain versions: the codec at the paper's rates 24 and
+   32 planes, ndim 1-3, on the unit and on the ragged unit, bit for bit,
+   with its device time a launch at the unit (ndim 3); the single step on
+   the block and on the precision tier's in-core shape (random halos),
+   the rung at 12 steps on the block and at 5 on the ragged unit, bit
+   for bit; their ``ptxas`` lines; bounds in bytes or float64 operations
+   over 34 TFLOP/s;
 4. the slice at the paper's size: 1152^3, ndiv=8, bt=12, one sweep for
    code 4 and for code 1 through ``OutOfCoreWave``; code 1 bit for bit
    equal to the in-core ``fused_temporal_steps(backend="cuda")``, code 4
@@ -53,6 +61,20 @@ non-zero:
    threads, on the caller's thread and left on the caller's critical
    path, the window's peak, the pinned bytes and the idle share, beside
    the sync engine's rows;
+5f. the paper's float64 cell: 1152^3, ndiv 8, bt 12, code 4 at 24/64
+   through ``OutOfCoreWave`` (the host bytes reckoned and printed
+   first; Z cut, units kept, only if they do not fit), one sweep: wire
+   bytes the plan's, p_cur within 5e-2 relative of the in-core run of 12
+   steps, computed on the card in z-slabs, each block with its 48 halo
+   planes (a whole-volume float64 run does not fit the card);
+5bf. ``AsyncExecutor`` in float64, (288, 576, 576), ndiv 2, bt 12, code
+   4 at 24/64, two sweeps: bit for bit the sync engine, transfers the
+   task graph's and the plan's;
+5p. the precision tier to 4,320 steps (the paper's Fig. 7):
+   ``error_curve`` for codes 1-4 in float64 at the paper's rates and
+   codes 2 and 4 in float32 at 16/12, on (192, 96, 96), ndiv 2, bt 12,
+   360 sweeps sampled every 30: code 1 exactly 0, float64 codes 2-4
+   under ``assert_bounded_growth`` with the long tier's ceilings;
 6. the fused ZFP-decode attention kernel against its plain version at
    the repo's ``decode_32k`` context (32768 tokens): 16 slots, 2 KV
    heads, 6 queries per KV head, head_dim 128, at 16 and 12 planes and
@@ -63,8 +85,8 @@ non-zero:
    kernel and the plain version against a float64 evaluation of the
    same decoded tiles (three seeds, 16 and 12 planes, length 30000):
    which side carries the error, and the kernel within 2e-5 of it;
-7. the serving slice at full width: Qwen2-1.5B in bfloat16 with the
-   compressed KV cache at 16 planes, random weights from a seeded
+7. the serving slice at full width: Qwen2-1.5B in bfloat16, depth cut
+   to 14 of its 28 layers, with the compressed KV cache at 16 planes, random weights from a seeded
    generator on the card, 8 requests in 8 slots in lockstep (256-token
    prompts, 64 new tokens, greedy) through ``ServeEngine``; wall time,
    tokens/s, cache bytes and the launches of the encode and cdecode
@@ -113,8 +135,9 @@ non-zero:
    every layer's ``h`` within the kernel's tolerance;
 10. the kernels line: every kernel with its launches on the main paths
    (the out-of-core wave of phases 4 and 5, the live engine of phase
-   5b, the serving slice of phase 7 and the SSM slice of phase 9, each
-   counted from zero), its error and times.
+   5b, the float64 paper sweep, live run and precision tier of phases
+   5f, 5bf and 5p, the serving slice of phase 7 and the SSM slice of
+   phase 9, each counted from zero), its error and times.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -171,7 +194,9 @@ from repro_torch.kernels.zfp import ref as zfp_ref  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
 SFU_PER_CLOCK_SM = 16  # exponentials a clock an SM (sm_90 SFU)
-STENCIL_FLOPS = 33  # float32 operations per point per step
+STENCIL_FLOPS = 33  # floating-point operations per point per step
+FP64_FLOP_PER_S = 34e12  # H100 SXM data sheet, float64 outside tensor cores
+F64 = torch.float64
 SEED = 0
 PAPER = (1152, 1152, 1152)
 NDIV, BT = 8, 12
@@ -190,6 +215,9 @@ CD_LENGTHS = (30000, CTX - kvcache.CHUNK, 40)
 CD_TOL = 2e-5  # tests/test_cdecode_kernel.py's own bound
 # phase 7: the serving slice
 SERVE_ARCH, SERVE_PLANES = "qwen2-1.5b", 16
+# depth cut to 14 of Qwen2-1.5B's 28 layers (full width) since the float64
+# phases joined: the smoke keeps within its time limit on a slow host
+SERVE_LAYERS = 14
 SERVE_SLOTS, PROMPT, MAX_NEW, SERVE_MAX_LEN = 8, 256, 64, 1024
 SERVE_TOL = 5e-2  # tests/test_kvcache.py's bound against the raw cache
 # phases 8-9: the SSM slice
@@ -203,6 +231,17 @@ SSCAN_CHUNK = 64  # the plain version's chunk (the configs' ssm_chunk)
 SSCAN_WITNESS = ((8, 128, 8192, 16), (8, 4096, 8192, 16))
 SSCAN_WITNESS_STRIDE = 16  # the float64 recurrence's channels: 512 of 8192
 SSM_WINDOW = (16, 32)  # profiled decode steps: warm-up, then the window
+# the float64 phases: the paper's own type and rates (32/64, 24/64)
+F64_PLANES = (24, 32)
+F64_RAGGED = (50, 1150, 1149)
+F64_LIVE = (288, 576, 576)  # live vs sync: ndiv 2, bt 12, block 144
+# the precision tier to 4,320 steps (Fig. 7): 360 sweeps of bt 12; block
+# 96 = 2 x the 48-plane halo and y a multiple of 48, so the engine runs
+# the multistep kernel
+PREC_SHAPE, PREC_NDIV, PREC_SWEEPS, PREC_EVERY = (192, 96, 96), 2, 360, 30
+# tests/test_precision_loss.py's REL_TOL_SLOW; code 3 (vel2 at the 2:1
+# rate of code 2) is held to code 2's
+PREC_TOL = {2: 0.030, 3: 0.030, 4: 0.350}
 
 
 class SmokeFailure(AssertionError):
@@ -306,12 +345,13 @@ def ptxas_summary(log: str):
     return out
 
 
-def bound_ms(nbytes: float, flops: float = 0.0, exps: float = 0.0):
-    """The least time for the work: bytes over the memory rate, float32
-    operations over the float32 rate and exponentials over the SFU rate,
-    whichever is largest."""
+def bound_ms(nbytes: float, flops: float = 0.0, exps: float = 0.0,
+             flop_rate: float = FP32_FLOP_PER_S):
+    """The least time for the work: bytes over the memory rate,
+    floating-point operations over ``flop_rate`` (float32's unless
+    given) and exponentials over the SFU rate, whichever is largest."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = max(flops / FP32_FLOP_PER_S, exps / sfu_per_s() if exps else 0.0)
+    t_ops = max(flops / flop_rate, exps / sfu_per_s() if exps else 0.0)
     t_ops *= 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -338,11 +378,23 @@ def kernel_ptxas(source: str, entry: str):
     return [e for e in ptxas_summary(build_log(source)) if entry in e["entry"]]
 
 
+def path_counts():
+    """The codec and stencil launch counts, by counter name."""
+    return {**{f"zfp_{k}": v for k, v in zfp_kernel.launches.items()},
+            **stencil_kernel.launches}
+
+
+def reset_counts():
+    zfp_kernel.reset_launches()
+    stencil_kernel.reset_launches()
+
+
 def bits(t: torch.Tensor) -> torch.Tensor:
     return t.contiguous().view(torch.int32)
 
 
 def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit equal (any 4- or 8-byte type, through int32 views)."""
     return a.shape == b.shape and bool(torch.equal(bits(a), bits(b)))
 
 
@@ -354,8 +406,9 @@ def max_abs(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(d.max()) if a.numel() else 0.0
 
 
-def normal(shape, gen, scale=7.3) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, device="cuda") * scale
+def normal(shape, gen, scale=7.3, dtype=torch.float32) -> torch.Tensor:
+    return torch.randn(shape, generator=gen, device="cuda",
+                       dtype=dtype) * scale
 
 
 # ----------------------------------------------------------------------
@@ -514,6 +567,156 @@ def multistep_ragged(gen):
 
 
 # ----------------------------------------------------------------------
+# phase 3f: the float64 kernels against their plain versions
+# ----------------------------------------------------------------------
+
+
+def codec64_case(shape, gen, results):
+    """The float64 codec at the paper's rates and ndim 1-3 on ``shape``
+    (ndim 2 and 1 take the leading axes as batch): encode and decode bit
+    for bit the plain version. At ndim 3 (the engine's) also the times
+    and the bound: the unit in, payload and emax out."""
+    x = normal(shape, gen, 7.3, F64)
+    for planes in F64_PLANES:
+        for ndim in (3, 2, 1):
+            payload, emax = zfp_kernel.encode(x, planes, ndim)
+            rp, re = zfp_ref.encode_blocks(zfp_ref.blockify(x, ndim), planes,
+                                           ndim)
+            enc_ok = same_bits(payload, rp) and same_bits(emax, re)
+            y = zfp_kernel.decode(payload, emax, shape, planes, ndim,
+                                  "float64")
+            ry = zfp_ref.unblockify(zfp_ref.decode_blocks(
+                rp, re, planes, ndim, "float64"), shape, ndim)
+            dec_ok = same_bits(y, ry)
+            errs = {"zfp_encode_f64": max(max_abs(payload, rp),
+                                          max_abs(emax, re)),
+                    "zfp_decode_f64": max_abs(y, ry)}
+            del rp, re, ry
+            row = {"phase": "kernel_vs_plain_f64", "shape": list(shape),
+                   "planes": planes, "ndim": ndim,
+                   "stream_order": zfp_kernel.stream_order(planes, ndim, 64),
+                   "encode_bitwise": enc_ok, "decode_bitwise": dec_ok}
+            if ndim == 3 and shape == UNIT:
+                nbytes = (x.numel() * 8 + payload.numel() * 4
+                          + emax.numel() * 4)
+                enc_fn = lambda: zfp_kernel.encode(x, planes)
+                dec_fn = lambda: zfp_kernel.decode(payload, emax, shape,
+                                                   planes, 3, "float64")
+                for name, fn, key, plain in (
+                        ("zfp_encode_f64", enc_fn, "encode64_kernel",
+                         lambda: zfp_ref.encode_blocks(
+                             zfp_ref.blockify(x, 3), planes, 3)),
+                        ("zfp_decode_f64", dec_fn, "decode64_kernel",
+                         lambda: zfp_ref.unblockify(zfp_ref.decode_blocks(
+                             payload, emax, planes, 3, "float64"), shape,
+                             3))):
+                    r = {"max_abs_err": errs[name], "ms": median_ms(fn, 10),
+                         **kernel_device_ms(fn, key, 10),
+                         "plain_ms": median_ms(plain, 3),
+                         "bound": bound_ms(nbytes)}
+                    results[(name, shape, planes)] = r
+                    row[name] = {k: v for k, v in r.items() if k != "bound"}
+                    row[name].update(bound_ms=r["bound"][0],
+                                     bound_by=r["bound"][1])
+            emit(row)
+            check(enc_ok and dec_ok, f"float64 codec differs from its plain "
+                                     f"version at {shape}, {planes} planes, "
+                                     f"ndim {ndim}")
+            del payload, emax, y
+            torch.cuda.empty_cache()
+    del x
+    torch.cuda.empty_cache()
+
+
+def stencil64_cases(gen, results):
+    """The float64 single step on random padded fields (a non-zero halo)
+    at the block and at the precision tier's in-core shape, and the
+    float64 rung at 12 steps on the block: bit for bit ``ref.wave_step``
+    and ``ref.ladder_steps``, with times and bounds (bytes, or float64
+    operations at the float64 rate)."""
+    for shape in (BLOCK, PREC_SHAPE):
+        n = math.prod(shape)
+        pad = tuple(s + 2 * stencil_ref.HALO for s in shape)
+        pp, pc = normal(pad, gen, 1.0, F64), normal(pad, gen, 1.0, F64)
+        v2 = 0.05 + 0.01 * normal(shape, gen, 1.0, F64)
+        kn, kl = stencil_kernel.wave_step(pp, pc, v2)
+        rn, rl = stencil_ref.wave_step(pp, pc, v2)
+        ok = same_bits(kn, rn) and same_bits(kl, rl)
+        fn = lambda: stencil_kernel.wave_step(pp, pc, v2)
+        r = {"max_abs_err": max(max_abs(kn, rn), max_abs(kl, rl)),
+             "ms": median_ms(fn, 10),
+             **kernel_device_ms(fn, "wave_step64_kernel", 10),
+             "plain_ms": median_ms(lambda: stencil_ref.wave_step(pp, pc, v2),
+                                   3),
+             "bound": bound_ms(2 * pp.numel() * 8 + 3 * n * 8,
+                               STENCIL_FLOPS * n, flop_rate=FP64_FLOP_PER_S)}
+        results[("wave_step_f64", shape, 1)] = r
+        emit({"phase": "kernel_vs_plain_f64", "kernel": "wave_step_f64",
+              "shape": list(shape), "padded": list(pad), "bitwise": ok,
+              **{k: v for k, v in r.items() if k != "bound"},
+              "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+              "ptxas": kernel_ptxas("stencil64", "wave_step64_kernel")})
+        check(ok, f"float64 wave_step differs from its plain version at "
+                  f"{shape}")
+        del pp, pc, v2, kn, kl, rn, rl
+        torch.cuda.empty_cache()
+    n = math.prod(BLOCK)
+    pp, pc = normal(BLOCK, gen, 1.0, F64), normal(BLOCK, gen, 1.0, F64)
+    v2 = 0.05 + 0.01 * normal(BLOCK, gen, 1.0, F64)
+    rp, rc = stencil_ref.ladder_steps(pp, pc, v2, BT)
+    stencil_kernel.reset_launches()
+    kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, BT)
+    launched = stencil_kernel.launches["wave_multistep_f64"]
+    ok = same_bits(kp, rp) and same_bits(kc, rc)
+    err = max(max_abs(kp, rp), max_abs(kc, rc))
+    del kp, kc, rp, rc
+    torch.cuda.empty_cache()
+    fn = lambda: stencil_kernel.wave_multistep(pp, pc, v2, BT)
+    r = {"max_abs_err": err, "ms": median_ms(fn, 3),
+         **kernel_device_ms(fn, "wave_rung64_kernel", 2),
+         "plain_ms": median_ms(
+             lambda: stencil_ref.ladder_steps(pp, pc, v2, BT), 2),
+         "bound": bound_ms(5 * n * 8, STENCIL_FLOPS * n * BT,
+                           flop_rate=FP64_FLOP_PER_S),
+         "launches_per_call": launched}
+    results[("wave_multistep_f64", BLOCK, BT)] = r
+    emit({"phase": "kernel_vs_plain_f64", "kernel": "wave_multistep_f64",
+          "shape": list(BLOCK), "steps": BT, "bitwise": ok,
+          **{k: v for k, v in r.items() if k != "bound"},
+          "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+          # what one launch must move: p_prev, p_cur, vel2 in, p_next out
+          "bound_ms_a_launch": bound_ms(4 * n * 8, STENCIL_FLOPS * n,
+                                        flop_rate=FP64_FLOP_PER_S)[0],
+          "ptxas": kernel_ptxas("stencil64", "wave_rung64_kernel")})
+    check(ok, "float64 wave_multistep differs from its plain version")
+    check(launched == BT, f"{launched} float64 rung launches for {BT} steps")
+    del pp, pc, v2
+    torch.cuda.empty_cache()
+    # the ladder on a ragged unit (tiles cut in y and x)
+    pp, pc = (normal(F64_RAGGED, gen, 1.0, F64) for _ in range(2))
+    v2 = 0.05 + 0.01 * normal(F64_RAGGED, gen, 1.0, F64)
+    kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, 5)
+    rp, rc = stencil_ref.ladder_steps(pp, pc, v2, 5)
+    ok = same_bits(kp, rp) and same_bits(kc, rc)
+    emit({"phase": "multistep_ragged_f64", "shape": list(F64_RAGGED),
+          "steps": 5, "bitwise": ok})
+    check(ok, "float64 wave_multistep differs on the ragged unit")
+    del pp, pc, v2, kp, kc, rp, rc
+    torch.cuda.empty_cache()
+
+
+def kernels64(gen, results):
+    """Phase 3f: the float64 codec on the unit and on a ragged shape, the
+    float64 stencil, and the ptxas lines of the float64 kernels."""
+    codec64_case(UNIT, gen, results)
+    codec64_case(F64_RAGGED, gen, results)
+    emit({"phase": "ptxas_f64",
+          "zfp64": ptxas_summary(build_log("zfp64")),
+          "stencil64": ptxas_summary(build_log("stencil64"))})
+    stencil64_cases(gen, results)
+
+
+# ----------------------------------------------------------------------
 # phase 4-5: the engine
 # ----------------------------------------------------------------------
 
@@ -585,11 +788,12 @@ class DeviceClock:
 def expected_summary(cfg: OOCConfig):
     """The transfer summary of one sweep from ``BlockPlan`` arithmetic:
     every unit fetched once per field and written back once per
-    read-write field; compressed units carry W words and a 2-byte emax
-    header per 4^3 block."""
+    read-write field; compressed units carry W words (of the field
+    type's width) and a 2-byte emax header per 4^3 block."""
     plan = cfg.plan
     z, y, x = cfg.shape
-    plane = y * x * 4
+    itemsize = np.dtype(cfg.dtype).itemsize
+    plane = y * x * itemsize
     blocks_of = lambda planes: (-(-planes // 4)) * (-(-y // 4)) * (-(-x // 4))
     tot = {"h2d_raw": 0, "h2d_wire": 0, "d2h_raw": 0, "d2h_wire": 0,
            "h2d_count": 0, "d2h_count": 0}
@@ -600,7 +804,7 @@ def expected_summary(cfg: OOCConfig):
         wire = 0
         for _, _, (lo, hi) in plan.units():
             if spec.compressed:
-                w = zfp_ref.payload_words(3, spec.planes)
+                w = zfp_ref.payload_words(3, spec.planes, 8 * itemsize)
                 wire += blocks_of(hi - lo) * (4 * w + 2)
             else:
                 wire += (hi - lo) * plane
@@ -614,13 +818,14 @@ def expected_summary(cfg: OOCConfig):
     return tot
 
 
-def initial_fields(shape):
+def initial_fields(shape, dtype=torch.float32):
     """The example's initial condition, built on the card and brought
     to the host: Ricker p_cur, p_prev = 0.97 p_cur, vel2 = 0.06."""
-    p_cur = stencil_ref.ricker_source(shape, device="cuda")
+    p_cur = stencil_ref.ricker_source(shape, dtype=dtype, device="cuda")
     host = {"p_cur": to_host(p_cur)}
     host["p_prev"] = to_host(0.97 * p_cur)
-    host["vel2"] = np.full(shape, 0.06, np.float32)
+    del p_cur
+    host["vel2"] = np.full(shape, 0.06, host["p_cur"].dtype)
     return host
 
 
@@ -673,8 +878,7 @@ def paper_slice():
           "steps": [BT, 2 * BT],
           "finite": bool(torch.isfinite(ref_pc).all()
                          and torch.isfinite(ref2["p_cur"]).all())})
-    zfp_kernel.reset_launches()
-    stencil_kernel.reset_launches()
+    reset_counts()
     sync_rows, sync4 = {}, {}
     for code in (4, 1):
         cfg = OOCConfig(PAPER, NDIV, BT, paper_code_fields(code))
@@ -889,8 +1093,7 @@ def live_residency(fields, want, sync_rows):
 def live_slice(fields, ref2, sync4, sync_rows, bt1):
     live_paper(fields, ref2, sync4, sync_rows)
     live_residency(*bt1)
-    return {**{f"zfp_{k}": v for k, v in zfp_kernel.launches.items()},
-            **stencil_kernel.launches}
+    return path_counts()
 
 
 def single_step_dispatch():
@@ -912,8 +1115,7 @@ def single_step_dispatch():
                         - before["wave_step"])
             check(launched == 2 * NDIV,
                   f"bt=1 engine launched wave_step {launched} times")
-            counts = {**{f"zfp_{k}": v for k, v in zfp_kernel.launches.items()},
-                      **stencil_kernel.launches}
+            counts = path_counts()
     want = {name: engines["cuda"].gather(name)
             for name in ("p_prev", "p_cur", "vel2")}
     same = {name: bool(np.array_equal(want[name],
@@ -923,6 +1125,206 @@ def single_step_dispatch():
           "bitwise": same})
     check(all(same.values()), "bt=1 engine: cuda and ref backends differ")
     return counts, (fields, want, engines["cuda"].smoke_rows)
+
+
+# ----------------------------------------------------------------------
+# phases 5f-5p: float64, the paper's configuration
+# ----------------------------------------------------------------------
+
+
+def mem_available() -> int:
+    """The host's available bytes (``MemAvailable``)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    raise RuntimeError("no MemAvailable in /proc/meminfo")
+
+
+def f64_paper_config():
+    """The float64 paper cell, code 4 at 24/64, and the host bytes it
+    holds at once (sized from the shapes): the three initial fields, the
+    slab reference's p_cur, the engine's store while seeding, then a
+    gathered field. Z is cut (ndiv with it, the units' shapes kept) only
+    if that exceeds 85% of the host's available bytes."""
+    avail = mem_available()
+    ndiv = NDIV
+    block = PAPER[0] // NDIV
+    while True:
+        shape = (block * ndiv,) + PAPER[1:]
+        cfg = OOCConfig(shape, ndiv, BT, paper_code_fields(4, f32=False),
+                        dtype="float64")
+        field = math.prod(shape) * 8
+        store = sum(unit_wire_bytes(spec, (hi - lo,) + shape[1:], 8)
+                    for spec in cfg.fields.values()
+                    for _, _, (lo, hi) in cfg.plan.units())
+        peak = 3 * field + field + store
+        if peak <= 0.85 * avail or ndiv <= 3:
+            break
+        ndiv -= 1
+    row = {"phase": "paper_f64_host_bytes", "shape": list(shape),
+           "ndiv": ndiv, "fields_bytes": 3 * field, "store_bytes": store,
+           "reference_bytes": field, "gathered_bytes": field,
+           "peak_bytes": peak, "mem_available_bytes": avail,
+           "z_cut": shape != PAPER}
+    emit(row)
+    check(peak <= 0.85 * avail, f"the float64 paper cell does not fit the "
+                                f"host: {row}")
+    return cfg
+
+
+def incore_slabs(fields, cfg):
+    """The in-core run of ``cfg.bt`` steps in z-slabs on the card: each
+    block with its bt * HALO planes of halo on either side (the zero
+    boundary past them creeps in HALO planes a step and stops short of
+    the block), through the multistep kernel. p_cur, on the host."""
+    z = cfg.shape[0]
+    block, halo = z // cfg.ndiv, stencil_ref.HALO * cfg.bt
+    out = np.empty(cfg.shape, np.float64)
+    for i in range(cfg.ndiv):
+        s, e = i * block, (i + 1) * block
+        lo, hi = max(0, s - halo), min(z, e + halo)
+        dev = {k: torch.from_numpy(v[lo:hi]).cuda() for k, v in fields.items()}
+        _, pc = stencil_ops.fused_temporal_steps(
+            dev["p_prev"], dev["p_cur"], dev["vel2"], steps=cfg.bt,
+            backend="cuda")
+        out[s:e] = to_host(pc[s - lo:e - lo])
+        del dev, pc
+    torch.cuda.empty_cache()
+    return out
+
+
+def compare_slabs(got: np.ndarray, want: np.ndarray, slab: int):
+    """(max |got - want|, max |want|, all finite), slab by slab on the
+    card."""
+    err = scale = 0.0
+    finite = True
+    for s in range(0, got.shape[0], slab):
+        g = torch.from_numpy(got[s:s + slab]).cuda()
+        w = torch.from_numpy(want[s:s + slab]).cuda()
+        finite &= bool(torch.isfinite(g).all())
+        err = max(err, float((g - w).abs().max()))
+        scale = max(scale, float(w.abs().max()))
+        del g, w
+    return err, scale, finite
+
+
+def paper_f64():
+    """Phase 5f: the float64 paper cell through the sync engine, one
+    sweep of code 4 at 24/64: wire bytes the plan's, p_cur against the
+    slab-wise in-core run. Returns the path's launch counts (seeding,
+    the sweep and the gather)."""
+    cfg = f64_paper_config()
+    t0 = time.perf_counter()
+    fields = initial_fields(cfg.shape, torch.float64)
+    t1 = time.perf_counter()
+    ref_pc = incore_slabs(fields, cfg)
+    t2 = time.perf_counter()
+    emit({"phase": "paper_f64_reference", "shape": list(cfg.shape),
+          "fields_s": t1 - t0, "incore_slabs_s": t2 - t1,
+          "slab_halo_planes": stencil_ref.HALO * cfg.bt})
+    reset_counts()
+    t0 = time.perf_counter()
+    eng = OutOfCoreWave(cfg, fields["p_prev"], fields["p_cur"],
+                        fields["vel2"])
+    torch.cuda.synchronize()
+    seed_s = time.perf_counter() - t0
+    fields.clear()  # the store holds its own copies
+    run_engine(cfg, None, "paper_f64_code4", eng)
+    summary = eng.transfer_summary()
+    want = expected_summary(cfg)
+    got = {k: summary[k] for k in want}
+    check(got == want, f"float64 code 4 transfer summary {got} != {want}")
+    t0 = time.perf_counter()
+    g = eng.gather("p_cur")
+    gather_s = time.perf_counter() - t0
+    counts = path_counts()
+    err, scale, finite = compare_slabs(g, ref_pc, cfg.shape[0] // cfg.ndiv)
+    del g, ref_pc, eng
+    emit({"phase": "paper_f64_code4_check", "seed_s": seed_s,
+          "gather_s": gather_s, "summary_matches_plan": True,
+          "finite": finite, "max_abs_err": err, "ref_scale": scale,
+          "max_rel_err": err / scale})
+    check(finite and err / scale < 5e-2,
+          f"float64 code 4: finite {finite}, rel err {err / scale}")
+    for name in ("zfp_encode_f64", "zfp_decode_f64", "wave_multistep_f64"):
+        check(counts[name] > 0, f"the float64 paper sweep never launched "
+                                f"{name}")
+    return counts
+
+
+def live_f64():
+    """Phase 5bf: ``AsyncExecutor`` on a float64 volume, code 4 at 24/64,
+    two sweeps with the window open across the boundary: bit for bit the
+    sync engine's two sweeps, transfers the task graph's and the plan's.
+    Returns the live run's launch counts."""
+    cfg = OOCConfig(F64_LIVE, 2, BT, paper_code_fields(4, f32=False),
+                    dtype="float64")
+    fields = initial_fields(F64_LIVE, torch.float64)
+    sync = OutOfCoreWave(cfg, fields["p_prev"], fields["p_cur"],
+                         fields["vel2"])
+    sync.run(LIVE_SWEEPS * BT)
+    want = {n: sync.gather(n) for n in ("p_prev", "p_cur", "vel2")}
+    del sync
+    reset_counts()
+    eng, row = run_live(cfg, fields, "live_f64")
+    counts = path_counts()
+    tasks = build_sweep_tasks(cfg, sweeps=LIVE_SWEEPS, schedule=LIVE_SCHEDULE)
+    summary = eng.transfer_summary()
+    plan = {k: LIVE_SWEEPS * v for k, v in expected_summary(cfg).items()}
+    same_log = model_log(tasks) == live_log(eng)
+    eng.close()
+    same = {n: bool(np.array_equal(eng.gather(n), want[n])) for n in want}
+    row.update(bitwise_sync=same, transfers_equal_graph=same_log,
+               summary_matches_plan={k: summary[k] for k in plan} == plan)
+    emit(row)
+    check(all(same.values()), f"live float64 differs from sync: {same}")
+    check(same_log and row["summary_matches_plan"],
+          "live float64: transfers differ from the task graph or the plan")
+    for name in ("zfp_encode_f64", "zfp_decode_f64", "wave_multistep_f64"):
+        check(counts[name] > 0, f"the live float64 run never launched {name}")
+    return counts
+
+
+def precision_tier():
+    """Phase 5p: the paper's Fig. 7 on the card. ``error_curve`` for
+    codes 1-4 in float64 at the paper's rates, and codes 2 and 4 in
+    float32 at 16/12 for comparison, on PREC_SHAPE, ndiv 2, bt 12, 360
+    sweeps (4,320 steps), sampled every 30: code 1 exactly 0, codes 2-4
+    within PREC_TOL under ``assert_bounded_growth``. Returns the launch
+    counts of the curves."""
+    from repro_torch.core.precision import assert_bounded_growth, \
+        error_curve
+
+    reset_counts()
+    t_all = time.perf_counter()
+    for dtype, codes in (("float64", (1, 2, 3, 4)), ("float32", (2, 4))):
+        for code in codes:
+            t0 = time.perf_counter()
+            rows = error_curve(code, shape=PREC_SHAPE, ndiv=PREC_NDIV, bt=BT,
+                               sweeps=PREC_SWEEPS, sample_every=PREC_EVERY,
+                               dtype=dtype)
+            wall = time.perf_counter() - t0
+            emit({"phase": "precision_curve", "dtype": dtype, "code": code,
+                  "shape": list(PREC_SHAPE), "bt": BT, "wall_s": wall,
+                  "rows": [{k: r[k] for k in ("steps", "max_abs", "rms",
+                                              "ref_scale", "rel_max")}
+                           for r in rows],
+                  "units_last": rows[-1]["units"]})
+            check(rows[-1]["steps"] == PREC_SWEEPS * BT,
+                  f"the curve stops at {rows[-1]['steps']} steps")
+            if code == 1:
+                check(all(r["max_abs"] == 0.0 for r in rows),
+                      f"{dtype} code 1 is not exact on the card")
+            elif dtype == "float64":
+                assert_bounded_growth(rows, PREC_TOL[code])
+    counts = path_counts()
+    emit({"phase": "precision_tier", "wall_s": time.perf_counter() - t_all,
+          "steps": PREC_SWEEPS * BT, "tol": PREC_TOL})
+    for name in ("zfp_encode_f64", "zfp_decode_f64", "wave_multistep_f64",
+                 "wave_step_f64"):
+        check(counts[name] > 0, f"the precision tier never launched {name}")
+    return counts
 
 
 # ----------------------------------------------------------------------
@@ -1203,7 +1605,8 @@ def serve_kernels_on_cache(cfg, eng, seen):
 
 
 def serving_slice():
-    base = get_config(SERVE_ARCH)
+    base = dataclasses.replace(get_config(SERVE_ARCH),
+                               num_layers=SERVE_LAYERS)
     cfg = dataclasses.replace(base, kv_compress_planes=SERVE_PLANES)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = lm.init_params(cfg, gen, device="cuda")
@@ -1542,8 +1945,7 @@ def ssm_slice():
     serve_kw = dict(slots=SSM_SLOTS, max_len=SSM_MAX_LEN)
 
     # the path: serve, then prefill, through the kernel, counted from 0
-    zfp_kernel.reset_launches()
-    stencil_kernel.reset_launches()
+    reset_counts()
     cdecode_kernel.reset_launches()
     sscan_kernel.reset_launches()
     outs, logits, wall, eng = serve(
@@ -1671,20 +2073,33 @@ def main() -> int:
     codec_case(RAGGED, 12, gen, results)
     stencil_cases(gen, results)
     torch.cuda.empty_cache()
+    kernels64(gen, results)
+
+    # the float64 paper cell first, while the host's memory is free (the
+    # later phases leave some of it cached)
+    f64_counts = paper_f64()
+    emit({"phase": "launches", "path": "ooc_f64", **f64_counts})
+    torch.cuda.empty_cache()
 
     fields, ref2, sync4, sync_rows = paper_slice()
     torch.cuda.empty_cache()
     counts, bt1 = single_step_dispatch()
     emit({"phase": "launches", "path": "ooc_wave", **counts})
     torch.cuda.empty_cache()
-    zfp_kernel.reset_launches()
-    stencil_kernel.reset_launches()
+    reset_counts()
     live_counts = live_slice(fields, ref2, sync4, sync_rows, bt1)
     emit({"phase": "launches", "path": "ooc_live", **live_counts})
     for name in ("zfp_encode", "zfp_decode", "wave_multistep", "wave_step"):
         check(live_counts[name] > 0,
               f"the live engine never launched {name}")
     del fields, ref2, sync4, bt1
+    torch.cuda.empty_cache()
+
+    live64_counts = live_f64()
+    emit({"phase": "launches", "path": "ooc_live_f64", **live64_counts})
+    torch.cuda.empty_cache()
+    prec_counts = precision_tier()
+    emit({"phase": "launches", "path": "precision", **prec_counts})
     torch.cuda.empty_cache()
 
     cdecode_cases(gen, results)
@@ -1710,6 +2125,20 @@ def main() -> int:
          "src/repro/kernels/stencil/kernel.py:149",
          "src/repro_torch/csrc/stencil.cu", (BLOCK, BT)),
     ]
+    rows += [
+        ("zfp_encode_f64", "zfp_encode_f64",
+         "src/repro/kernels/zfp/kernel.py:90",
+         "src/repro_torch/csrc/zfp64.cu", (UNIT, 24)),
+        ("zfp_decode_f64", "zfp_decode_f64",
+         "src/repro/kernels/zfp/kernel.py:133",
+         "src/repro_torch/csrc/zfp64.cu", (UNIT, 24)),
+        ("wave_step_f64", "wave_step_f64",
+         "src/repro/kernels/stencil/kernel.py:69",
+         "src/repro_torch/csrc/stencil64.cu", (PREC_SHAPE, 1)),
+        ("wave_multistep_f64", "wave_multistep_f64",
+         "src/repro/kernels/stencil/kernel.py:149",
+         "src/repro_torch/csrc/stencil64.cu", (BLOCK, BT)),
+    ]
     rows.append(("cdecode", "cdecode", "src/repro/kernels/cdecode/kernel.py:90",
                  "src/repro_torch/csrc/cdecode.cu",
                  ((CD_SLOTS, CD_KVH, CTX), (16, CD_LENGTHS[0]))))
@@ -1721,6 +2150,9 @@ def main() -> int:
         r = results[(name, shape, arg)]
         by_path = {"ooc_wave": counts.get(counter, 0),
                    "ooc_live": live_counts.get(counter, 0),
+                   "ooc_f64": f64_counts.get(counter, 0),
+                   "ooc_live_f64": live64_counts.get(counter, 0),
+                   "precision": prec_counts.get(counter, 0),
                    "serving": serve_counts.get(counter, 0),
                    "ssm_serving": ssm_counts.get(counter, 0)}
         kernels.append({

@@ -29,14 +29,17 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-# Flags of each source besides. The codec and stencil kernels are held bit
-# for bit, so no multiply-add is contracted to an FMA; the attention
-# kernel's decode rounds explicitly (__int2float_rn, __fmul_rn) and its
-# dot products, held to 2e-5, may contract, as may the scan, held to
-# rtol 1e-4 / atol 1e-5 (and to a float64 recurrence in chip_smoke.py).
+# Flags of each source besides. The codec and stencil kernels (float32 in
+# zfp and stencil, float64 in zfp64 and stencil64) are held bit for bit, so
+# no multiply-add is contracted to an FMA; the attention kernel's decode
+# rounds explicitly (__int2float_rn, __fmul_rn) and its dot products, held
+# to 2e-5, may contract, as may the scan, held to rtol 1e-4 / atol 1e-5
+# (and to a float64 recurrence in chip_smoke.py).
 SOURCE_FLAGS = {
     "zfp": ("-fmad=false",),
     "stencil": ("-fmad=false",),
+    "zfp64": ("-fmad=false",),
+    "stencil64": ("-fmad=false",),
     "cdecode": (),
     "sscan": (),
 }

@@ -228,7 +228,7 @@ class AsyncExecutor:
             slot = max(slot, align((hi - lo) * y * x * itemsize))
             nb = -(-(hi - lo) // 4) * -(-y // 4) * -(-x // 4)
             for p in planes:
-                words = zfp_ref.payload_words(3, p)
+                words = zfp_ref.payload_words(3, p, 8 * itemsize)
                 slot = max(slot, align(nb * words * 4) + align(nb * 4))
         nrw = sum(sp.role == "rw" for sp in self.cfg.fields.values())
         fetch = max(len(self.plan.fetch_units(i))
@@ -381,9 +381,10 @@ class AsyncExecutor:
         h, b = plan.halo, plan.block
         _, y, x = self.cfg.shape
 
+        dtype = getattr(torch, self.cfg.dtype)
+
         def zeros(n):
-            return torch.zeros((n, y, x), dtype=torch.float32,
-                               device=self.device)
+            return torch.zeros((n, y, x), dtype=dtype, device=self.device)
 
         pieces = [zeros(h) if i == 0 else shared]
         pieces += [self._dev.pop((name, u)) for u in plan.fetch_units(i)]

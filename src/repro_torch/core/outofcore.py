@@ -54,7 +54,7 @@ from repro_torch.distributed.fault import (
 from repro_torch.kernels.stencil import ops as stencil_ops
 from repro_torch.kernels.stencil.ref import HALO
 from repro_torch.kernels.zfp import ops as zfp_ops
-from repro_torch.kernels.zfp.ref import FLOAT64_TODO, Compressed
+from repro_torch.kernels.zfp.ref import Compressed, dtype_key
 
 __all__ = [
     "FieldSpec", "OOCConfig", "OutOfCoreWave", "HostUnitStore",
@@ -152,8 +152,10 @@ class OOCConfig:
 
 
 def paper_code_fields(code: int, f32: bool = True) -> Dict[str, FieldSpec]:
-    """The four experiment codes of §VI. Rates are the f32-native
-    equivalents of the paper's f64 32/64 and 24/64 (same ratios)."""
+    """The four experiment codes of §VI. ``f32=False`` gives the paper's
+    float64 rates 32/64 and 24/64 (planes 32 and 24, for an
+    ``OOCConfig(dtype="float64")``); the default gives the float32
+    equivalents 16 and 12 (same ratios)."""
     r2, r267 = (16, 12) if f32 else (32, 24)
     none = FieldSpec("rw", None)
     if code == 1:  # original (no compression)
@@ -265,9 +267,8 @@ def unit_shards(
 
 def engine_device(cfg: OOCConfig) -> torch.device:
     """The device an engine over ``cfg`` runs on, after checking that
-    its dtype and backend can run there."""
-    if cfg.dtype != "float32":
-        raise NotImplementedError(FLOAT64_TODO)
+    its dtype (float32 or float64) and backend can run there."""
+    dtype_key(cfg.dtype)
     device = device_mod.resolve(cfg.device)
     if cfg.backend not in ("ref", "cuda"):
         raise ValueError(
@@ -593,13 +594,15 @@ class HostUnitStore:
                 planes = spec.planes
                 if spec.compressed and self.rates is not None:
                     planes = self.rates.rate_for(name, kind, idx, 0)
+                # units take the config's dtype (a copy either way)
+                part = np.asarray(arr[lo:hi], dtype=cfg.dtype)
                 if planes is not None:
                     unit = zfp_ops.compress(
-                        to_device(arr[lo:hi], self.device),
+                        to_device(part, self.device),
                         planes=planes, ndim=3, backend=cfg.backend,
                     )
                 else:
-                    unit = np.array(arr[lo:hi])
+                    unit = np.array(part)
                 # seeding is host-local decomposition, not a crossing
                 self.put(name, kind, idx, unit, on_wire=False)
 
@@ -780,9 +783,10 @@ class OutOfCoreWave:
         h, b = plan.halo, plan.block
         _, y, x = self.cfg.shape
 
+        dtype = getattr(torch, self.cfg.dtype)
+
         def zeros(n):
-            return torch.zeros((n, y, x), dtype=torch.float32,
-                               device=self.device)
+            return torch.zeros((n, y, x), dtype=dtype, device=self.device)
 
         pieces = []
         if i == 0:

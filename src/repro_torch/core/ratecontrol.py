@@ -23,8 +23,8 @@ amplitude), normalised by the field's largest unit amplitude, stays
 under ``error_budget * margin``. Decisions are a sweep-indexed log of
 cumulative rate maps, so ``rate_for`` is a bisect and a lookup.
 
-The analytic bound reads the port's float32 codec tables; a float64
-field raises ``NotImplementedError`` (the float64 codec is not ported).
+The analytic bound reads the port's codec tables of the field's type
+(float32 or float64).
 """
 
 from __future__ import annotations
@@ -63,14 +63,13 @@ def _analytic_bound(scale: float, planes: int, ndim: int,
                     dtype: str) -> float:
     """Pure-Python worst-case round-trip error of one encode at
     ``planes`` for a block of amplitude ``scale``: the formula of
-    ``zfp.ref.max_abs_error_bound``, from the codec's float32 tables
-    (``_FRAC``, ``_WIDTH``). The float64 codec is not ported, so a
-    float64 field raises rather than guess its constants."""
-    if dtype != "float32":
-        raise NotImplementedError(zfp_ref.FLOAT64_TODO)
+    ``zfp.ref.max_abs_error_bound``, from the codec's tables of
+    ``dtype`` (``_FRAC``, ``_WIDTH``: 26 and 32 for float32, 55 and 64
+    for float64)."""
+    key = zfp_ref.dtype_key(dtype)
     if scale <= 0.0:
         return 0.0
-    frac, w = zfp_ref._FRAC, zfp_ref._WIDTH
+    frac, w = zfp_ref._FRAC[key], zfp_ref._WIDTH[key]
     emax = math.frexp(scale)[1] - 1
     pmin = min(zfp_ref.subband_planes(int(planes), ndim, w))
     bound = math.ldexp(1.0, emax - frac) * (2 ** ndim)

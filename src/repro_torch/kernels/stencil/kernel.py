@@ -1,4 +1,5 @@
-"""Wrappers of the CUDA stencil kernels in ``csrc/stencil.cu``.
+"""Wrappers of the CUDA stencil kernels in ``csrc/stencil.cu`` (float32)
+and ``csrc/stencil64.cu`` (float64).
 
 ``wave_step`` replaces ``repro.kernels.stencil.kernel.wave_step_pallas``
 and ``wave_multistep`` replaces ``wave_multistep_pallas``. The TPU
@@ -14,11 +15,14 @@ arrays once (1.90 ms at the (240, 1152, 1152) block and 12 steps on an
 H100), which only fused rungs could approach: two rungs a launch of
 the same design were not faster on the H100, so none are fused. The
 single step is the same streaming kernel on padded fields: it reads
-their shell as data (no zero by index) and writes ``lap`` too.
+their shell as data (no zero by index) and writes ``lap`` too. The TPU
+kernels' outputs take ``p_cur``'s dtype; float64 fields launch the
+float64 kernels, one thread a (y, x) column walking z (first form).
 
 On a CPU tensor each wrapper runs the plain version (``ref``); on a
 CUDA tensor it launches the kernel or raises. ``launches`` counts kernel
-launches: one per ``wave_step`` call, one per rung of ``wave_multistep``.
+launches: one per ``wave_step`` call, one per rung of ``wave_multistep``
+(``wave_step_f64`` and ``wave_multistep_f64`` for float64).
 """
 
 from __future__ import annotations
@@ -32,10 +36,13 @@ from repro_torch import _build
 from repro_torch.kernels.stencil import ref
 from repro_torch.kernels.stencil.ref import HALO
 
-launches = {"wave_step": 0, "wave_multistep": 0}
+launches = {"wave_step": 0, "wave_multistep": 0, "wave_step_f64": 0,
+            "wave_multistep_f64": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# per field type: the library and the launch counts' suffix
+_ROUTE = {torch.float32: ("stencil", ""), torch.float64: ("stencil64", "_f64")}
 
 
 def reset_launches() -> None:
@@ -43,16 +50,20 @@ def reset_launches() -> None:
         launches[k] = 0
 
 
-def _require(shape, *tensors: torch.Tensor) -> None:
+def _require(shape, *tensors: torch.Tensor) -> Tuple[str, str]:
+    """Check the fields; returns the route of their type (library,
+    launch-count suffix)."""
     for t in tensors:
-        if t.dtype != torch.float32:
-            raise TypeError(f"stencil fields must be float32, got {t.dtype}")
+        if t.dtype not in _ROUTE or t.dtype != tensors[0].dtype:
+            raise TypeError("stencil fields must all be float32 or all "
+                            f"float64, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("stencil fields must be contiguous")
         if t.device != tensors[0].device:
             raise ValueError("stencil fields must share one device")
     if tuple(tensors[-1].shape) != tuple(shape):
         raise ValueError(f"vel2 {tuple(tensors[-1].shape)} != {tuple(shape)}")
+    return _ROUTE[tensors[0].dtype]
 
 
 def _stream() -> int:
@@ -69,15 +80,15 @@ def wave_step(p_prev: torch.Tensor, p_cur: torch.Tensor, vel2: torch.Tensor
     z, y, x = (s - 2 * HALO for s in p_cur.shape)
     if tuple(p_prev.shape) != tuple(p_cur.shape):
         raise ValueError("p_prev and p_cur must have the same padded shape")
-    _require((z, y, x), p_prev, p_cur, vel2)
+    lib, suffix = _require((z, y, x), p_prev, p_cur, vel2)
     p_next = torch.empty_like(vel2)
     lap = torch.empty_like(vel2)
-    fn = _build.bind("stencil", "stencil_wave_step",
-                     [_P, _P, _P, _P, _P, _I, _I, _I, _P])
+    symbol = "stencil_wave_step" + suffix
+    fn = _build.bind(lib, symbol, [_P, _P, _P, _P, _P, _I, _I, _I, _P])
     err = fn(p_prev.data_ptr(), p_cur.data_ptr(), vel2.data_ptr(),
              p_next.data_ptr(), lap.data_ptr(), z, y, x, _stream())
-    _build.check("stencil", err, "stencil_wave_step")
-    launches["wave_step"] += 1
+    _build.check(lib, err, symbol)
+    launches["wave_step" + suffix] += 1
     return p_next, lap
 
 
@@ -92,9 +103,9 @@ def wave_multistep(p_prev: torch.Tensor, p_cur: torch.Tensor,
     shape = tuple(p_cur.shape)
     if len(shape) != 3 or tuple(p_prev.shape) != shape:
         raise ValueError("p_prev, p_cur and vel2 must share one 3-D shape")
-    _require(shape, p_prev, p_cur, vel2)
-    fn = _build.bind("stencil", "stencil_wave_rung",
-                     [_P, _P, _P, _P, _I, _I, _I, _P])
+    lib, suffix = _require(shape, p_prev, p_cur, vel2)
+    symbol = "stencil_wave_rung" + suffix
+    fn = _build.bind(lib, symbol, [_P, _P, _P, _P, _I, _I, _I, _P])
     z, y, x = shape
     pp, pc = p_prev, p_cur
     free = []  # buffers of this call no rung still reads
@@ -102,8 +113,8 @@ def wave_multistep(p_prev: torch.Tensor, p_cur: torch.Tensor,
         out = free.pop() if free else torch.empty_like(p_cur)
         err = fn(pp.data_ptr(), pc.data_ptr(), vel2.data_ptr(),
                  out.data_ptr(), z, y, x, _stream())
-        _build.check("stencil", err, "stencil_wave_rung")
-        launches["wave_multistep"] += 1
+        _build.check(lib, err, symbol)
+        launches["wave_multistep" + suffix] += 1
         if pp is not p_prev and pp is not p_cur:
             free.append(pp)
         pp, pc = pc, out

@@ -1,9 +1,9 @@
 """Public wrappers around the ZFP-style codec.
 
 ``backend="ref"`` runs the plain PyTorch version (on whatever device
-the tensor lies). ``backend="cuda"`` runs the CUDA kernels and needs
-CUDA tensors: on a CPU tensor it raises, and it never falls back to the
-plain version. Both give bit-identical results.
+the tensor lies). ``backend="cuda"`` runs the CUDA kernels (float32 or
+float64) and needs CUDA tensors: on a CPU tensor it raises, and it never
+falls back to the plain version. Both give bit-identical results.
 """
 
 from __future__ import annotations
@@ -48,10 +48,8 @@ def compress(x: torch.Tensor, *, planes: int, ndim: int = 3,
 def decompress(c: Compressed, *, backend: Backend = "ref") -> torch.Tensor:
     check_backend(backend, c.payload, c.emax)
     if backend == "cuda":
-        if c.dtype != "float32":
-            raise NotImplementedError(ref.FLOAT64_TODO)
         return kernel.decode(c.payload.contiguous(), c.emax.contiguous(),
-                             c.shape, c.planes, c.ndim_spatial)
+                             c.shape, c.planes, c.ndim_spatial, c.dtype)
     xb = ref.decode_blocks(c.payload, c.emax, c.planes, c.ndim_spatial,
                            c.dtype)
     return ref.unblockify(xb, c.shape, c.ndim_spatial)

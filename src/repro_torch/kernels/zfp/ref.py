@@ -1,15 +1,17 @@
 """Plain PyTorch version of the fixed-rate ZFP-style block codec.
 
-Port of ``repro.kernels.zfp.ref`` (float32 path). It is the numerics
-ground truth of the port: the CUDA kernels in ``kernel.py`` are held to
-it bit for bit, and it is held bit for bit to the JAX reference on the
-same inputs (``payload``, ``emax`` and the decoded values).
+Port of ``repro.kernels.zfp.ref``, float32 and float64. It is the
+numerics ground truth of the port: the CUDA kernels in ``kernel.py`` are
+held to it bit for bit, and it is held bit for bit to the JAX reference
+on the same inputs (``payload``, ``emax`` and the decoded values; the
+float64 path against the reference under ``jax_enable_x64``).
 
 Algorithm per 4^d block (d in {1, 2, 3}):
 
   1. block floating point: ``emax`` is the block's largest frexp
-     exponent (floored at -90), and every value becomes the int32
-     ``q = rint(x * 2^(26 - emax))``;
+     exponent (floored at -90 for float32, -900 for float64), and every
+     value becomes the integer ``q = rint(x * 2^(FRAC - emax))``, with
+     FRAC 26 in int32 (float32) or 55 in int64 (float64);
   2. a two-level Haar S-lift along each of the d axes (exactly
      invertible in integer arithmetic);
   3. negabinary, so magnitude decays with bit position across signs;
@@ -18,12 +20,16 @@ Algorithm per 4^d block (d in {1, 2, 3}):
      ``level_order`` into uint32 words.
 
 Rate: ``planes`` bits per value plus a 16-bit ``emax`` header per block.
+The paper's float64 rates 32/64 and 24/64 are ``planes=32, 24`` with
+float64 input; the float32 rates 16 and 12 give the same ratios.
 
-PyTorch on the CPU has no ``+ - << >>`` on ``torch.uint32``, so the
-unsigned 32-bit words of steps 3-4 are held in ``int64`` tensors with
-values in ``[0, 2^32)``; ``torch.uint32`` is only the payload's storage
-type. The float64 codec (``_FRAC`` 55, int64 words) is not ported yet:
-float64 input raises ``NotImplementedError``.
+PyTorch on the CPU has no ``+ - << >>`` on ``torch.uint32`` or
+``torch.uint64``, so unsigned words live in ``int64`` tensors. 32-bit
+words hold values in ``[0, 2^32)``; 64-bit words hold the unsigned bits
+as the signed int64 of the same bits: negabinary ``(c + m) ^ m`` and its
+inverse rely on two's-complement wrap-around, the mask ``0xAAAA...AA``
+is its signed value, and a plane is taken by masking after the
+(arithmetic) shift. ``torch.uint32`` is only the payload's storage type.
 """
 
 from __future__ import annotations
@@ -35,25 +41,39 @@ from typing import Tuple
 import numpy as np
 import torch
 
-# Fixed-point fraction bits for float32: x * 2^shift is exact, and the
-# transform's worst-case growth of 2^d still fits int32 with a guard bit.
-_FRAC = 26
+# Per source type, keyed by its numpy-style name. Fixed-point fraction
+# bits: x * 2^shift is exact, and the transform's worst-case growth of
+# 2^d still fits the integer type (int32 or int64) with a guard bit.
+_FRAC = {"float32": 26, "float64": 55}
 # Most negative exponent honoured before a block flushes to zero; keeps
-# every 2^shift a normal float32.
-_EMAX_FLOOR = -90
-_EXP_BIAS = 127
-_MANT_BITS = 23
-_WIDTH = 32
-_NB_MASK = int(sum(1 << b for b in range(1, _WIDTH, 2)))  # 0xAAAAAAAA
+# every 2^shift a normal number of the source type.
+_EMAX_FLOOR = {"float32": -90, "float64": -900}
+_EXP_BIAS = {"float32": 127, "float64": 1023}
+_MANT_BITS = {"float32": 23, "float64": 52}
+_WIDTH = {"float32": 32, "float64": 64}
+_FLOAT = {"float32": torch.float32, "float64": torch.float64}
+_INT = {"float32": torch.int32, "float64": torch.int64}
 _U32 = 0xFFFFFFFF
+_NB_MASK = int(sum(1 << b for b in range(1, 32, 2)))  # 0xAAAAAAAA
+# 0xAAAAAAAAAAAAAAAA as the int64 of the same bits
+_NB_MASK64 = int(sum(1 << b for b in range(1, 64, 2))) - (1 << 64)
 
 WORD_BITS = 32  # payload word size (uint32)
 HEADER_BITS = 16  # per-block emax header, counted in reported ratios
 
-FLOAT64_TODO = (
-    "the float64 codec (_FRAC 55, int64 words) is not ported yet: "
-    "ROADMAP.md queue 1 item 1, float64 carve-out"
-)
+
+def dtype_key(dtype) -> str:
+    """``"float32"`` or ``"float64"`` for a torch or numpy dtype or its
+    name; any other type raises ``TypeError``."""
+    name = dtype_name(dtype)
+    if name not in _WIDTH:
+        raise TypeError(f"the codec takes float32 or float64, got {dtype}")
+    return name
+
+
+def _signed64(v: int) -> int:
+    """An unsigned 64-bit value as the int64 of the same bits."""
+    return v - (1 << 64) if v >= 1 << 63 else v
 
 
 def block_size(ndim: int) -> int:
@@ -139,21 +159,21 @@ def plane_masks(planes: int, ndim: int, width: int) -> Tuple[int, ...]:
 
 
 @functools.lru_cache(maxsize=None)
-def stream_tables(planes: int, ndim: int):
+def stream_tables(planes: int, ndim: int, width: int = 32):
     """Where each payload bit comes from: for word ``w`` and lane ``l``
     (stream bit ``32*w + l``), the coefficient index ``coef[w, l]``, the
-    bit position ``shift[w, l]`` inside its 32-bit word and ``valid[w, l]``
-    (0 on the zero padding after the last stream bit). int64 arrays of
-    shape (payload_words, 32)."""
-    perm, _, counts = level_order(int(planes), ndim, _WIDTH)
-    nwords = payload_words(ndim, planes)
+    bit position ``shift[w, l]`` inside its ``width``-bit word and
+    ``valid[w, l]`` (0 on the zero padding after the last stream bit).
+    int64 arrays of shape (payload_words, 32)."""
+    perm, _, counts = level_order(int(planes), ndim, width)
+    nwords = payload_words(ndim, planes, width)
     coef = np.zeros((nwords * WORD_BITS,), np.int64)
     shift = np.zeros_like(coef)
     valid = np.zeros_like(coef)
     t = 0
     for j, k in enumerate(counts):
         for p in range(k):
-            coef[t], shift[t], valid[t] = perm[p], _WIDTH - 1 - j, 1
+            coef[t], shift[t], valid[t] = perm[p], width - 1 - j, 1
             t += 1
     shape = (nwords, WORD_BITS)
     return coef.reshape(shape), shift.reshape(shape), valid.reshape(shape)
@@ -164,17 +184,12 @@ def stream_tables(planes: int, ndim: int):
 # ---------------------------------------------------------------------------
 
 
-def _require_f32(dtype) -> None:
-    if dtype == torch.float64 or str(dtype) == "float64":
-        raise NotImplementedError(FLOAT64_TODO)
-    if dtype not in (torch.float32, "float32"):
-        raise TypeError(f"the codec takes float32, got {dtype}")
-
-
-def exp2i(shift: torch.Tensor) -> torch.Tensor:
-    """Exact float32 2^shift for integer shift, built from IEEE bits."""
-    bits = (shift.to(torch.int32) + _EXP_BIAS) << _MANT_BITS
-    return bits.view(torch.float32)
+def exp2i(shift: torch.Tensor, dtype="float32") -> torch.Tensor:
+    """Exact 2^shift of the float type ``dtype`` for integer shift,
+    built from IEEE bits."""
+    key = dtype_key(dtype)
+    bits = (shift.to(_INT[key]) + _EXP_BIAS[key]) << _MANT_BITS[key]
+    return bits.view(_FLOAT[key])
 
 
 def _exponent(x: torch.Tensor) -> torch.Tensor:
@@ -184,17 +199,22 @@ def _exponent(x: torch.Tensor) -> torch.Tensor:
 
 
 def block_emax(xb: torch.Tensor) -> torch.Tensor:
-    """Max exponent per block. xb: (nb, N) float32 -> (nb,) int32."""
-    return _exponent(xb).amax(dim=-1).clamp_min(_EMAX_FLOOR)
+    """Max exponent per block. xb: (nb, N) float -> (nb,) int32."""
+    floor = _EMAX_FLOOR[dtype_key(xb.dtype)]
+    return _exponent(xb).amax(dim=-1).clamp_min(floor)
 
 
 def to_fixedpoint(xb: torch.Tensor, emax: torch.Tensor) -> torch.Tensor:
-    scaled = xb * exp2i(_FRAC - emax)[..., None]
-    return torch.round(scaled).to(torch.int32)
+    """int32 (float32 input) or int64 (float64) fixed-point values."""
+    key = dtype_key(xb.dtype)
+    scaled = xb * exp2i(_FRAC[key] - emax, key)[..., None]
+    return torch.round(scaled).to(_INT[key])
 
 
-def from_fixedpoint(q: torch.Tensor, emax: torch.Tensor) -> torch.Tensor:
-    return q.to(torch.float32) * exp2i(emax - _FRAC)[..., None]
+def from_fixedpoint(q: torch.Tensor, emax: torch.Tensor,
+                    dtype="float32") -> torch.Tensor:
+    key = dtype_key(dtype)
+    return q.to(_FLOAT[key]) * exp2i(emax - _FRAC[key], key)[..., None]
 
 
 # ---------------------------------------------------------------------------
@@ -255,25 +275,34 @@ def inv_transform(c: torch.Tensor, ndim: int) -> torch.Tensor:
 
 
 def to_negabinary(c: torch.Tensor) -> torch.Tensor:
-    """int32 coefficients -> negabinary words, int64 in [0, 2^32)."""
+    """Coefficients -> negabinary words in int64: int32 coefficients give
+    32-bit words in [0, 2^32); int64 coefficients give 64-bit words as
+    the int64 of the same bits (two's-complement wrap-around)."""
+    if c.dtype == torch.int64:
+        return (c + _NB_MASK64) ^ _NB_MASK64
     cu = c.to(torch.int64) & _U32
     return ((cu + _NB_MASK) & _U32) ^ _NB_MASK
 
 
-def from_negabinary(u: torch.Tensor) -> torch.Tensor:
-    """Negabinary words (int64 in [0, 2^32)) -> int32 coefficients,
-    with the two's-complement wrap-around of the 32-bit original."""
+def from_negabinary(u: torch.Tensor, width: int = 32) -> torch.Tensor:
+    """Negabinary words (int64) -> coefficients: int32 at width 32, with
+    the two's-complement wrap-around of the 32-bit original; int64 at
+    width 64."""
+    if width == 64:
+        return (u ^ _NB_MASK64) - _NB_MASK64
     v = ((u ^ _NB_MASK) - _NB_MASK) & _U32
     return torch.where(v >= 2**31, v - 2**32, v).to(torch.int32)
 
 
-def truncate_planes(u: torch.Tensor, planes: int, ndim: int) -> torch.Tensor:
-    """Keep the subband-allocated top planes of each coefficient."""
-    pv = subband_planes(int(planes), ndim, _WIDTH)
-    if all(p >= _WIDTH for p in pv):
+def truncate_planes(u: torch.Tensor, planes: int, ndim: int,
+                    width: int = 32) -> torch.Tensor:
+    """Keep the subband-allocated top planes of each ``width``-bit word."""
+    pv = subband_planes(int(planes), ndim, width)
+    if all(p >= width for p in pv):
         return u
-    masks = torch.tensor(plane_masks(planes, ndim, _WIDTH), dtype=torch.int64,
-                         device=u.device)
+    masks = torch.tensor([_signed64(m) for m in plane_masks(planes, ndim,
+                                                             width)],
+                         dtype=torch.int64, device=u.device)
     return u & masks[None, :]
 
 
@@ -288,16 +317,19 @@ def _as_u32(words: torch.Tensor) -> torch.Tensor:
     return signed.to(torch.int32).view(torch.uint32)
 
 
-def _tables(planes: int, ndim: int, device):
+def _tables(planes: int, ndim: int, width: int, device):
     return tuple(torch.from_numpy(t).to(device)
-                 for t in stream_tables(int(planes), ndim))
+                 for t in stream_tables(int(planes), ndim, width))
 
 
-def pack_planes(u: torch.Tensor, planes: int, ndim: int) -> torch.Tensor:
-    """u: (nb, N) int64 subband-truncated negabinary words. Returns
-    (nb, W) torch.uint32 payload words, plane-major over the level order.
-    Built one lane at a time, so no (nb, W*32) bit tensor exists."""
-    coef, shift, valid = _tables(planes, ndim, u.device)
+def pack_planes(u: torch.Tensor, planes: int, ndim: int,
+                width: int = 32) -> torch.Tensor:
+    """u: (nb, N) int64 subband-truncated negabinary ``width``-bit words.
+    Returns (nb, W) torch.uint32 payload words, plane-major over the
+    level order. Built one lane at a time, so no (nb, W*32) bit tensor
+    exists. A bit is taken by masking after the shift (``>>`` on int64 is
+    arithmetic)."""
+    coef, shift, valid = _tables(planes, ndim, width, u.device)
     out = torch.zeros((u.shape[0], coef.shape[0]), dtype=torch.int64,
                       device=u.device)
     for lane in range(WORD_BITS):
@@ -307,17 +339,19 @@ def pack_planes(u: torch.Tensor, planes: int, ndim: int) -> torch.Tensor:
     return _as_u32(out)
 
 
-def unpack_planes(words: torch.Tensor, planes: int, ndim: int) -> torch.Tensor:
+def unpack_planes(words: torch.Tensor, planes: int, ndim: int,
+                  width: int = 32) -> torch.Tensor:
     """Inverse of pack_planes: (nb, W) uint32 -> (nb, N) int64 words
     (low planes zero)."""
-    coef, shift, valid = _tables(planes, ndim, words.device)
+    coef, shift, valid = _tables(planes, ndim, width, words.device)
     w64 = words.view(torch.int32).to(torch.int64) & _U32
     up = torch.zeros((words.shape[0], block_size(ndim)), dtype=torch.int64,
                      device=words.device)
     for lane in range(WORD_BITS):
         bit = ((w64 >> lane) & 1) & valid[:, lane]
         # every (plane, coefficient) pair occurs once in the stream, so
-        # the added bits are disjoint and the sum is their OR
+        # the added bits are disjoint and the sum is their OR (bit 63
+        # adds as the int64 minimum, without overflow)
         up.index_add_(1, coef[:, lane], bit << shift[:, lane])
     return up
 
@@ -328,30 +362,31 @@ def unpack_planes(words: torch.Tensor, planes: int, ndim: int) -> torch.Tensor:
 
 
 def encode_blocks(xb: torch.Tensor, planes: int, ndim: int):
-    """xb: (nb, 4^ndim) float32 -> (payload (nb, W) uint32,
+    """xb: (nb, 4^ndim) float32/float64 -> (payload (nb, W) uint32,
     emax (nb,) int32)."""
-    _require_f32(xb.dtype)
+    width = _WIDTH[dtype_key(xb.dtype)]
     emax = block_emax(xb)
     c = fwd_transform(to_fixedpoint(xb, emax), ndim)
-    u = truncate_planes(to_negabinary(c), planes, ndim)
-    return pack_planes(u, planes, ndim), emax
+    u = truncate_planes(to_negabinary(c), planes, ndim, width)
+    return pack_planes(u, planes, ndim, width), emax
 
 
 def decode_blocks(payload: torch.Tensor, emax: torch.Tensor, planes: int,
                   ndim: int, dtype="float32") -> torch.Tensor:
-    _require_f32(dtype)
-    c = from_negabinary(unpack_planes(payload, planes, ndim))
-    return from_fixedpoint(inv_transform(c, ndim), emax)
+    width = _WIDTH[dtype_key(dtype)]
+    c = from_negabinary(unpack_planes(payload, planes, ndim, width), width)
+    return from_fixedpoint(inv_transform(c, ndim), emax, dtype)
 
 
 def quantize_blocks(xb: torch.Tensor, planes: int, ndim: int) -> torch.Tensor:
     """decode(encode(x)) fused, skipping bit packing (numerics only).
     Equal to decode_blocks(*encode_blocks(...)) bit for bit."""
-    _require_f32(xb.dtype)
+    width = _WIDTH[dtype_key(xb.dtype)]
     emax = block_emax(xb)
     c = fwd_transform(to_fixedpoint(xb, emax), ndim)
-    u = truncate_planes(to_negabinary(c), planes, ndim)
-    return from_fixedpoint(inv_transform(from_negabinary(u), ndim), emax)
+    u = truncate_planes(to_negabinary(c), planes, ndim, width)
+    q = inv_transform(from_negabinary(u, width), ndim)
+    return from_fixedpoint(q, emax, xb.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -425,7 +460,7 @@ class Compressed:
     shape: Tuple[int, ...]
     planes: int
     ndim_spatial: int
-    dtype: str  # numpy-style name, "float32"
+    dtype: str  # numpy-style name, "float32" or "float64"
 
     @property
     def compression_ratio(self) -> float:
@@ -455,14 +490,17 @@ def quantize(x: torch.Tensor, planes: int, ndim: int = 3) -> torch.Tensor:
 
 def max_abs_error_bound(emax: torch.Tensor, planes: int, ndim: int,
                         dtype="float32") -> torch.Tensor:
-    """Per-block worst-case absolute error (see module docstring)."""
-    _require_f32(dtype)
-    quant = torch.exp2((emax - _FRAC).to(torch.float32))
+    """Per-block worst-case absolute error, in ``dtype``:
+    2^(emax - FRAC) 2^ndim for the fixed-point rounding, plus the
+    truncation term below."""
+    key = dtype_key(dtype)
+    frac, w, ft = _FRAC[key], _WIDTH[key], _FLOAT[key]
+    quant = torch.exp2((emax - frac).to(ft))
     # negabinary truncation: the worst-allocated subband keeps
     # min(subband_planes) planes; dropped bits sum to < 2^(w-pmin+1)
     # fixed-point units, amplified by the inverse transform by < 2^ndim
-    pmin = min(subband_planes(int(planes), ndim, _WIDTH))
+    pmin = min(subband_planes(int(planes), ndim, w))
     trunc = torch.exp2(
-        (emax + (_WIDTH - pmin) + 1 + ndim - _FRAC).to(torch.float32)
-    ) * (1 if pmin < _WIDTH else 0)
+        (emax + (w - pmin) + 1 + ndim - frac).to(ft)
+    ) * (1 if pmin < w else 0)
     return quant * (2**ndim) + trunc

@@ -16,7 +16,10 @@ operations); the fused ZFP-decode attention kernel decodes bit for bit
 it is held within rtol = atol = 2e-5; the
 selective-scan kernel runs the recurrence step by step where its plain
 version scans chunks associatively, held within rtol 1e-4 / atol 1e-5
-(the bound of ``tests/test_sscan_kernel.py``).
+(the bound of ``tests/test_sscan_kernel.py``). The float64 codec and
+stencil kernels (``csrc/zfp64.cu``, ``csrc/stencil64.cu``) are held bit
+for bit too, alone, through the float64 engines, and through the
+precision curve, whose lossless code must be exactly 0 on the card.
 """
 
 import numpy as np
@@ -144,7 +147,7 @@ def test_zfp_refuses_perm_not_in_stream_order(cuda_device, monkeypatch,
     payload, emax = zfp_kernel.encode(x, planes)
     real = zfp_kernel.stream_order
     monkeypatch.setattr(zfp_kernel, "stream_order",
-                        lambda p, nd: 1 - real(p, nd))
+                        lambda p, nd, width=32: 1 - real(p, nd, width))
     with pytest.raises(_build.KernelError, match=f"zfp_{which}"):
         if which == "encode":
             zfp_kernel.encode(x, planes)
@@ -651,3 +654,209 @@ def test_live_engine_crc_mismatch_on_card(cuda_device):
         live.run(4)
     assert live.store.version_of("p_prev", "R", 0) == 0
     assert live.store.checksum_of("p_prev", "R", 0) == crc0
+
+
+# ----------------------------------------------------------------------
+# float64: the paper's configuration (csrc/zfp64.cu, csrc/stencil64.cu)
+# ----------------------------------------------------------------------
+
+# both stream orders at width 64: the identity (1-3 and 60-64 planes) and
+# the subband order (4-59), with the paper's 24 and 32
+F64_PLANES = [64, 60, 59, 40, 32, 24, 12, 4, 3, 1]
+
+
+def _normal64(shape, seed, scale=7.3):
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(shape) * scale)
+
+
+def _bits64(t):
+    return t.cpu().numpy().view(np.int64)
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("planes", F64_PLANES)
+def test_zfp64_kernels_bitwise(cuda_device, ndim, planes):
+    for i, shape in enumerate(SHAPES[ndim]):
+        x = _normal64(shape, 30 * ndim + i).to(cuda_device)
+        before = dict(zfp_kernel.launches)
+        cr = zfp_ops.compress(x, planes=planes, ndim=ndim, backend="ref")
+        ck = zfp_ops.compress(x, planes=planes, ndim=ndim, backend="cuda")
+        np.testing.assert_array_equal(_u32(ck.payload), _u32(cr.payload))
+        np.testing.assert_array_equal(ck.emax.cpu(), cr.emax.cpu())
+        yr = zfp_ops.decompress(cr, backend="ref")
+        yk = zfp_ops.decompress(ck, backend="cuda")
+        assert yk.shape == x.shape and yk.dtype == torch.float64
+        np.testing.assert_array_equal(_bits64(yk), _bits64(yr))
+        assert zfp_kernel.launches["encode_f64"] == before["encode_f64"] + 1
+        assert zfp_kernel.launches["decode_f64"] == before["decode_f64"] + 1
+        assert zfp_kernel.launches["encode"] == before["encode"]
+
+
+def test_zfp64_special_values(cuda_device):
+    """Zeros, denormals, huge values, the emax floor and the most negative
+    lifted coefficients, at 64, 32 and 24 planes."""
+    n = 64
+    near = np.nextafter(2.0, 0.0)
+    rows = np.stack([
+        np.zeros(n), np.full(n, 5e-324), np.full(n, 1e-310),
+        np.full(n, 1e300), np.linspace(-1e-3, 1e3, n),
+        np.where(np.arange(n) % 2 == 0, -near, near), np.full(n, -near),
+        np.full(n, 3 * 2.0 ** -900),
+    ])
+    x = torch.from_numpy(rows.reshape(32, 4, 4)).to(cuda_device)
+    for planes in (64, 32, 24):
+        cr = zfp_ops.compress(x, planes=planes, backend="ref")
+        ck = zfp_ops.compress(x, planes=planes, backend="cuda")
+        np.testing.assert_array_equal(_u32(ck.payload), _u32(cr.payload))
+        np.testing.assert_array_equal(ck.emax.cpu(), cr.emax.cpu())
+        np.testing.assert_array_equal(
+            _bits64(zfp_ops.decompress(ck, backend="cuda")),
+            _bits64(zfp_ops.decompress(cr, backend="ref")))
+
+
+def test_zfp64_random_payload_decodes_like_plain(cuda_device):
+    """Arbitrary payload words (every plane, bit 63 included, and int64
+    wrap-around in the inverse lift) decode as the plain version."""
+    rng = np.random.default_rng(64)
+    shape = (9, 13, 17)
+    for planes in (64, 32, 24):
+        _, _, nb = zfp_kernel._geometry(shape, 3)
+        nw = zfp_kernel.ref.payload_words(3, planes, 64)
+        p = torch.from_numpy(rng.integers(0, 2**32, (nb, nw), dtype=np.uint64)
+                             .astype(np.uint32).view(np.int32)).to(
+            cuda_device).view(torch.uint32)
+        e = torch.from_numpy(rng.integers(-900, 900, nb).astype(np.int32)).to(
+            cuda_device)
+        k = zfp_kernel.decode(p, e, shape, planes, dtype="float64")
+        r = zfp_kernel.ref.unblockify(zfp_kernel.ref.decode_blocks(
+            p, e, planes, 3, "float64"), shape, 3)
+        np.testing.assert_array_equal(_bits64(k), _bits64(r))
+
+
+def _fields64(shape, seed):
+    rng = np.random.default_rng(seed)
+    return (torch.from_numpy(rng.standard_normal(shape)),
+            torch.from_numpy(rng.standard_normal(shape)),
+            torch.from_numpy(0.05 + 0.01 * rng.standard_normal(shape)))
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 8), (13, 21, 37), (7, 37, 68)])
+def test_wave_step64_kernel_bitwise(cuda_device, shape):
+    """The float64 single step on padded fields with a random halo."""
+    rng = np.random.default_rng(sum(shape))
+    pad = tuple(s + 2 * stencil_ref.HALO for s in shape)
+    pp, pc = (torch.from_numpy(rng.standard_normal(pad)).to(cuda_device)
+              for _ in range(2))
+    v2 = torch.from_numpy(0.05 + 0.01 * rng.standard_normal(shape)).to(
+        cuda_device)
+    before = stencil_kernel.launches["wave_step_f64"]
+    kn, kl = stencil_kernel.wave_step(pp, pc, v2)
+    rn, rl = stencil_ref.wave_step(pp, pc, v2)
+    assert stencil_kernel.launches["wave_step_f64"] == before + 1
+    assert kn.dtype == torch.float64
+    np.testing.assert_array_equal(_bits64(kn), _bits64(rn))
+    np.testing.assert_array_equal(_bits64(kl), _bits64(rl))
+
+
+@pytest.mark.parametrize("shape", [(16, 48, 19), (37, 45, 70), (9, 3, 5)])
+@pytest.mark.parametrize("steps", [1, 2, 12])
+def test_multistep64_kernel_bitwise(cuda_device, shape, steps):
+    arrays = _fields64(shape, 7 * steps + sum(shape))
+    pp, pc, v2 = (a.to(cuda_device) for a in arrays)
+    before = stencil_kernel.launches["wave_multistep_f64"]
+    kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, steps)
+    rp, rc = stencil_ref.ladder_steps(pp, pc, v2, steps)
+    assert stencil_kernel.launches["wave_multistep_f64"] == before + steps
+    np.testing.assert_array_equal(_bits64(kp), _bits64(rp))
+    np.testing.assert_array_equal(_bits64(kc), _bits64(rc))
+    for t, a in zip((pp, pc, v2), arrays):
+        assert torch.equal(t.cpu(), a)
+
+
+def test_stencil_refuses_mixed_types(cuda_device):
+    pp, pc, v2 = (a.to(cuda_device) for a in _fields64((8, 8, 8), 1))
+    with pytest.raises(TypeError, match="float64"):
+        stencil_kernel.wave_multistep(pp, pc.float(), v2, 2)
+
+
+def _fields64_engine(shape):
+    p_cur = stencil_ref.ricker_source(shape, dtype=torch.float64).numpy()
+    return 0.95 * p_cur, p_cur, np.full(shape, 0.07)
+
+
+@pytest.mark.parametrize("temporal,bt", [(1, 2), (2, 1)])
+def test_f64_engine_cuda_equals_ref_on_card(cuda_device, temporal, bt):
+    """The float64 engine at the paper's rates through the float64
+    kernels, bit for bit the same engine on the plain versions."""
+    shape = (96, 16, 16)
+    zfp_kernel.reset_launches()
+    stencil_kernel.reset_launches()
+    runs = {}
+    for backend in ("cuda", "ref"):
+        cfg = OOCConfig(shape, 4, bt, paper_code_fields(4, f32=False),
+                        backend=backend, dtype="float64")
+        eng = OutOfCoreWave(cfg, *_fields64_engine(shape), temporal=temporal)
+        eng.run(2 * bt * temporal)
+        runs[backend] = eng
+    for name in ("p_prev", "p_cur", "vel2"):
+        np.testing.assert_array_equal(runs["cuda"].gather(name),
+                                      runs["ref"].gather(name))
+    assert (runs["cuda"].transfer_summary()
+            == runs["ref"].transfer_summary())
+    assert zfp_kernel.launches["encode_f64"] > 0
+    assert zfp_kernel.launches["decode_f64"] > 0
+    assert stencil_kernel.launches["wave_multistep_f64"] > 0
+    assert zfp_kernel.launches["encode"] == 0
+
+
+def test_f64_live_engine_equals_sync_on_card(cuda_device):
+    cfg = OOCConfig(LIVE_SHAPE, 4, 2, paper_code_fields(4, f32=False),
+                    dtype="float64")
+    sync = OutOfCoreWave(cfg, *_fields64_engine(LIVE_SHAPE))
+    sync.run(8)
+    live = AsyncExecutor(cfg, *_fields64_engine(LIVE_SHAPE),
+                         schedule="depth2", cache_bytes=100_000)
+    live.run(8)
+    for name in ("p_prev", "p_cur", "vel2"):
+        np.testing.assert_array_equal(live.gather(name), sync.gather(name))
+    live.close()
+
+
+def test_f64_precision_curve_on_card(cuda_device):
+    """The precision tier on the card in float64: code 1 exactly 0 (the
+    multistep engine against the single-step in-core run), code 4 within
+    the fast ceiling and equal to the plain versions' curve."""
+    from repro_torch.core.precision import assert_bounded_growth, \
+        error_curve
+
+    kw = dict(shape=(192, 48, 24), ndiv=2, bt=12, sweeps=4, dtype="float64")
+    stencil_kernel.reset_launches()
+    assert all(r["max_abs"] == 0.0 for r in error_curve(1, **kw))
+    assert stencil_kernel.launches["wave_multistep_f64"] > 0
+    assert stencil_kernel.launches["wave_step_f64"] > 0
+    card = error_curve(4, **kw)
+    plain = error_curve(4, backend="ref", **kw)
+    assert_bounded_growth(card, 0.100)
+    assert [r["max_abs"] for r in card] == [r["max_abs"] for r in plain]
+
+
+@pytest.mark.parametrize("which", ["encode", "decode"])
+@pytest.mark.parametrize("planes", [24, 64])
+def test_zfp64_refuses_perm_not_in_stream_order(cuda_device, monkeypatch,
+                                                which, planes):
+    """The float64 entries check their perm table too: the subband order
+    (24 planes at width 64) passed as the identity, and the identity (64
+    planes) passed as the subband order, are refused."""
+    x = _normal64((8, 8, 8), planes).to(cuda_device)
+    payload, emax = zfp_kernel.encode(x, planes)
+    real = zfp_kernel.stream_order
+    monkeypatch.setattr(zfp_kernel, "stream_order",
+                        lambda p, nd, width=32: 1 - real(p, nd, width))
+    with pytest.raises(_build.KernelError, match=f"zfp_{which}_f64"):
+        if which == "encode":
+            zfp_kernel.encode(x, planes)
+        else:
+            zfp_kernel.decode(payload, emax, x.shape, planes,
+                              dtype="float64")
+        torch.cuda.synchronize()

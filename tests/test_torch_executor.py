@@ -18,7 +18,9 @@ the contract of ``tests/test_executor.py`` on the port.
   flush leaving its entry dirty, a ``reissue=`` second attempt;
 * the wire under a fault injector: a corrupt crossing is retried, or
   raises before the unit it guards is decoded or committed;
-* the parts not ported yet raise naming their ROADMAP items.
+* the parts not ported yet raise naming their ROADMAP items;
+* float64 at the paper's rates: bit for bit the float64 sync engine, its
+  transfers those of the task graph, every assembly of one type.
 """
 
 import functools
@@ -425,3 +427,37 @@ def test_unported_parts_raise_naming_their_items(monkeypatch):
     with pytest.raises(device_mod.NoCudaDevice):
         AsyncExecutor(OOCConfig(SHAPE, 4, 2, paper_code_fields(1)),
                       *_initial())
+
+
+@pytest.mark.parametrize("code,schedule,budget", [
+    (4, "depth2", 100_000), (2, "paper", 0), (1, "temporal-2", 1 << 30)])
+def test_f64_live_bit_identical_to_sync(code, schedule, budget, monkeypatch):
+    """The live engine on float64 fields at the paper's rates (32/24):
+    bit for bit the float64 sync engine after the same sweeps, its
+    transfer log the task graph's (which prices itemsize 8), and every
+    block assembly of float64 pieces only (the halo planes were float32,
+    which ``torch.cat`` promotes silently)."""
+    seen = []
+    real_cat = torch.cat
+
+    def cat(pieces, *args, **kwargs):
+        seen.append({t.dtype for t in pieces})
+        return real_cat(pieces, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "cat", cat)
+    bt = _bt(schedule)
+    cfg = OOCConfig(SHAPE, 4, bt, paper_code_fields(code, f32=False),
+                    backend="ref", device="cpu", dtype="float64")
+    p_cur = stencil_ref.ricker_source(SHAPE, dtype=torch.float64).numpy()
+    fields = (0.95 * p_cur, p_cur, np.full(SHAPE, 0.07))
+    live = AsyncExecutor(cfg, *fields, schedule=schedule, cache_bytes=budget)
+    live.run(SWEEPS * bt)
+    _check_against_model(live, cfg, schedule, budget, "write-back")
+    sync = OutOfCoreWave(cfg, *fields, temporal=live.temporal)
+    sync.run(SWEEPS * bt)
+    for name in ("p_prev", "p_cur", "vel2"):
+        got = live.gather(name)
+        assert got.dtype == np.float64
+        np.testing.assert_array_equal(got, sync.gather(name))
+    live.close()
+    assert seen and all(d == {torch.float64} for d in seen), seen

@@ -16,8 +16,18 @@ For codes 1-4 and temporal fusion 1 and 2 on (96, 16, 16), ndiv 4:
 
 Temporal 2 uses bt=1: at bt=2 its halo (16 planes) would not fit the
 24-plane blocks of ndiv 4, which both engines reject.
+
+float64 at the paper's rates (32/24, ``paper_code_fields(code,
+f32=False)``), against the reference engine under ``jax_enable_x64`` (on
+inside ``_x64``, off again in its ``finally``): transfers exact, fields
+within ``_f64_tol`` (ulps for a lossless code, the codec's bound at the
+field's amplitude for a lossy one), and a float64 code 4 store carried
+over from the reference gathers bit for bit.
 """
 
+import contextlib
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -27,6 +37,7 @@ from repro.core.outofcore import OOCConfig as JConfig
 from repro.core.outofcore import OutOfCoreWave as JWave
 from repro.core.outofcore import paper_code_fields as jfields
 from repro.core.outofcore import unit_checksum as jchecksum
+from repro.core.ratecontrol import _analytic_bound as janalytic_bound
 from repro_torch.convert import wave_from_reference
 from repro_torch.core import outofcore as tooc
 from repro_torch.core.outofcore import OOCConfig, OutOfCoreWave, \
@@ -195,3 +206,131 @@ def test_exhausted_retries_raise_unrecoverable():
     with pytest.raises(UnrecoverableFault, match="h2d of unit vel2.R0"):
         tstore.stage("vel2", "R", 0)
     assert tstore.wire_stats["checksum_failures"] == 2
+
+
+@contextlib.contextmanager
+def _x64():
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def _initial64(shape=SHAPE):
+    p_cur = tref.ricker_source(shape, dtype=torch.float64).numpy()
+    return 0.95 * p_cur, p_cur, np.full(shape, 0.07)
+
+
+def _f64_tol(code, amplitude):
+    """The gather tolerance of a float64 engine pair: the jitted and the
+    eager stencil differ by ulps (measured <= 8.2e-16 relative), so 1e-12
+    of the amplitude for a lossless code; a lossy code may also move one
+    codec rounding, held to the codec's worst-case bound at its coarsest
+    rate (the reference's analytic bound, planes 24 or 32)."""
+    rates = [sp.planes for sp in jfields(code, f32=False).values()
+             if sp.planes is not None]
+    if not rates:
+        return 1e-12 * amplitude
+    return janalytic_bound(amplitude, min(rates), 3, "float64")
+
+
+def _engines64(code, temporal, bt, sweeps=2):
+    """Reference and port float64 engines after ``sweeps`` rounds: the
+    reference's gathered fields and summary, and the port engine."""
+    fields = _initial64()
+    cfg = OOCConfig(SHAPE, NDIV, bt, paper_code_fields(code, f32=False),
+                    backend="ref", device="cpu", dtype="float64")
+    port = OutOfCoreWave(cfg, *fields, temporal=temporal)
+    port.run(sweeps * bt * temporal)
+    with _x64():
+        jax_eng = JWave(JConfig(SHAPE, NDIV, bt, jfields(code, f32=False),
+                                dtype="float64"), *fields, temporal=temporal)
+        jax_eng.run(sweeps * bt * temporal)
+        want = {n: jax_eng.gather(n) for n in ("p_prev", "p_cur", "vel2")}
+    return jax_eng, want, port, fields
+
+
+@pytest.mark.parametrize("temporal,bt", RUNS)
+@pytest.mark.parametrize("code", [1, 2, 3, 4])
+def test_f64_engine_matches_reference(code, temporal, bt):
+    jax_eng, want, port, fields = _engines64(code, temporal, bt)
+    assert port.transfer_summary() == jax_eng.transfer_summary()
+    for name, w in want.items():
+        got = port.gather(name)
+        assert got.dtype == w.dtype == np.float64
+        np.testing.assert_allclose(got, w, rtol=0,
+                                   atol=_f64_tol(code, np.abs(w).max()))
+    if code == 1:
+        steps = 2 * bt * temporal
+        pp, pc = tref.run_steps(*(torch.from_numpy(a) for a in fields), steps)
+        np.testing.assert_array_equal(port.gather("p_cur"), pc.numpy())
+        np.testing.assert_array_equal(port.gather("p_prev"), pp.numpy())
+
+
+def test_f64_state_carried_over_from_reference():
+    """A float64 code 4 store at the paper's rates, built and advanced by
+    the reference under x64, carried into the port: the same gathered
+    fields bit for bit, the same digests and versions, and back."""
+    with _x64():
+        jax_eng = JWave(JConfig(SHAPE, NDIV, 2, jfields(4, f32=False),
+                                dtype="float64"), *_initial64())
+        jax_eng.run(2)
+        leaves, meta = jax_eng.store.state_dict()
+        want = {n: jax_eng.gather(n) for n in ("p_prev", "p_cur", "vel2")}
+    assert {u["dtype"] for u in meta["units"].values()
+            if u["codec"] == "zfp"} == {"float64"}
+    port = wave_from_reference(jax_eng.cfg.to_dict(), leaves, meta,
+                               jax_eng.sweeps_done, "cpu")
+    assert port.cfg.dtype == "float64"
+    for name, w in want.items():
+        np.testing.assert_array_equal(port.gather(name), w)
+    for key in jax_eng.store.unit_keys():
+        assert port.store.checksum_of(*key) == jax_eng.store.checksum_of(*key)
+        assert port.store.version_of(*key) == jax_eng.store.version_of(*key)
+    tleaves, tmeta = port.store.state_dict()
+    back = JStore(jax_eng.cfg, plan=jax_eng.plan)
+    back.load_state(tleaves, tmeta)
+    for key in jax_eng.store.unit_keys():
+        assert back.checksum_of(*key) == jax_eng.store.checksum_of(*key)
+    # both continue one more sweep and stay within the contract
+    port.run(2)
+    with _x64():
+        jax_eng.run(2)
+        w = jax_eng.gather("p_cur")
+    np.testing.assert_allclose(port.gather("p_cur"), w, rtol=0,
+                               atol=_f64_tol(4, np.abs(w).max()))
+
+
+def _record_cat(monkeypatch):
+    """Record the set of piece dtypes of every ``torch.cat``."""
+    seen = []
+    real = torch.cat
+
+    def cat(pieces, *args, **kwargs):
+        seen.append({t.dtype for t in pieces})
+        return real(pieces, *args, **kwargs)
+
+    monkeypatch.setattr(torch, "cat", cat)
+    return seen
+
+
+def test_f64_halo_and_seed_take_the_config_dtype(monkeypatch):
+    """The float64 engine's halo planes and seeded units are float64:
+    float32 halos made the assembly concatenate mixed types (which
+    ``torch.cat`` promotes silently). float32 input to a float64 config
+    is cast on seeding."""
+    seen = _record_cat(monkeypatch)
+    cfg = OOCConfig(SHAPE, NDIV, 2, paper_code_fields(4, f32=False),
+                    backend="ref", device="cpu", dtype="float64")
+    f32 = [a.astype(np.float32) for a in _initial64()]
+    eng = OutOfCoreWave(cfg, *f32)
+    for key in eng.store.unit_keys():
+        stored = eng.store.get(*key)
+        assert str(stored.dtype) == "float64", key
+    halo = eng._assemble("p_cur", 0, None, 0)
+    assert halo.dtype == torch.float64
+    assert not halo[:eng.plan.halo].any()
+    eng.sweep()
+    assert eng.gather("p_cur").dtype == np.float64
+    assert seen and all(d == {torch.float64} for d in seen), seen

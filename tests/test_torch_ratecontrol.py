@@ -2,7 +2,7 @@
 the JAX package's: the same observations give the same decision logs
 (``state_dict`` after every sweep boundary, ``rate_for`` on every unit
 and sweep), exactly. Also the analytic error bound, which the port reads
-from its float32 codec tables and refuses for float64, and the fixed
+from its codec tables (float32 and float64), and the fixed
 mode, which is bit-identical to the sync engine without a controller.
 """
 
@@ -73,8 +73,23 @@ def test_analytic_bound_equals_reference(planes, scale):
 
 
 def test_float64_bound_raises_not_guesses():
-    with pytest.raises(NotImplementedError, match="float64"):
-        trc._analytic_bound(1.0, 12, 3, "float64")
+    """The float64 bound reads the float64 codec's constants (_FRAC 55,
+    width 64), so it is the reference's and no guess; a type the codec
+    does not take raises."""
+    assert (trc._analytic_bound(1.0, 24, 3, "float64")
+            == jrc._analytic_bound(1.0, 24, 3, "float64"))
+    # the paper's 24/64 against its float32 equivalent 12/32
+    assert (trc._analytic_bound(1.0, 24, 3, "float64")
+            < trc._analytic_bound(1.0, 12, 3, "float32"))
+    with pytest.raises(TypeError, match="float16"):
+        trc._analytic_bound(1.0, 12, 3, "float16")
+
+
+@pytest.mark.parametrize("planes", [1, 4, 12, 24, 32, 40, 59, 60, 64])
+@pytest.mark.parametrize("scale", [0.0, 1e-300, 3e-5, 0.7, 1.0, 1234.5])
+def test_float64_analytic_bound_equals_reference(planes, scale):
+    assert (trc._analytic_bound(scale, planes, 3, "float64")
+            == jrc._analytic_bound(scale, planes, 3, "float64"))
 
 
 def test_labels_and_validation_equal_reference():

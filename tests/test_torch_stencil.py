@@ -6,8 +6,15 @@ eager reference (``laplacian8``, ``wave_step``, ``ladder_steps``,
 ``run_steps``) on the same float32 input. Against the JAX jitted path
 the engines call (``ops.fused_temporal_steps``) it agrees within
 ``JIT_ATOL``: XLA fuses and re-rounds, so the two differ by a few ulps.
+
+float64, the TPU kernels' other type (their outputs take ``p_cur``'s
+dtype): the plain version is bit for bit the JAX eager reference under
+``jax_enable_x64`` (on inside ``_x64``, off again in its ``finally``).
 """
 
+import contextlib
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,3 +170,65 @@ def test_cuda_backend_on_cpu_tensors_raises():
     with pytest.raises(ValueError, match="backend"):
         tops.wave_step(tref.pad_bc(pp), tref.pad_bc(pc), v2,
                        backend="pallas")
+
+
+@contextlib.contextmanager
+def _x64():
+    jax.config.update("jax_enable_x64", True)
+    try:
+        yield
+    finally:
+        jax.config.update("jax_enable_x64", False)
+
+
+def _fields64(shape, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal(shape), rng.standard_normal(shape),
+            0.05 + 0.01 * rng.standard_normal(shape))
+
+
+def _bits64(a) -> np.ndarray:
+    return np.asarray(a, dtype=np.float64).view(np.int64)
+
+
+@pytest.mark.parametrize("shape", [(8, 8, 8), (13, 21, 37)])
+def test_f64_wave_step_bitwise(shape):
+    pp, pc, v2 = _fields64(shape, sum(shape))
+    ppp, pcp = np.pad(pp, 4), np.pad(pc, 4)
+    tn, tl = tref.wave_step(*_t(ppp, pcp, v2))
+    with _x64():
+        jn, jl = jref.wave_step(*_j(ppp, pcp, v2))
+        assert jn.dtype == jnp.float64
+        jn, jl = np.asarray(jn), np.asarray(jl)
+    assert tn.dtype == tl.dtype == torch.float64
+    np.testing.assert_array_equal(_bits64(tn), _bits64(jn))
+    np.testing.assert_array_equal(_bits64(tl), _bits64(jl))
+    # the single-step wrapper on CPU tensors is the plain version
+    kn, kl = tkernel.wave_step(*_t(ppp, pcp, v2))
+    assert torch.equal(kn, tn) and torch.equal(kl, tl)
+
+
+@pytest.mark.parametrize("steps", [1, 3])
+def test_f64_ladder_bitwise(steps):
+    pp, pc, v2 = _fields64((12, 16, 10), 40 + steps)
+    tp, tc = tref.ladder_steps(*_t(pp, pc, v2), steps)
+    with _x64():
+        jp, jc = (np.asarray(a)
+                  for a in jref.ladder_steps(*_j(pp, pc, v2), steps))
+    np.testing.assert_array_equal(_bits64(tp), _bits64(jp))
+    np.testing.assert_array_equal(_bits64(tc), _bits64(jc))
+    kp, kc = tkernel.wave_multistep(*_t(pp, pc, v2), steps)
+    assert torch.equal(kp, tp) and torch.equal(kc, tc)
+    # the engines' entry point on the plain backend
+    fp, fc = tops.fused_temporal_steps(*_t(pp, pc, v2), steps=steps)
+    assert torch.equal(fp, tp) and torch.equal(fc, tc)
+
+
+def test_f64_ricker_source_within_float_tolerance():
+    shape = (20, 24, 28)
+    t = tref.ricker_source(shape, dtype=torch.float64).numpy()
+    with _x64():
+        j = np.asarray(jref.ricker_source(shape, dtype=jnp.float64))
+    assert t.dtype == j.dtype == np.float64
+    # exp differs by an ulp or so between the two libraries
+    np.testing.assert_allclose(t, j, rtol=0, atol=1e-14)

@@ -30,7 +30,18 @@ bound (each input read once, each output written once, at 3.35 TB/s):
   every 64 tokens on each of 28 layers' K and V: 224 launches;
 * the falcon-mamba-7b slice (phase 9): the scan at (8, 1, 8192, 16) on
   64 layers of 159 decode steps (10176) and at (8, 128, 8192, 16) on
-  64 layers of one prefill (64).
+  64 layers of one prefill (64);
+* float64, the paper's own type (``chip_smoke.py``'s float64 paper
+  sweep: 1152^3, ndiv 8, bt 12, code 4 at 24 planes, one sweep and a
+  gather): the float64 codec on the same units, 27 and 18 launches each
+  as above, and at 32 planes (codes 2 and 3; not on that path); the
+  float64 rung at the (240, 1152, 1152) block, 8 blocks of 12 rungs (96
+  launches), and the float64 single step there (not on that path);
+  the precision tier's (phase 5p) stencil shapes: the engine's rung on
+  its (192, 96, 96) blocks, 2 a sweep of 12 rungs over 360 sweeps of 4
+  float64 curves (34560), and the in-core run's single step on (192, 96,
+  96) padded, 4,320 a curve (17280).
+  Skipped, with a line saying so, on a tree without the float64 kernels.
 
 Run it on two trees in one call to compare them on one card, in turns
 (parent, change, change, parent).
@@ -54,6 +65,14 @@ STENCIL = [("wave_step", (20, 1152, 1152), 16),
            ("wave_step", (240, 1152, 1152), 0),
            ("wave_rung", (240, 1152, 1152), 192)]
 SCAN = [((8, 1, 8192, 16), 10176), ((8, 128, 8192, 16), 64)]
+CODEC64 = [(k, (z, 1152, 1152), 24, 3, n) for k in ("zfp_decode", "zfp_encode")
+           for z, n in PAPER_UNITS[:2]]
+CODEC64 += [(k, (96, 1152, 1152), 32, 3, 0)
+            for k in ("zfp_decode", "zfp_encode")]
+STENCIL64 = [("wave_step", (240, 1152, 1152), 0),
+             ("wave_rung", (240, 1152, 1152), 96),
+             ("wave_step", (192, 96, 96), 17280),
+             ("wave_rung", (192, 96, 96), 34560)]
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
@@ -127,42 +146,61 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(0)
 
-    def normal(shape, scale=1.0):
-        return torch.randn(shape, generator=gen, device="cuda") * scale
+    def normal(shape, scale=1.0, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device="cuda",
+                           dtype=dtype) * scale
 
     def bound_ms(*tensors) -> float:
         return sum(t.numel() * t.element_size()
                    for t in tensors) / HBM_BYTES_PER_S * 1e3
 
-    for kernel, shape, planes, ndim, launches in CODEC:
-        x = normal(shape, 7.3)
-        payload, emax = zfp_kernel.encode(x, planes, ndim)
-        bound = bound_ms(x, payload, emax)
-        if kernel == "zfp_encode":
-            fn = lambda: zfp_kernel.encode(x, planes, ndim)
-            emit(kernel, shape, launches, fn, "encode_kernel", planes=planes,
+    def codec(rows, dtype, suffix, tag):
+        for kernel, shape, planes, ndim, launches in rows:
+            x = normal(shape, 7.3, dtype)
+            payload, emax = zfp_kernel.encode(x, planes, ndim)
+            bound = bound_ms(x, payload, emax)
+            if kernel == "zfp_encode":
+                fn = lambda: zfp_kernel.encode(x, planes, ndim)
+                name = f"encode{tag}_kernel"
+            else:
+                # (no dtype argument for float32: older trees lack it)
+                kw = {} if dtype == torch.float32 else {"dtype": "float64"}
+                fn = lambda: zfp_kernel.decode(payload, emax, shape, planes,
+                                               ndim, **kw)
+                name = f"decode{tag}_kernel"
+            emit(kernel + suffix, shape, launches, fn, name, planes=planes,
                  bound_ms=bound)
-        else:
-            fn = lambda: zfp_kernel.decode(payload, emax, shape, planes, ndim)
-            emit(kernel, shape, launches, fn, "decode_kernel", planes=planes,
-                 bound_ms=bound)
-        del x, payload, emax
-        torch.cuda.empty_cache()
-    for kernel, shape, launches in STENCIL:
-        v2 = 0.05 + 0.01 * normal(shape)
-        if kernel == "wave_step":
-            padded = tuple(s + 8 for s in shape)
-            pp, pc = normal(padded), normal(padded)
-            fn = lambda: stencil_kernel.wave_step(pp, pc, v2)
-            outs = 2  # p_next, lap
-        else:
-            pp, pc = normal(shape), normal(shape)
-            fn = lambda: stencil_kernel.wave_multistep(pp, pc, v2, 1)
-            outs = 1  # p_next
-        emit(kernel, shape, launches, fn, f"{kernel}_kernel",
-             bound_ms=bound_ms(pp, pc, v2) + outs * bound_ms(v2))
-        del pp, pc, v2
-        torch.cuda.empty_cache()
+            del x, payload, emax
+            torch.cuda.empty_cache()
+
+    def stencil(rows, dtype, suffix, tag):
+        for kernel, shape, launches in rows:
+            v2 = 0.05 + 0.01 * normal(shape, dtype=dtype)
+            if kernel == "wave_step":
+                padded = tuple(s + 8 for s in shape)
+                pp, pc = normal(padded, dtype=dtype), normal(padded,
+                                                             dtype=dtype)
+                fn = lambda: stencil_kernel.wave_step(pp, pc, v2)
+                outs = 2  # p_next, lap
+            else:
+                pp, pc = normal(shape, dtype=dtype), normal(shape, dtype=dtype)
+                fn = lambda: stencil_kernel.wave_multistep(pp, pc, v2, 1)
+                outs = 1  # p_next
+            emit(kernel + suffix, shape, launches, fn,
+                 f"{kernel}{tag}_kernel",
+                 bound_ms=bound_ms(pp, pc, v2) + outs * bound_ms(v2))
+            del pp, pc, v2
+            torch.cuda.empty_cache()
+
+    codec(CODEC, torch.float32, "", "")
+    stencil(STENCIL, torch.float32, "", "")
+    if "encode_f64" in zfp_kernel.launches:
+        codec(CODEC64, torch.float64, "_f64", "64")
+        stencil(STENCIL64, torch.float64, "_f64", "64")
+    else:
+        print(json.dumps({"label": args.label,
+                          "skipped": "no float64 kernels in this tree"}),
+              flush=True)
     for shape, launches in SCAN:
         bsz, s, d, n = shape
         dt = torch.nn.functional.softplus(normal((bsz, s, d)))
