@@ -17,7 +17,9 @@ the same design were not faster on the H100, so none are fused. The
 single step is the same streaming kernel on padded fields: it reads
 their shell as data (no zero by index) and writes ``lap`` too. The TPU
 kernels' outputs take ``p_cur``'s dtype; float64 fields launch the
-float64 kernels, one thread a (y, x) column walking z (first form).
+float64 kernels, the same streaming design in 8-byte values on
+``TILE64`` tiles, with Z split into chunks of planes (``z_chunk``) so
+that a small volume still fills the card.
 
 On a CPU tensor each wrapper runs the plain version (``ref``); on a
 CUDA tensor it launches the kernel or raises. ``launches`` counts kernel
@@ -28,6 +30,7 @@ launches: one per ``wave_step`` call, one per rung of ``wave_multistep``
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
@@ -43,6 +46,11 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 # per field type: the library and the launch counts' suffix
 _ROUTE = {torch.float32: ("stencil", ""), torch.float64: ("stencil64", "_f64")}
+# the float64 kernels' output tile, (y, x) (csrc/stencil64.cu kTY, kTX)
+TILE64 = (16, 32)
+# the z-split: no chunk shorter than this unless Z is (a chunk re-reads
+# the 4 + 4 planes around it)
+MIN_ZLEN = 8
 
 
 def reset_launches() -> None:
@@ -70,6 +78,38 @@ def _stream() -> int:
     return torch.cuda.current_stream().cuda_stream
 
 
+def z_chunk(z: int, y: int, x: int, slots: int) -> int:
+    """Output planes each CTA of the float64 kernels walks, given the
+    ``slots`` CTAs the card holds at once (SMs x CTAs an SM). Z is cut
+    into ``ceil(Z / z_chunk)`` chunks, the last possibly shorter, so
+    that ``TILE64`` tiles x chunks fill the slots in one wave: a CTA
+    left for a second wave would run its whole chunk alone. One chunk
+    (all of Z) when the tiles alone fill the slots; no chunk length
+    below ``MIN_ZLEN`` unless Z is shorter."""
+    tiles = -(-y // TILE64[0]) * -(-x // TILE64[1])
+    chunks = max(1, min(slots // tiles, z // MIN_ZLEN))
+    return max(1, -(-z // chunks))
+
+
+@functools.lru_cache(maxsize=None)
+def slots64(device: torch.device, step: bool) -> int:
+    """CTAs of the float64 single step (``step``) or rung that
+    ``device`` holds at once: its SMs x the kernel's occupancy."""
+    fn = _build.bind("stencil64", "stencil64_ctas_per_sm", [_I])
+    with torch.cuda.device(device):
+        n = fn(int(step))
+    if n < 1:  # minus a CUDA error, or 0
+        _build.check("stencil64", -n, "stencil64_ctas_per_sm")
+        raise _build.KernelError("the float64 stencil kernels fit no SM")
+    return n * torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def launch_zlen(device: torch.device, shape, step: bool) -> int:
+    """The chunk length the float64 single step (``step``) or rung
+    launches the interior ``shape`` with on ``device``."""
+    return z_chunk(*shape, slots64(device, step))
+
+
 def wave_step(p_prev: torch.Tensor, p_cur: torch.Tensor, vel2: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One step on padded (Z+8, Y+8, X+8) ``p_prev``/``p_cur`` and
@@ -84,9 +124,12 @@ def wave_step(p_prev: torch.Tensor, p_cur: torch.Tensor, vel2: torch.Tensor
     p_next = torch.empty_like(vel2)
     lap = torch.empty_like(vel2)
     symbol = "stencil_wave_step" + suffix
-    fn = _build.bind(lib, symbol, [_P, _P, _P, _P, _P, _I, _I, _I, _P])
+    # float64: the chunk length too
+    dims = (z, y, x) + ((launch_zlen(vel2.device, (z, y, x), True),)
+                        if suffix else ())
+    fn = _build.bind(lib, symbol, [_P] * 5 + [_I] * len(dims) + [_P])
     err = fn(p_prev.data_ptr(), p_cur.data_ptr(), vel2.data_ptr(),
-             p_next.data_ptr(), lap.data_ptr(), z, y, x, _stream())
+             p_next.data_ptr(), lap.data_ptr(), *dims, _stream())
     _build.check(lib, err, symbol)
     launches["wave_step" + suffix] += 1
     return p_next, lap
@@ -105,14 +148,16 @@ def wave_multistep(p_prev: torch.Tensor, p_cur: torch.Tensor,
         raise ValueError("p_prev, p_cur and vel2 must share one 3-D shape")
     lib, suffix = _require(shape, p_prev, p_cur, vel2)
     symbol = "stencil_wave_rung" + suffix
-    fn = _build.bind(lib, symbol, [_P, _P, _P, _P, _I, _I, _I, _P])
-    z, y, x = shape
+    # float64: the chunk length too
+    dims = shape + ((launch_zlen(vel2.device, shape, False),)
+                    if suffix else ())
+    fn = _build.bind(lib, symbol, [_P] * 4 + [_I] * len(dims) + [_P])
     pp, pc = p_prev, p_cur
     free = []  # buffers of this call no rung still reads
     for _ in range(steps):
         out = free.pop() if free else torch.empty_like(p_cur)
         err = fn(pp.data_ptr(), pc.data_ptr(), vel2.data_ptr(),
-                 out.data_ptr(), z, y, x, _stream())
+                 out.data_ptr(), *dims, _stream())
         _build.check(lib, err, symbol)
         launches["wave_multistep" + suffix] += 1
         if pp is not p_prev and pp is not p_cur:

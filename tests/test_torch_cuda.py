@@ -14,9 +14,9 @@ plain versions (``-fmad=false`` and the reference's order of
 operations); the fused ZFP-decode attention kernel decodes bit for bit
 (its decoded tiles are checked) and sums in another order, with FMA, so
 it is held within rtol = atol = 2e-5; the
-selective-scan kernel runs the recurrence step by step where its plain
-version scans chunks associatively, held within rtol 1e-4 / atol 1e-5
-(the bound of ``tests/test_sscan_kernel.py``). The float64 codec and
+selective-scan kernel runs the recurrence step by step in float32,
+held within rtol 1e-4 / atol 1e-5 (the bound of
+``tests/test_sscan_kernel.py``) of the same recurrence in float64. The float64 codec and
 stencil kernels (``csrc/zfp64.cu``, ``csrc/stencil64.cu``) are held bit
 for bit too, alone, through the float64 engines, and through the
 precision curve, whose lossless code must be exactly 0 on the card.
@@ -417,8 +417,9 @@ def test_serving_cuda_equals_ref_on_card(cuda_device):
 @pytest.mark.parametrize("s", [1, 7, 33, 64, 130])
 @pytest.mark.parametrize("b", [1, 2])
 def test_sscan_kernel_against_plain(cuda_device, b, s, d, n):
-    """y and h_last within rtol 1e-4 / atol 1e-5 of the plain version;
-    ``h_out`` is written in place (here ``h0`` itself, as the serving
+    """y and h_last within rtol 1e-4 / atol 1e-5 of the plain float64
+    recurrence (``selective_scan_f64``, the yardstick of the float32
+    versions); ``h_out`` is written in place (here ``h0`` itself, as the serving
     cache passes it). N of 1 and 5 mask lanes of the 4-lane split (and 5
     takes the scalar state path), D = 200 ends in a partial CTA of 64
     channels, S = 33 and 130 in a partial stage of 16 steps."""
@@ -429,7 +430,7 @@ def test_sscan_kernel_against_plain(cuda_device, b, s, d, n):
     arrays = (dt, a, f(b, s, n), f(b, s, n), f(b, s, d), 0.1 * f(b, d, n))
     dt, a, b_in, c_in, x, h0 = (torch.from_numpy(np.ascontiguousarray(t))
                                 .to(cuda_device) for t in arrays)
-    want_y, want_h = sscan_ref.selective_scan_ref(dt, a, b_in, c_in, x, h0, 64)
+    want_y, want_h = sscan_ref.selective_scan_f64(dt, a, b_in, c_in, x, h0)
     h_io = h0.clone()
     before = sscan_kernel.launches["sscan"]
     y, h = sscan_ops.selective_scan(dt, a, b_in, c_in, x, h_io, chunk=64,
@@ -437,10 +438,10 @@ def test_sscan_kernel_against_plain(cuda_device, b, s, d, n):
     torch.cuda.synchronize()
     assert sscan_kernel.launches["sscan"] == before + 1
     assert h is h_io
-    np.testing.assert_allclose(y.cpu().numpy(), want_y.cpu().numpy(),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(h_io.cpu().numpy(), want_h.cpu().numpy(),
-                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(y.double().cpu().numpy(),
+                               want_y.cpu().numpy(), rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(h_io.double().cpu().numpy(),
+                               want_h.cpu().numpy(), rtol=1e-4, atol=1e-5)
 
 
 def test_ssm_serving_cuda_equals_ref_on_card(cuda_device):
@@ -771,6 +772,100 @@ def test_multistep64_kernel_bitwise(cuda_device, shape, steps):
     np.testing.assert_array_equal(_bits64(kp), _bits64(rp))
     np.testing.assert_array_equal(_bits64(kc), _bits64(rc))
     for t, a in zip((pp, pc, v2), arrays):
+        assert torch.equal(t.cpu(), a)
+
+
+# The float64 streaming kernels split Z into chunks (kernel.z_chunk): the
+# wrapper's own choice (None) or a forced chunk length, on Z of 1, 5, 9 and
+# 40 (chunks of 3, 7 and 13 leave a short last one), X odd (8-byte copies,
+# unpaired stores), Y and X that cut the 16 x 32 tile, fields thinner than
+# the halo.
+STENCIL64_CHUNKS = [((1, 20, 37), None), ((5, 33, 65), None),
+                    ((9, 17, 34), None), ((9, 17, 34), 4), ((40, 20, 36), 3),
+                    ((40, 21, 37), 7), ((40, 20, 36), 13), ((40, 16, 32), 40),
+                    ((40, 16, 32), None), ((6, 7, 2), 5)]
+
+
+@pytest.mark.parametrize("shape,zlen", STENCIL64_CHUNKS)
+def test_rung64_z_chunks_bitwise(cuda_device, monkeypatch, shape, zlen):
+    """The float64 rung, 3 steps, bit for bit the ladder on every chunk
+    split; the inputs are left as they were."""
+    if zlen is not None:
+        monkeypatch.setattr(stencil_kernel, "z_chunk", lambda *a: zlen)
+    arrays = _fields64(shape, sum(shape) + (zlen or 0))
+    pp, pc, v2 = (a.to(cuda_device) for a in arrays)
+    kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, 3)
+    rp, rc = stencil_ref.ladder_steps(pp, pc, v2, 3)
+    np.testing.assert_array_equal(_bits64(kp), _bits64(rp))
+    np.testing.assert_array_equal(_bits64(kc), _bits64(rc))
+    for t, a in zip((pp, pc, v2), arrays):
+        assert torch.equal(t.cpu(), a)
+
+
+@pytest.mark.parametrize("shape,zlen", STENCIL64_CHUNKS)
+def test_wave_step64_z_chunks_random_shell(cuda_device, monkeypatch, shape,
+                                           zlen):
+    """The float64 single step on padded fields whose shell is random
+    data, bit for bit ``ref.wave_step`` (p_next and lap) on every chunk
+    split."""
+    if zlen is not None:
+        monkeypatch.setattr(stencil_kernel, "z_chunk", lambda *a: zlen)
+    rng = np.random.default_rng(2 * sum(shape) + (zlen or 0))
+    pad = tuple(s + 2 * stencil_ref.HALO for s in shape)
+    pp, pc = (torch.from_numpy(rng.standard_normal(pad)).to(cuda_device)
+              for _ in range(2))
+    v2 = torch.from_numpy(0.05 + 0.01 * rng.standard_normal(shape)).to(
+        cuda_device)
+    kn, kl = stencil_kernel.wave_step(pp, pc, v2)
+    rn, rl = stencil_ref.wave_step(pp, pc, v2)
+    np.testing.assert_array_equal(_bits64(kn), _bits64(rn))
+    np.testing.assert_array_equal(_bits64(kl), _bits64(rl))
+
+
+def test_stencil64_precision_shape_bitwise(cuda_device):
+    """Both float64 kernels at the precision tier's (192, 96, 96), split
+    into several chunks on the card: the rung over 12 steps, the single
+    step on a random shell."""
+    shape = (192, 96, 96)
+    for step in (False, True):
+        assert stencil_kernel.launch_zlen(cuda_device, shape, step) < shape[0]
+    arrays = _fields64(shape, 192)
+    pp, pc, v2 = (a.to(cuda_device) for a in arrays)
+    kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, 12)
+    rp, rc = stencil_ref.ladder_steps(pp, pc, v2, 12)
+    np.testing.assert_array_equal(_bits64(kp), _bits64(rp))
+    np.testing.assert_array_equal(_bits64(kc), _bits64(rc))
+    for t, a in zip((pp, pc, v2), arrays):
+        assert torch.equal(t.cpu(), a)
+    rng = np.random.default_rng(96)
+    pad = tuple(s + 2 * stencil_ref.HALO for s in shape)
+    qp, qc = (torch.from_numpy(rng.standard_normal(pad)).to(cuda_device)
+              for _ in range(2))
+    kn, kl = stencil_kernel.wave_step(qp, qc, v2)
+    rn, rl = stencil_ref.wave_step(qp, qc, v2)
+    np.testing.assert_array_equal(_bits64(kn), _bits64(rn))
+    np.testing.assert_array_equal(_bits64(kl), _bits64(rl))
+
+
+def test_rung64_unaligned_storage_bitwise(cuda_device):
+    """Fields at an 8-byte offset into their storage (contiguous, not
+    16-byte aligned) with an even X: the 8-byte copies and unpaired
+    loads, bit for bit; the inputs are left as they were."""
+    shape = (20, 33, 66)
+    arrays = _fields64(shape, 66)
+    n = int(np.prod(shape))
+    views = []
+    for a in arrays:
+        buf = torch.zeros(n + 1, dtype=torch.float64, device=cuda_device)
+        buf[1:] = a.reshape(-1).to(cuda_device)
+        views.append(buf[1:].view(shape))
+    pp, pc, v2 = views
+    assert pc.data_ptr() % 16 == 8
+    kp, kc = stencil_kernel.wave_multistep(pp, pc, v2, 2)
+    rp, rc = stencil_ref.ladder_steps(pp, pc, v2, 2)
+    np.testing.assert_array_equal(_bits64(kp), _bits64(rp))
+    np.testing.assert_array_equal(_bits64(kc), _bits64(rc))
+    for t, a in zip(views, arrays):
         assert torch.equal(t.cpu(), a)
 
 

@@ -19,15 +19,12 @@ Temporal 2 uses bt=1: at bt=2 its halo (16 planes) would not fit the
 
 float64 at the paper's rates (32/24, ``paper_code_fields(code,
 f32=False)``), against the reference engine under ``jax_enable_x64`` (on
-inside ``_x64``, off again in its ``finally``): transfers exact, fields
+inside ``_x64``, restored in its ``finally``): transfers exact, fields
 within ``_f64_tol`` (ulps for a lossless code, the codec's bound at the
 field's amplitude for a lossy one), and a float64 code 4 store carried
 over from the reference gathers bit for bit.
 """
 
-import contextlib
-
-import jax
 import numpy as np
 import pytest
 import torch
@@ -44,6 +41,7 @@ from repro_torch.core.outofcore import OOCConfig, OutOfCoreWave, \
     paper_code_fields
 from repro_torch.distributed.fault import ChecksumError
 from repro_torch.kernels.stencil import ref as tref
+from test_torch_stencil import _x64
 
 SHAPE = (96, 16, 16)
 NDIV = 4
@@ -206,15 +204,6 @@ def test_exhausted_retries_raise_unrecoverable():
     with pytest.raises(UnrecoverableFault, match="h2d of unit vel2.R0"):
         tstore.stage("vel2", "R", 0)
     assert tstore.wire_stats["checksum_failures"] == 2
-
-
-@contextlib.contextmanager
-def _x64():
-    jax.config.update("jax_enable_x64", True)
-    try:
-        yield
-    finally:
-        jax.config.update("jax_enable_x64", False)
 
 
 def _initial64(shape=SHAPE):

@@ -9,14 +9,11 @@ curve follows ``repro.core.precision.error_curve`` within
 (the reference's jitted stencil drifts a few ulps from the port's eager
 one, which on a lossy code can move one codec rounding). float64 at the
 paper's rates (32/24) against the reference's float64 engine and
-in-core run under ``jax_enable_x64`` (on inside ``_x64``, off again in
+in-core run under ``jax_enable_x64`` (on inside ``_x64``, restored in
 its ``finally``), within the float64 engine tolerance of
 ``tests/test_torch_outofcore.py``.
 """
 
-import contextlib
-
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -29,6 +26,7 @@ from repro.kernels.stencil import ref as jstencil
 from repro_torch.core.precision import assert_bounded_growth, error_curve, \
     initial_fields
 from test_torch_outofcore import GATHER_RTOL, _f64_tol
+from test_torch_stencil import _x64
 
 # the reference's calibrated ceilings on max|err| / max|ref|
 # (tests/test_precision_loss.py)
@@ -38,15 +36,6 @@ REL_TOL_SLOW = {2: 0.030, 4: 0.350}
 
 def curve(code, **kw):
     return error_curve(code=code, device="cpu", **kw)
-
-
-@contextlib.contextmanager
-def _x64():
-    jax.config.update("jax_enable_x64", True)
-    try:
-        yield
-    finally:
-        jax.config.update("jax_enable_x64", False)
 
 
 @pytest.mark.parametrize("code", [2, 4])

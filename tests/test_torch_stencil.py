@@ -9,7 +9,7 @@ the engines call (``ops.fused_temporal_steps``) it agrees within
 
 float64, the TPU kernels' other type (their outputs take ``p_cur``'s
 dtype): the plain version is bit for bit the JAX eager reference under
-``jax_enable_x64`` (on inside ``_x64``, off again in its ``finally``).
+``jax_enable_x64`` (on inside ``_x64``, restored in its ``finally``).
 """
 
 import contextlib
@@ -174,11 +174,13 @@ def test_cuda_backend_on_cpu_tensors_raises():
 
 @contextlib.contextmanager
 def _x64():
+    """``jax_enable_x64`` on inside, and back to the value it had."""
+    was = jax.config.jax_enable_x64
     jax.config.update("jax_enable_x64", True)
     try:
         yield
     finally:
-        jax.config.update("jax_enable_x64", False)
+        jax.config.update("jax_enable_x64", was)
 
 
 def _fields64(shape, seed):

@@ -8,14 +8,12 @@ encode/decode per rate over all shapes of a dimensionality) and, for one
 small case, its Pallas kernel in interpret mode.
 
 float64 (the paper's type) is held to the same contract against the JAX
-reference under ``jax_enable_x64`` (switched on inside ``_x64`` and off
+reference under ``jax_enable_x64`` (switched on inside ``_x64`` and restored
 again in its ``finally``), eagerly: ``payload``, ``emax``, the decoded
 values and the negabinary words, with bit 63 and the most negative
 coefficients. Only the error bound differs, by XLA's float64 ``exp2``,
 which is not exact for integer exponents: within ``F64_BOUND_RTOL``.
 """
-
-import contextlib
 
 import jax
 import jax.numpy as jnp
@@ -28,6 +26,7 @@ from repro.kernels.zfp import ref as jref
 from repro_torch.kernels.zfp import kernel as tkernel
 from repro_torch.kernels.zfp import ops as tops
 from repro_torch.kernels.zfp import ref as tref
+from test_torch_stencil import _x64
 
 SHAPES = {
     1: [(4,), (64,), (1000,), (4096,)],
@@ -283,15 +282,6 @@ def test_register_packing_reproduces_reference_payload(ndim, planes):
 # port's torch.exp2 is exact there); the bound itself is exact arithmetic
 F64_BOUND_RTOL = 1e-12
 F64_PLANES = [24, 32, 64]
-
-
-@contextlib.contextmanager
-def _x64():
-    jax.config.update("jax_enable_x64", True)
-    try:
-        yield
-    finally:
-        jax.config.update("jax_enable_x64", False)
 
 
 def _data64(shape, seed, scale=7.3):

@@ -4,6 +4,7 @@ at every shape the port's main paths launch them, for the tree at
 ``--root``.
 
     python3 tools/kernel_shapes.py [--root DIR] [--label NAME]
+                                   [--f64-zlens N ...]
 
 Needs one CUDA device and ``nvcc``; builds the kernels of that tree's
 ``src/repro_torch`` at first use. Prints the card line (``nvidia-smi``
@@ -42,6 +43,10 @@ bound (each input read once, each output written once, at 3.35 TB/s):
   float64 curves (34560), and the in-core run's single step on (192, 96,
   96) padded, 4,320 a curve (17280).
   Skipped, with a line saying so, on a tree without the float64 kernels.
+  On a tree whose float64 stencil splits Z into chunks, each of its rows
+  carries the chunk length the wrapper chose (``zlen``); ``--f64-zlens``
+  times the precision tier's two shapes again with each given length
+  forced.
 
 Run it on two trees in one call to compare them on one card, in turns
 (parent, change, change, parent).
@@ -115,6 +120,9 @@ def main() -> int:
     ap.add_argument("--root", default=str(here), help="checkout to time")
     ap.add_argument("--label", default="tree")
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--f64-zlens", type=int, nargs="*", default=[],
+                    help="chunk lengths to force on the float64 stencil at "
+                         "the precision tier's shapes")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve() / "src"))
 
@@ -173,8 +181,14 @@ def main() -> int:
             del x, payload, emax
             torch.cuda.empty_cache()
 
-    def stencil(rows, dtype, suffix, tag):
+    def stencil(rows, dtype, suffix, tag, zlen_forced=None):
         for kernel, shape, launches in rows:
+            extra = {}
+            if zlen_forced is not None:
+                extra["zlen_forced"] = zlen_forced
+            elif suffix and hasattr(stencil_kernel, "launch_zlen"):
+                extra["zlen"] = stencil_kernel.launch_zlen(
+                    torch.device("cuda", 0), shape, kernel == "wave_step")
             v2 = 0.05 + 0.01 * normal(shape, dtype=dtype)
             if kernel == "wave_step":
                 padded = tuple(s + 8 for s in shape)
@@ -188,7 +202,7 @@ def main() -> int:
                 outs = 1  # p_next
             emit(kernel + suffix, shape, launches, fn,
                  f"{kernel}{tag}_kernel",
-                 bound_ms=bound_ms(pp, pc, v2) + outs * bound_ms(v2))
+                 bound_ms=bound_ms(pp, pc, v2) + outs * bound_ms(v2), **extra)
             del pp, pc, v2
             torch.cuda.empty_cache()
 
@@ -197,6 +211,13 @@ def main() -> int:
     if "encode_f64" in zfp_kernel.launches:
         codec(CODEC64, torch.float64, "_f64", "64")
         stencil(STENCIL64, torch.float64, "_f64", "64")
+        if args.f64_zlens and hasattr(stencil_kernel, "z_chunk"):
+            chosen = stencil_kernel.z_chunk
+            for zlen in args.f64_zlens:
+                stencil_kernel.z_chunk = lambda *a, zlen=zlen: zlen
+                stencil(STENCIL64[2:], torch.float64, "_f64", "64",
+                        zlen_forced=zlen)
+            stencil_kernel.z_chunk = chosen
     else:
         print(json.dumps({"label": args.label,
                           "skipped": "no float64 kernels in this tree"}),
