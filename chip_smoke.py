@@ -29,8 +29,12 @@ non-zero:
    TFLOP/s);
 3f. the float64 kernels (``csrc/zfp64.cu``, ``csrc/stencil64.cu``)
    against their plain versions: the codec at the paper's rates 24 and
-   32 planes, ndim 1-3, on the unit and on the ragged unit, bit for bit,
-   with its device time a launch at the unit (ndim 3); the single step on
+   32 planes, ndim 1-3, on the unit, on the ragged unit and on the
+   precision tier's (96, 96, 96) unit (its inputs from a generator of its
+   own), bit for bit, with its device time a launch at the unit and at
+   the precision unit (ndim 3), and its ``ptxas`` lines (every instance
+   of the encoder and of the decoder must show no spill and no stack
+   frame); the single step on
    the block and on the precision tier's in-core shape (random halos),
    the rung at 12 steps on the block and on the precision tier's blocks
    (192, 96, 96) (timed a call of 12 and a launch) and at 5 on the
@@ -204,6 +208,7 @@ SEED = 0
 PAPER = (1152, 1152, 1152)
 NDIV, BT = 8, 12
 UNIT = (96, 1152, 1152)  # a common region C_i at the paper's size
+UNIT48 = (48, 1152, 1152)  # the float64 engine's other storage unit
 RAGGED = (50, 1150, 1149)
 BLOCK = (240, 1152, 1152)  # one fetched block, B + 2H planes
 # the bt 1 engine's block: B + 2H = 12 + 8 planes of SMALL_Z at ndiv 8
@@ -240,6 +245,8 @@ F64_LIVE = (288, 576, 576)  # live vs sync: ndiv 2, bt 12, block 144
 # 96 = 2 x the 48-plane halo and y a multiple of 48, so the engine runs
 # the multistep kernel
 PREC_SHAPE, PREC_NDIV, PREC_SWEEPS, PREC_EVERY = (192, 96, 96), 2, 360, 30
+PREC_UNIT = (96, 96, 96)  # its larger storage unit
+PREC_UNIT48 = (48, 96, 96)  # its other: 6912 blocks, 32 threads a CTA
 # tests/test_precision_loss.py's REL_TOL_SLOW; code 3 (vel2 at the 2:1
 # rate of code 2) is held to code 2's
 PREC_TOL = {2: 0.030, 3: 0.030, 4: 0.350}
@@ -380,8 +387,10 @@ def kernel_ptxas(source: str, entry: str):
 
 
 def path_counts():
-    """The codec and stencil launch counts, by counter name."""
+    """The codec and stencil launch counts, by counter name, and the
+    float64 codec's by counter, unit shape and planes."""
     return {**{f"zfp_{k}": v for k, v in zfp_kernel.launches.items()},
+            **{f"zfp_{k}": v for k, v in zfp_kernel.f64_shapes.items()},
             **stencil_kernel.launches}
 
 
@@ -575,9 +584,12 @@ def multistep_ragged(gen):
 def codec64_case(shape, gen, results):
     """The float64 codec at the paper's rates and ndim 1-3 on ``shape``
     (ndim 2 and 1 take the leading axes as batch): encode and decode bit
-    for bit the plain version. At ndim 3 (the engine's) also the times
-    and the bound: the unit in, payload and emax out."""
+    for bit the plain version. At ndim 3 (the engine's) on the unit and
+    the precision unit also the times and the bound: the unit in, payload
+    and emax out. Returns the threads a CTA of each (planes, ndim)."""
     x = normal(shape, gen, 7.3, F64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    threads = {}
     for planes in F64_PLANES:
         for ndim in (3, 2, 1):
             payload, emax = zfp_kernel.encode(x, planes, ndim)
@@ -589,6 +601,8 @@ def codec64_case(shape, gen, results):
             ry = zfp_ref.unblockify(zfp_ref.decode_blocks(
                 rp, re, planes, ndim, "float64"), shape, ndim)
             dec_ok = same_bits(y, ry)
+            threads[(planes, ndim)] = zfp_kernel.f64_threads(emax.numel(),
+                                                             sms)
             errs = {"zfp_encode_f64": max(max_abs(payload, rp),
                                           max_abs(emax, re)),
                     "zfp_decode_f64": max_abs(y, ry)}
@@ -596,8 +610,9 @@ def codec64_case(shape, gen, results):
             row = {"phase": "kernel_vs_plain_f64", "shape": list(shape),
                    "planes": planes, "ndim": ndim,
                    "stream_order": zfp_kernel.stream_order(planes, ndim, 64),
+                   "threads": threads[(planes, ndim)],
                    "encode_bitwise": enc_ok, "decode_bitwise": dec_ok}
-            if ndim == 3 and shape == UNIT:
+            if ndim == 3 and shape in (UNIT, PREC_UNIT):
                 nbytes = (x.numel() * 8 + payload.numel() * 4
                           + emax.numel() * 4)
                 enc_fn = lambda: zfp_kernel.encode(x, planes)
@@ -627,6 +642,7 @@ def codec64_case(shape, gen, results):
             torch.cuda.empty_cache()
     del x
     torch.cuda.empty_cache()
+    return threads
 
 
 def stencil64_cases(gen, results):
@@ -743,13 +759,33 @@ def rung64_case(shape, timed_steps, gen, results):
 
 
 def kernels64(gen, results):
-    """Phase 3f: the float64 codec on the unit and on a ragged shape, the
-    float64 stencil, and the ptxas lines of the float64 kernels."""
+    """Phase 3f: the float64 codec on the unit, on a ragged shape, on the
+    engine's other unit and on the precision tier's two units (these three
+    from generators of their own: the phases after keep their inputs),
+    the float64 stencil, and the ptxas lines of the float64 kernels."""
     codec64_case(UNIT, gen, results)
     codec64_case(F64_RAGGED, gen, results)
+    own = lambda k: torch.Generator(device="cuda").manual_seed(SEED + k)
+    codec64_case(PREC_UNIT, own(1), results)
+    codec64_case(UNIT48, own(2), results)
+    # the precision tier's 48-plane unit is its only one at 32 threads a
+    # CTA: held here bit for bit at the engine's ndim 3
+    threads48 = codec64_case(PREC_UNIT48, own(3), results)
+    check(all(threads48[(planes, 3)] == 32 for planes in F64_PLANES),
+          f"the float64 codec takes {threads48} threads a CTA on "
+          f"{PREC_UNIT48}, not 32 at ndim 3")
     emit({"phase": "ptxas_f64",
           "zfp64": ptxas_summary(build_log("zfp64")),
           "stencil64": ptxas_summary(build_log("stencil64"))})
+    # the codec keeps its block in registers on every route: 13 instances
+    # of each kernel ((ndim, order, route) as kernel.f64_route gives them,
+    # and the paper's two rates at ndim 3 with compile-time tables)
+    for entry in ("encode64_kernel", "decode64_kernel"):
+        ptxas = kernel_ptxas("zfp64", entry)
+        check(len(ptxas) == 13 and all(
+            e.get("spill_stores", 0) == 0 and e.get("stack_frame", 0) == 0
+            for e in ptxas), f"zfp64 {entry} spills or keeps a stack frame: "
+                             f"{ptxas}")
     stencil64_cases(gen, results)
 
 
@@ -2146,6 +2182,12 @@ def main() -> int:
         ("zfp_decode_f64", "zfp_decode_f64",
          "src/repro/kernels/zfp/kernel.py:133",
          "src/repro_torch/csrc/zfp64.cu", (UNIT, 24)),
+        ("zfp_encode_f64", "zfp_encode_f64",
+         "src/repro/kernels/zfp/kernel.py:90",
+         "src/repro_torch/csrc/zfp64.cu", (PREC_UNIT, 24)),
+        ("zfp_decode_f64", "zfp_decode_f64",
+         "src/repro/kernels/zfp/kernel.py:133",
+         "src/repro_torch/csrc/zfp64.cu", (PREC_UNIT, 24)),
         ("wave_step_f64", "wave_step_f64",
          "src/repro/kernels/stencil/kernel.py:69",
          "src/repro_torch/csrc/stencil64.cu", (PREC_SHAPE, 1)),
@@ -2168,14 +2210,28 @@ def main() -> int:
              "ssm_serving": ssm_counts}
     # a kernel with two rows: each row counts the paths that launch it at
     # its shape (the float64 rung on the engines' blocks, 1152^2 and
-    # 576^2 planes, and on the precision tier's), so no launch counts twice
-    row_paths = {("wave_multistep_f64", BLOCK): ("ooc_f64", "ooc_live_f64"),
-                 ("wave_multistep_f64", PREC_SHAPE): ("precision",)}
+    # 576^2 planes, and on the precision tier's; the float64 codec on the
+    # engines' units and on the precision tier's, both rates), so no
+    # launch counts twice
+    engines64, prec = ("ooc_f64", "ooc_live_f64"), ("precision",)
+    row_paths = {("wave_multistep_f64", BLOCK): engines64,
+                 ("wave_multistep_f64", PREC_SHAPE): prec,
+                 ("zfp_encode_f64", UNIT): engines64,
+                 ("zfp_encode_f64", PREC_UNIT): prec,
+                 ("zfp_decode_f64", UNIT): engines64,
+                 ("zfp_decode_f64", PREC_UNIT): prec}
     kernels = []
     for name, counter, replaces, source, (shape, arg) in rows:
         r = results[(name, shape, arg)]
         by_path = {p: c.get(counter, 0) for p, c in paths.items()
                    if p in row_paths.get((name, shape), paths)}
+        # the float64 codec's rows: their launches by unit and planes (the
+        # times are of the row's own shape)
+        by_shape = collections.Counter()
+        for p in by_path:
+            by_shape.update({k[len(counter) + 1:]: v
+                             for k, v in paths[p].items()
+                             if k.startswith(counter + " ")})
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "shape": [list(shape), arg],
@@ -2188,9 +2244,13 @@ def main() -> int:
                if "device_ms" in r else {}),
             **({"launches_per_call": r["launches_per_call"],
                 "ms_per": "call"} if "launches_per_call" in r else {}),
+            **({"launches_by_shape": dict(by_shape)} if by_shape else {}),
         })
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} was not launched on the path")
+        check(sum(k.get("launches_by_shape", {}).values()) in (
+            0, k["launches"]), f"{k['name']}: its launches by shape do not "
+                               f"add up to {k['launches']}")
     for name in {row[1] for row in rows}:
         total = sum(c.get(name, 0) for c in paths.values())
         rowed = sum(k["launches"] for k in kernels if k["name"] == name)

@@ -49,8 +49,9 @@
 // At ndim <= 2 the transposes beat a direct compile-time gather of each
 // plane's bits at the Qwen flush shape (0.0037 against 0.0048 ms).
 // The build uses -fmad=false; no floating-point expression here could contract.
-// The tables, the lift and the stream packing and unpacking live in
-// zfp_common.cuh, which the fused attention kernel (cdecode.cu) shares.
+// The tables, the lift, the stream packing and unpacking and the staging of
+// the payload rows live in zfp_common.cuh, which the fused attention kernel
+// (cdecode.cu) and the float64 codec (zfp64.cu) share.
 
 #include "cp_async.cuh"
 #include "zfp_common.cuh"
@@ -107,47 +108,6 @@ __device__ __forceinline__ void load_block(const float* __restrict__ x,
         v[4 * rw + k] = __ldg(row + min(x0 + k, g.d2 - 1));
     }
   }
-}
-
-// The staging geometry of a warp's payload rows in shared memory: a block's
-// row sits at `stride` words (nwords, made odd, so the 32 lanes touching
-// word i of their own rows hit 32 banks), and lane l of a warp walks the
-// warp's rows word by word, l + 32 m for m = 0, 1, ...: `dq` rows and `dr`
-// words further each time (32 = dq * nwords + dr).
-struct Staging {
-  int stride, dq, dr;
-};
-
-Staging make_staging(int nwords) {
-  Staging s;
-  s.stride = nwords | 1;
-  s.dq = 32 / nwords;
-  s.dr = 32 - s.dq * nwords;
-  return s;
-}
-
-// Word i of the warp's contiguous run of `total` payload words, for
-// i = lane, lane + 32, ...: fn(global word i, its row, its word in the row).
-template <typename Fn>
-__device__ __forceinline__ void walk_rows(int lane, int total, int w,
-                                          const Staging& st, Fn fn) {
-  int r = lane / w, c = lane - (lane / w) * w;
-  for (int i = lane; i < total; i += 32) {
-    fn(i, r, c);
-    r += st.dq;
-    c += st.dr;
-    if (c >= w) {
-      c -= w;
-      ++r;
-    }
-  }
-}
-
-// Dynamic shared memory of one codec CTA: its blocks' payload rows, and two
-// words that unpack_regs may read past the last row.
-size_t staging_bytes(int threads, int nwords) {
-  return ((size_t)threads * make_staging(nwords).stride + 2) *
-         sizeof(uint32_t);
 }
 
 // 64 threads a CTA: the Qwen chunk flush (8192 blocks) fills 128 CTAs, one

@@ -1,9 +1,10 @@
-// Device code shared by the codec kernels (zfp.cu) and the fused
+// Device code shared by the codec kernels (zfp.cu, zfp64.cu) and the fused
 // ZFP-decode attention kernel (cdecode.cu): the static stream tables, the
 // wrapping integer adds, the two-level Haar lift and its inverse, the
-// compile-time stream orders, and the packing and unpacking of one block's
-// plane-major stream in registers. A value decoded inside the attention
-// kernel is bit for bit the codec's decode.
+// compile-time stream orders, the packing and unpacking of one block's
+// plane-major stream in registers, and the staging of a warp's payload rows
+// in shared memory (the float32 and float64 codecs). A value decoded inside
+// the attention kernel is bit for bit the codec's decode.
 
 #pragma once
 
@@ -298,6 +299,49 @@ inline Tables make_tables(int ndim, const uint32_t* masks, const int* perm,
   t.nplanes = nplanes;
   t.nwords = nwords;
   return t;
+}
+
+// The staging geometry of a warp's payload rows in shared memory, shared by
+// the float32 and float64 codecs: a block's row sits at `stride` words
+// (nwords, made odd, so the 32 lanes touching word i of their own rows hit
+// 32 banks), and lane l of a warp walks the warp's rows word by word,
+// l + 32 m for m = 0, 1, ...: `dq` rows and `dr` words further each time
+// (32 = dq * nwords + dr; for nwords > 32, dq = 0 and one wrap a step at
+// most).
+struct Staging {
+  int stride, dq, dr;
+};
+
+__host__ __device__ inline Staging make_staging(int nwords) {
+  Staging s;
+  s.stride = nwords | 1;
+  s.dq = 32 / nwords;
+  s.dr = 32 - s.dq * nwords;
+  return s;
+}
+
+// Word i of the warp's contiguous run of `total` payload words, for
+// i = lane, lane + 32, ...: fn(global word i, its row, its word in the row).
+template <typename Fn>
+__device__ __forceinline__ void walk_rows(int lane, int total, int w,
+                                          const Staging& st, Fn fn) {
+  int r = lane / w, c = lane - (lane / w) * w;
+  for (int i = lane; i < total; i += 32) {
+    fn(i, r, c);
+    r += st.dq;
+    c += st.dr;
+    if (c >= w) {
+      c -= w;
+      ++r;
+    }
+  }
+}
+
+// Dynamic shared memory of one codec CTA: its blocks' payload rows, and two
+// words that unpack_regs may read past the last row.
+inline size_t staging_bytes(int threads, int nwords) {
+  return ((size_t)threads * make_staging(nwords).stride + 2) *
+         sizeof(uint32_t);
 }
 
 }  // namespace zfpc

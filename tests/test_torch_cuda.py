@@ -662,8 +662,13 @@ def test_live_engine_crc_mismatch_on_card(cuda_device):
 # ----------------------------------------------------------------------
 
 # both stream orders at width 64: the identity (1-3 and 60-64 planes) and
-# the subband order (4-59), with the paper's 24 and 32
-F64_PLANES = [64, 60, 59, 40, 32, 24, 12, 4, 3, 1]
+# the subband order (4-59), with the paper's 24 and 32; and every route of
+# csrc/zfp64.cu (kernel.f64_route) with the edges of each: at ndim 3 route
+# 0 to 27 planes, route 1 at 28-32, route 2 from 33 (ndim 2: 0 to 29,
+# ndim 1: 0 to 30, then route 1)
+F64_PLANES = [64, 60, 59, 48, 40, 33, 32, 31, 30, 28, 27, 24, 12, 4, 3, 1]
+# one or more plane counts of each route at each ndim
+F64_ROUTE_PLANES = (64, 48, 33, 32, 28, 27, 24, 12)
 
 
 def _normal64(shape, seed, scale=7.3):
@@ -696,7 +701,7 @@ def test_zfp64_kernels_bitwise(cuda_device, ndim, planes):
 
 def test_zfp64_special_values(cuda_device):
     """Zeros, denormals, huge values, the emax floor and the most negative
-    lifted coefficients, at 64, 32 and 24 planes."""
+    lifted coefficients, on every route at ndim 1-3."""
     n = 64
     near = np.nextafter(2.0, 0.0)
     rows = np.stack([
@@ -706,33 +711,96 @@ def test_zfp64_special_values(cuda_device):
         np.full(n, 3 * 2.0 ** -900),
     ])
     x = torch.from_numpy(rows.reshape(32, 4, 4)).to(cuda_device)
-    for planes in (64, 32, 24):
-        cr = zfp_ops.compress(x, planes=planes, backend="ref")
-        ck = zfp_ops.compress(x, planes=planes, backend="cuda")
-        np.testing.assert_array_equal(_u32(ck.payload), _u32(cr.payload))
-        np.testing.assert_array_equal(ck.emax.cpu(), cr.emax.cpu())
-        np.testing.assert_array_equal(
-            _bits64(zfp_ops.decompress(ck, backend="cuda")),
-            _bits64(zfp_ops.decompress(cr, backend="ref")))
+    for planes in F64_ROUTE_PLANES:
+        for ndim in (3, 2, 1):
+            cr = zfp_ops.compress(x, planes=planes, ndim=ndim, backend="ref")
+            ck = zfp_ops.compress(x, planes=planes, ndim=ndim, backend="cuda")
+            np.testing.assert_array_equal(_u32(ck.payload), _u32(cr.payload))
+            np.testing.assert_array_equal(ck.emax.cpu(), cr.emax.cpu())
+            np.testing.assert_array_equal(
+                _bits64(zfp_ops.decompress(ck, backend="cuda")),
+                _bits64(zfp_ops.decompress(cr, backend="ref")))
 
 
 def test_zfp64_random_payload_decodes_like_plain(cuda_device):
     """Arbitrary payload words (every plane, bit 63 included, and int64
-    wrap-around in the inverse lift) decode as the plain version."""
+    wrap-around in the inverse lift) decode as the plain version, on every
+    route at ndim 1-3."""
     rng = np.random.default_rng(64)
     shape = (9, 13, 17)
-    for planes in (64, 32, 24):
-        _, _, nb = zfp_kernel._geometry(shape, 3)
-        nw = zfp_kernel.ref.payload_words(3, planes, 64)
-        p = torch.from_numpy(rng.integers(0, 2**32, (nb, nw), dtype=np.uint64)
-                             .astype(np.uint32).view(np.int32)).to(
-            cuda_device).view(torch.uint32)
-        e = torch.from_numpy(rng.integers(-900, 900, nb).astype(np.int32)).to(
-            cuda_device)
-        k = zfp_kernel.decode(p, e, shape, planes, dtype="float64")
-        r = zfp_kernel.ref.unblockify(zfp_kernel.ref.decode_blocks(
-            p, e, planes, 3, "float64"), shape, 3)
-        np.testing.assert_array_equal(_bits64(k), _bits64(r))
+    for planes in F64_ROUTE_PLANES:
+        for ndim in (3, 2, 1):
+            _, _, nb = zfp_kernel._geometry(shape, ndim)
+            nw = zfp_kernel.ref.payload_words(ndim, planes, 64)
+            p = torch.from_numpy(rng.integers(0, 2**32, (nb, nw),
+                                              dtype=np.uint64)
+                                 .astype(np.uint32).view(np.int32)).to(
+                cuda_device).view(torch.uint32)
+            e = torch.from_numpy(rng.integers(-900, 900, nb).astype(
+                np.int32)).to(cuda_device)
+            k = zfp_kernel.decode(p, e, shape, planes, ndim, dtype="float64")
+            r = zfp_kernel.ref.unblockify(zfp_kernel.ref.decode_blocks(
+                p, e, planes, ndim, "float64"), shape, ndim)
+            np.testing.assert_array_equal(_bits64(k), _bits64(r))
+
+
+def _zfp64_round_trip(x, planes, ndim=3):
+    """The kernels against the plain codec on ``x``, bit for bit."""
+    payload, emax = zfp_kernel.encode(x, planes, ndim)
+    rp, re = zfp_kernel.encode(x.cpu(), planes, ndim)
+    np.testing.assert_array_equal(_u32(payload), rp.view(torch.int32).numpy())
+    np.testing.assert_array_equal(emax.cpu().numpy(), re.numpy())
+    y = zfp_kernel.decode(payload, emax, x.shape, planes, ndim,
+                          dtype="float64")
+    ry = zfp_kernel.decode(rp, re, x.shape, planes, ndim, dtype="float64")
+    np.testing.assert_array_equal(_bits64(y), _bits64(ry))
+
+
+@pytest.mark.parametrize("shape,threads", [((48, 96, 96), 32),
+                                           ((96, 96, 96), 64)])
+@pytest.mark.parametrize("planes", [24, 32])
+def test_zfp64_precision_units_bitwise(cuda_device, shape, threads, planes):
+    """The precision tier's units at the paper's rates, with the threads a
+    CTA the wrapper picks there (every SM a CTA); each launch is tallied
+    under its unit and planes."""
+    nb = zfp_kernel._geometry(shape, 3)[2]
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    if sms == 132:
+        assert zfp_kernel.f64_threads(nb, sms) == threads
+    keys = [f"{k} {list(shape)} {planes}" for k in ("encode_f64",
+                                                    "decode_f64")]
+    before = [zfp_kernel.f64_shapes[k] for k in keys]
+    _zfp64_round_trip(_normal64(shape, planes).to(cuda_device), planes)
+    assert [zfp_kernel.f64_shapes[k] - b for k, b in zip(keys, before)] == [
+        1, 1]
+
+
+@pytest.mark.parametrize("planes", [24, 32, 48])
+def test_zfp64_unaligned_odd_and_small_units(cuda_device, planes):
+    """Rows not 16-byte aligned (a view at a one-double offset, d2 even),
+    an odd d2, d2 = 2 mod 4 (the last block in x not whole), a unit of
+    fewer than 32 blocks and one whose last warp is short: the scalar
+    loads and the cropped stores, bit for bit."""
+    shape = (10, 12, 16)
+    n = int(np.prod(shape))
+    buf = _normal64((n + 1,), planes).to(cuda_device)
+    x = buf[1:].view(shape)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    _zfp64_round_trip(x, planes)
+    for i, shape in enumerate([(9, 13, 11), (6, 8, 10), (4, 8, 8),
+                               (12, 12, 140)]):
+        _zfp64_round_trip(_normal64(shape, 10 * planes + i).to(cuda_device),
+                          planes)
+
+
+@pytest.mark.parametrize("threads", [32, 64, 128])
+def test_zfp64_threads_bitwise(cuda_device, monkeypatch, threads):
+    """Every threads a CTA the kernels take, forced, on every route: the
+    warps of a CTA work alone, so the result is the same."""
+    monkeypatch.setattr(zfp_kernel, "f64_threads", lambda nb, sms: threads)
+    for planes in (24, 32, 64):
+        _zfp64_round_trip(_normal64((20, 36, 64), planes).to(cuda_device),
+                          planes)
 
 
 def _fields64(shape, seed):
@@ -948,6 +1016,27 @@ def test_zfp64_refuses_perm_not_in_stream_order(cuda_device, monkeypatch,
     real = zfp_kernel.stream_order
     monkeypatch.setattr(zfp_kernel, "stream_order",
                         lambda p, nd, width=32: 1 - real(p, nd, width))
+    with pytest.raises(_build.KernelError, match=f"zfp_{which}_f64"):
+        if which == "encode":
+            zfp_kernel.encode(x, planes)
+        else:
+            zfp_kernel.decode(payload, emax, x.shape, planes,
+                              dtype="float64")
+        torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("which", ["encode", "decode"])
+@pytest.mark.parametrize("planes", [24, 32, 64])
+def test_zfp64_refuses_tables_not_of_route(cuda_device, monkeypatch, which,
+                                           planes):
+    """The float64 entries check that their plane counts take the route
+    they are passed: the tables of each route (24, 32 and 64 planes:
+    routes 0, 1, 2) launched as the next route are refused."""
+    x = _normal64((8, 8, 8), planes).to(cuda_device)
+    payload, emax = zfp_kernel.encode(x, planes)
+    real = zfp_kernel.f64_route
+    monkeypatch.setattr(zfp_kernel, "f64_route",
+                        lambda p, nd: (real(p, nd) + 1) % 3)
     with pytest.raises(_build.KernelError, match=f"zfp_{which}_f64"):
         if which == "encode":
             zfp_kernel.encode(x, planes)

@@ -469,6 +469,24 @@ def test_f64_stream_order_is_level_order(ndim):
     assert seen == ({0} if ndim == 1 else {0, 1})
 
 
+def _append_fields(fields, counts, nwords):
+    """Plane j's field (uint64 a block) appended at ``counts[j]`` bits, in
+    plane order, into ``nwords`` uint32 payload words a block."""
+    m32 = np.uint64(0xFFFFFFFF)
+    words = np.zeros((fields[0].shape[0], nwords + 2), np.uint64)
+    off = 0
+    for field, k in zip(fields, counts):
+        lo, hi = field & m32, field >> np.uint64(32)
+        wi, sh = divmod(off, 32)
+        sh = np.uint64(sh)
+        words[:, wi] |= (lo << sh) & m32
+        words[:, wi + 1] |= (lo >> (np.uint64(32) - sh)) | ((hi << sh) & m32)
+        words[:, wi + 2] |= hi >> (np.uint64(32) - sh)
+        off += k
+    assert not words[:, nwords:].any()
+    return words[:, :nwords].astype(np.uint32)
+
+
 def _register_packed64(u: np.ndarray, planes: int, ndim: int) -> np.ndarray:
     """The payload ``csrc/zfp64.cu`` packs in registers: the masked 64-bit
     negabinary words ``u`` (nb, N) in the compile-time stream order, each
@@ -477,27 +495,18 @@ def _register_packed64(u: np.ndarray, planes: int, ndim: int) -> np.ndarray:
     ``counts[j]`` bits, in plane order."""
     perm = tkernel.order_perm(tkernel.stream_order(planes, ndim, 64), ndim)
     _, _, counts = tref.level_order(planes, ndim, 64)
-    nwords = tref.payload_words(ndim, planes, 64)
     stream = u[:, list(perm)]
     weights = np.uint64(1) << np.arange(stream.shape[1], dtype=np.uint64)
-    words = np.zeros((u.shape[0], nwords + 2), np.uint64)
-    m32 = np.uint64(0xFFFFFFFF)
-    off = 0
+    fields = []
     for j, k in enumerate(counts):
         bits = (stream >> np.uint64(63 - j)) & np.uint64(1)
         field = (bits * weights).sum(axis=1, dtype=np.uint64)
         # the premise: no position at or past counts[j] has plane j's bit
         assert k == 64 or not (field >> np.uint64(k)).any(), (planes, j)
-        lo, hi = field & m32, field >> np.uint64(32)
-        wi, sh = divmod(off, 32)
-        sh = np.uint64(sh)
-        words[:, wi] |= (lo << sh) & m32
-        words[:, wi + 1] |= (lo >> (np.uint64(32) - sh)) | ((hi << sh) & m32)
-        words[:, wi + 2] |= hi >> (np.uint64(32) - sh)
-        off += k
-    assert off == tref.payload_bits(ndim, planes, 64)
-    assert not words[:, nwords:].any()
-    return words[:, :nwords].astype(np.uint32)
+        fields.append(field)
+    assert sum(counts) == tref.payload_bits(ndim, planes, 64)
+    return _append_fields(fields, counts,
+                          tref.payload_words(ndim, planes, 64))
 
 
 @pytest.mark.parametrize("ndim", [1, 2, 3])
@@ -519,3 +528,237 @@ def test_f64_register_packing_reproduces_payload(ndim):
         got = _register_packed64(u.numpy().view(np.uint64), planes, ndim)
         want, _ = tref.encode_blocks(xt, planes, ndim)
         np.testing.assert_array_equal(got, _u32(want))
+
+
+# the float64 kernels' routes (``kernel.f64_route``): every kept plane in
+# the high halves (0), the planes past 31 at stream positions < 32 only
+# (1), any (2), by plane count 1-64 at ndim 1-3
+F64_ROUTES = {
+    1: "0" * 30 + "1" * 34,
+    2: "0" * 29 + "1" * 35,
+    3: "0" * 27 + "1" * 5 + "2" * 32,
+}
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_f64_route_agrees_with_level_order(ndim):
+    """``f64_route`` at every plane count: route 0 exactly where no plane
+    past 31 has contributors, route 1 where none past 31 has more than 32
+    of them (so only the low halves of stream positions 0-31 keep bits),
+    route 2 elsewhere; from the reference's counts as from the port's.
+    Each (ndim, order, route) the wrapper passes is an instance that
+    ``csrc/zfp64.cu`` compiles."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tkernel.__file__).resolve().parents[2] / "csrc"
+           / "zfp64.cu").read_text()
+    compiled = {tuple(int(d) for d in m)
+                for m in re.findall(r"case (\d)(\d)(\d):", src)}
+    got = ""
+    for planes in range(1, 65):
+        route = tkernel.f64_route(planes, ndim)
+        for counts in (jref.level_order(planes, ndim, 64)[2],
+                       tref.level_order(planes, ndim, 64)[2]):
+            high = len(counts) <= 32
+            low32 = all(k <= 32 for k in counts[32:])
+            assert route == (0 if high else 1 if low32 else 2), planes
+        order = tkernel.stream_order(planes, ndim, 64)
+        assert (ndim, order, route) in compiled, (planes, order, route)
+        got += str(route)
+    assert got == F64_ROUTES[ndim]
+
+
+def test_f64_compile_time_rates_are_the_plain_tables():
+    """``csrc/zfp64.cu`` compiles the paper's rates at ndim 3 (24 and 32
+    planes) with their tables as constants: its per-level plane offsets
+    and level sizes are ``ref``'s, and the plane counts, plane total, row
+    width and keep-masks they give (``fixed_count``, ``P + 5``, ``2 P``,
+    ``fixed_mask``) are ``level_order``'s, ``payload_words``' and
+    ``plane_masks``' at both rates."""
+    import collections
+    import re
+    from pathlib import Path
+
+    src = (Path(tkernel.__file__).resolve().parents[2] / "csrc"
+           / "zfp64.cu").read_text()
+
+    def table(name):
+        body = re.search(name + r"\(int lv\) \{(.*?)\}", src, re.S).group(1)
+        return [int(v) for v in re.findall(r"\? (-?\d+)|: (-?\d+);", body)
+                for v in v if v]
+
+    delta, size = table("level_delta3"), table("level_size3")
+    levels = collections.Counter(tref.coeff_levels(3))
+    assert size == [levels[lv] for lv in range(7)]
+    assert tuple(delta) == tref._SUBBAND_DELTA[3]
+    for planes in (24, 32):
+        _, _, counts = tref.level_order(planes, 3, 64)
+        assert counts == tuple(
+            sum(size[lv] for lv in range(7) if planes + delta[lv] > j)
+            for j in range(planes + 5))
+        assert tref.payload_words(3, planes, 64) == 2 * planes
+        masks = [((1 << 64) - 1) & (((1 << 64) - 1) << (64 - planes - delta[lv]))
+                 for lv in tref.coeff_levels(3)]
+        assert masks == list(tref.plane_masks(planes, 3, 64))
+        assert tkernel.f64_route(planes, 3) == (0 if planes == 24 else 1)
+
+
+def _f64_halves(planes, ndim, seed):
+    """Masked 64-bit negabinary words (nb, N) as uint64 of a block set
+    with zeros, the emax floor and the most negative coefficients."""
+    n = tref.block_size(ndim)
+    xb = _data64((24, n), seed)
+    xb[0] = 0.0
+    xb[1] *= 1e-290
+    xb[2] = _f64_special_rows(n)[6]
+    xt = torch.from_numpy(xb)
+    emax = tref.block_emax(xt)
+    c = tref.fwd_transform(tref.to_fixedpoint(xt, emax), ndim)
+    u = tref.truncate_planes(tref.to_negabinary(c), planes, ndim, 64)
+    return xt, u.numpy().view(np.uint64)
+
+
+def _route_model_fields(u, planes, ndim):
+    """Each plane's field as the route packs it: planes 0-31 from the
+    high halves (bit 31 - j) of every stream position, planes past 31 from
+    the low halves (bit 63 - j) of positions 0-31 only (route 1); the
+    route's premise is asserted on the words."""
+    route = tkernel.f64_route(planes, ndim)
+    assert route in (0, 1)
+    perm = tkernel.order_perm(tkernel.stream_order(planes, ndim, 64), ndim)
+    stream = u[:, list(perm)]
+    hi, lo = stream >> np.uint64(32), stream & np.uint64(0xFFFFFFFF)
+    if route == 0:
+        assert not lo.any()
+    else:
+        assert not lo[:, 32:].any()
+    weights = np.uint64(1) << np.arange(stream.shape[1], dtype=np.uint64)
+    fields = []
+    for j in range(len(tref.level_order(planes, ndim, 64)[2])):
+        src, bit = (hi, 31 - j) if j < 32 else (lo[:, :32], 63 - j)
+        bits = (src >> np.uint64(bit)) & np.uint64(1)
+        fields.append((bits * weights[: src.shape[1]]).sum(
+            axis=1, dtype=np.uint64))
+    return fields
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_f64_routes_0_and_1_reproduce_payload(ndim):
+    """Routes 0 and 1 of the float64 encoder at every plane count they
+    take: route 0 is the 32-bit packing of the masked words' high halves
+    (the float32 stream of the high halves), route 1 adds the low halves
+    of stream positions 0-31 for the planes past 31; both give the plain
+    version's payload bit for bit."""
+    routes = F64_ROUTES[ndim]
+    for planes in range(1, 65):
+        if routes[planes - 1] == "2":
+            continue
+        xt, u = _f64_halves(planes, ndim, 720 + ndim)
+        _, _, counts = tref.level_order(planes, ndim, 64)
+        got = _append_fields(_route_model_fields(u, planes, ndim), counts,
+                             tref.payload_words(ndim, planes, 64))
+        want, _ = tref.encode_blocks(xt, planes, ndim)
+        np.testing.assert_array_equal(got, _u32(want))
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+def test_f64_routes_0_and_1_unpack_like_plain(ndim):
+    """The decoder's side of routes 0 and 1 on random payloads: each
+    plane's field cut from the stream, its bits put back into the high
+    halves (planes 0-31) or the low halves of positions 0-31 (past 31),
+    negabinary undone in 64 bits, ``((hi << 32 | lo) ^ M) - M``, gives the
+    plain version's coefficients; on route 0 that is the 32-bit undo of
+    the high half shifted up by 32."""
+    rng = np.random.default_rng(40 + ndim)
+    m64 = np.uint64(0xAAAAAAAAAAAAAAAA)
+    for planes in range(1, 65):
+        route = tkernel.f64_route(planes, ndim)
+        if route == 2:
+            continue
+        _, _, counts = tref.level_order(planes, ndim, 64)
+        nw = tref.payload_words(ndim, planes, 64)
+        p = rng.integers(0, 2**32, (16, nw), dtype=np.uint64).astype(
+            np.uint32)
+        stream = np.zeros((16, nw * 32), np.uint64)
+        for w in range(nw):
+            for b in range(32):
+                stream[:, 32 * w + b] = (p[:, w] >> np.uint32(b)) & 1
+        perm = tkernel.order_perm(tkernel.stream_order(planes, ndim, 64),
+                                  ndim)
+        n = tref.block_size(ndim)
+        hi = np.zeros((16, n), np.uint64)
+        lo = np.zeros((16, n), np.uint64)
+        off = 0
+        for j, k in enumerate(counts):
+            assert j < 32 or k <= 32
+            for pos in range(k):
+                half, bit = (hi, 31 - j) if j < 32 else (lo, 63 - j)
+                half[:, pos] |= stream[:, off + pos] << np.uint64(bit)
+            off += k
+        c = ((hi << np.uint64(32) | lo) ^ m64) - m64
+        got = np.empty_like(c)
+        got[:, list(perm)] = c
+        want = tref.from_negabinary(tref.unpack_planes(
+            torch.from_numpy(p.view(np.int32)).view(torch.uint32), planes,
+            ndim, 64), 64)
+        np.testing.assert_array_equal(got.view(np.int64), want.numpy())
+        if route == 0:
+            c32 = ((hi.astype(np.uint32) ^ np.uint32(0xAAAAAAAA))
+                   - np.uint32(0xAAAAAAAA))
+            np.testing.assert_array_equal(c32.astype(np.uint64)
+                                          << np.uint64(32), c)
+
+
+def _walk_rows(lane, total, w):
+    """``walk_rows`` of ``csrc/zfp64.cu`` (and ``zfp.cu``): the (word of
+    the run, row, word in the row) that lane ``lane`` visits."""
+    dq, dr = 32 // w, 32 - (32 // w) * w
+    r, c = lane // w, lane % w
+    out = []
+    for i in range(lane, total, 32):
+        out.append((i, r, c))
+        r, c = r + dq, c + dr
+        if c >= w:
+            r, c = r + 1, c - w
+    return out
+
+
+@pytest.mark.parametrize("nwords", [1, 3, 16, 31, 32, 33, 48, 64, 128])
+def test_f64_staging_walk_covers_each_row_word_once(nwords):
+    """The warp's walk over its rows, at every row width the float64
+    kernels stage (48, 64 and 128 words at 24, 32 and 64 planes, ndim 3,
+    where each step wraps a row at most once) and below 32: each word of
+    each of the warp's ``rows`` rows once, word ``c`` of row ``r`` at
+    ``r * nwords + c`` of the contiguous run, for full and short last
+    warps."""
+    for rows in (32, 31, 5, 1):
+        seen = [v for lane in range(32)
+                for v in _walk_rows(lane, rows * nwords, nwords)]
+        assert sorted(i for i, _, _ in seen) == list(range(rows * nwords))
+        assert all(i == r * nwords + c and 0 <= c < nwords
+                   for i, r, c in seen)
+
+
+H100_SMS = 132
+# (unit, blocks): the precision tier's units and the paper's
+F64_UNITS = {(48, 96, 96): 6912, (96, 96, 96): 13824,
+             (96, 1152, 1152): 1990656}
+
+
+def test_f64_threads_fill_the_card():
+    """The float64 kernels' threads a CTA: the precision tier's units take
+    CTAs small enough that every SM gets one (32 and 64 threads on an
+    H100's 132 SMs), the paper's unit takes 128; at every unit size the
+    choice is the largest whose grid still reaches every SM."""
+    want = {(48, 96, 96): 32, (96, 96, 96): 64, (96, 1152, 1152): 128}
+    for shape, nb in F64_UNITS.items():
+        assert tkernel._geometry(shape, 3)[2] == nb
+        assert tkernel.f64_threads(nb, H100_SMS) == want[shape]
+    for nb in list(range(1, 400)) + [4223, 4224, 8447, 8448, 16895, 16896]:
+        t = tkernel.f64_threads(nb, H100_SMS)
+        assert t in tkernel.F64_THREADS
+        if t != tkernel.F64_THREADS[-1]:
+            assert -(-nb // t) >= H100_SMS
+        assert all(-(-nb // big) < H100_SMS
+                   for big in tkernel.F64_THREADS if big > t)

@@ -4,11 +4,14 @@ at every shape the port's main paths launch them, for the tree at
 ``--root``.
 
     python3 tools/kernel_shapes.py [--root DIR] [--label NAME]
-                                   [--f64-zlens N ...]
+                                   [--f64-zlens N ...] [--f64-threads N ...]
 
 Needs one CUDA device and ``nvcc``; builds the kernels of that tree's
 ``src/repro_torch`` at first use. Prints the card line (``nvidia-smi``
-name and power limit), then one JSON line per (kernel, shape): the
+name and power limit), the ``ptxas`` lines of every kernel of the tree
+(registers, stack frame, spills) with its static SASS instruction count
+(``cuobjdump -sass``, where the toolkit has it), then one JSON line per
+(kernel, shape): the
 device time a launch from ``torch.profiler`` (the kernel alone), the
 CUDA-event time of the Python call, the launches of that shape on the
 paths ``chip_smoke.py`` drives and, for the codec and stencil, the byte
@@ -34,8 +37,15 @@ bound (each input read once, each output written once, at 3.35 TB/s):
   64 layers of one prefill (64);
 * float64, the paper's own type (``chip_smoke.py``'s float64 paper
   sweep: 1152^3, ndiv 8, bt 12, code 4 at 24 planes, one sweep and a
-  gather): the float64 codec on the same units, 27 and 18 launches each
-  as above, and at 32 planes (codes 2 and 3; not on that path); the
+  gather): the float64 codec on the same units, encode 27 and 18
+  launches (both fields seeded, p_prev after the sweep), decode 18 and 12
+  (both fields in the sweep), and at 32 planes (codes 2 and 3; not on
+  that path); the precision tier's (phase 5p) codec units, (48, 96, 96)
+  and (96, 96, 96) at 24 planes (code 4) and 32 (codes 2 and 3): decode
+  1440 and 720 launches at each rate, encode 724 and 362 (its 360 sweeps
+  a curve); on a tree whose float64 codec picks its threads a CTA, each
+  of its rows carries the count (``threads``), and ``--f64-threads``
+  times its rows at 24 planes again with each given count forced; the
   float64 rung at the (240, 1152, 1152) block, 8 blocks of 12 rungs (96
   launches), and the float64 single step there (not on that path);
   the precision tier's (phase 5p) stencil shapes: the engine's rung on
@@ -70,10 +80,19 @@ STENCIL = [("wave_step", (20, 1152, 1152), 16),
            ("wave_step", (240, 1152, 1152), 0),
            ("wave_rung", (240, 1152, 1152), 192)]
 SCAN = [((8, 1, 8192, 16), 10176), ((8, 128, 8192, 16), 64)]
-CODEC64 = [(k, (z, 1152, 1152), 24, 3, n) for k in ("zfp_decode", "zfp_encode")
-           for z, n in PAPER_UNITS[:2]]
+# (depth, encodes, decodes): the float64 paper sweep's units at 24 planes
+# and the precision tier's at each of 24 and 32
+PAPER64_UNITS = ((96, 27, 18), (48, 18, 12))
+PREC_UNITS = ((48, 724, 1440), (96, 362, 720))
+CODEC64 = [("zfp_decode", (z, 1152, 1152), 24, 3, d)
+           for z, _, d in PAPER64_UNITS]
+CODEC64 += [("zfp_encode", (z, 1152, 1152), 24, 3, e)
+            for z, e, _ in PAPER64_UNITS]
 CODEC64 += [(k, (96, 1152, 1152), 32, 3, 0)
             for k in ("zfp_decode", "zfp_encode")]
+CODEC64 += [(k, (z, 96, 96), planes, 3, d if k == "zfp_decode" else e)
+            for planes in (24, 32) for k in ("zfp_decode", "zfp_encode")
+            for z, e, d in PREC_UNITS]
 STENCIL64 = [("wave_step", (240, 1152, 1152), 0),
              ("wave_rung", (240, 1152, 1152), 96),
              ("wave_step", (192, 96, 96), 17280),
@@ -100,6 +119,51 @@ def device_ms(torch, fn, name: str, reps: int) -> float:
     raise RuntimeError(f"the profiler saw no {name} launch")
 
 
+def ptxas_lines(log: str):
+    """Registers, stack frame and spills of each kernel in ``nvcc -Xptxas
+    -v`` output."""
+    import re
+
+    out, entry = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            entry = {"entry": m.group(1)}
+            out.append(entry)
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("stack_frame", r"(\d+) bytes stack frame"),
+                         ("spill_stores", r"(\d+) bytes spill stores")):
+            m = re.search(pat, line)
+            if m and entry is not None:
+                entry[key] = int(m.group(1))
+    return out
+
+
+def sass_counts(lib: Path):
+    """Static SASS instructions of each kernel in the library ``lib``
+    (``cuobjdump -sass``), by mangled name; empty without ``cuobjdump``."""
+    import re
+    import shutil
+    import subprocess
+
+    exe = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(exe).exists() or not lib.exists():
+        return {}
+    out = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                         text=True).stdout
+    counts, fn = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?[A-Z]",
+                             line):
+            counts[fn] += 1
+    return counts
+
+
 def event_ms(torch, fn, reps: int) -> float:
     """Median CUDA-event time of one call of ``fn``."""
     times = []
@@ -123,6 +187,9 @@ def main() -> int:
     ap.add_argument("--f64-zlens", type=int, nargs="*", default=[],
                     help="chunk lengths to force on the float64 stencil at "
                          "the precision tier's shapes")
+    ap.add_argument("--f64-threads", type=int, nargs="*", default=[],
+                    help="threads a CTA to force on the float64 codec at "
+                         "24 planes")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve() / "src"))
 
@@ -138,7 +205,18 @@ def main() -> int:
         print("kernel_shapes: no CUDA device", file=sys.stderr)
         return 2
     print(device_mod.card_line(), flush=True)
-    _build.build_all()
+    logs = _build.build_all()
+    for name, log in logs.items():
+        path = _build.BUILD_DIR / f"{name}.log"
+        if not log and path.exists():
+            log = path.read_text()
+        entries = ptxas_lines(log)
+        sass = sass_counts(_build._lib_path(name))
+        for e in entries:
+            if e["entry"] in sass:
+                e["sass_instructions"] = sass[e["entry"]]
+        print(json.dumps({"label": args.label, "source": name,
+                          "ptxas": entries}), flush=True)
 
     def emit(kernel, shape, launches, fn, name, **extra):
         dev = device_ms(torch, fn, name, args.reps)
@@ -162,8 +240,14 @@ def main() -> int:
         return sum(t.numel() * t.element_size()
                    for t in tensors) / HBM_BYTES_PER_S * 1e3
 
-    def codec(rows, dtype, suffix, tag):
+    def codec(rows, dtype, suffix, tag, **forced):
         for kernel, shape, planes, ndim, launches in rows:
+            extra = dict(forced)
+            if suffix and not forced and hasattr(zfp_kernel, "f64_threads"):
+                nb = zfp_kernel._geometry(shape, ndim)[2]
+                extra["threads"] = zfp_kernel.f64_threads(
+                    nb, torch.cuda.get_device_properties(0)
+                    .multi_processor_count)
             x = normal(shape, 7.3, dtype)
             payload, emax = zfp_kernel.encode(x, planes, ndim)
             bound = bound_ms(x, payload, emax)
@@ -177,7 +261,7 @@ def main() -> int:
                                                ndim, **kw)
                 name = f"decode{tag}_kernel"
             emit(kernel + suffix, shape, launches, fn, name, planes=planes,
-                 bound_ms=bound)
+                 bound_ms=bound, **extra)
             del x, payload, emax
             torch.cuda.empty_cache()
 
@@ -218,6 +302,13 @@ def main() -> int:
                 stencil(STENCIL64[2:], torch.float64, "_f64", "64",
                         zlen_forced=zlen)
             stencil_kernel.z_chunk = chosen
+        if args.f64_threads and hasattr(zfp_kernel, "f64_threads"):
+            chosen = zfp_kernel.f64_threads
+            for threads in args.f64_threads:
+                zfp_kernel.f64_threads = lambda nb, sms, t=threads: t
+                codec([r for r in CODEC64 if r[2] == 24], torch.float64,
+                      "_f64", "64", threads_forced=threads)
+            zfp_kernel.f64_threads = chosen
     else:
         print(json.dumps({"label": args.label,
                           "skipped": "no float64 kernels in this tree"}),
