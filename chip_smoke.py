@@ -68,6 +68,28 @@ non-zero:
    threads, on the caller's thread and left on the caller's critical
    path, the window's peak, the pinned bytes and the idle share, beside
    the sync engine's rows;
+5c. checkpoint, restore and recovery of the live engine, the launch
+   counts zeroed first (path ``ooc_ckpt``), the snapshots under
+   ``build/smoke_ckpt`` (removed after): (a) 1152^3, ndiv 8, bt 12, code
+   4, no residency, in a run of its own: sweep, the overlapped cut (raw
+   shards), sweep; both fields bit for bit phase 4's two sweeps, the
+   transfers the task graph's with ``ckpt_every=1``; restored on the card
+   and swept once, bit for bit again; the snapshot's bytes reckoned
+   beside the disk's free bytes first (Z cut, whole blocks kept, only if
+   one snapshot does not fit); its boundary, drain, shard crc32 and
+   write seconds, the load seconds and the cut sweep's wall beside phase
+   5b's uncut one. (b) the bt 1 volume at 90% of its working set, a cut
+   at both boundaries: the cut pins dirty residents and their snapshot
+   D2H runs on the d2h stream; fields bit for bit phase 5's, the transfer
+   log (``ckpt`` records included) and the pin and snapshot-flush
+   counters the task graph's; the first snapshot restored and swept
+   once, bit for bit. (c) ``run`` with a cut a sweep and recovery, under
+   a crash at boundary 1 and a shard-write fault healed by retry: bit for
+   bit, one rollback, every staging slot back in the pool. (d) a lossy
+   checkpoint of (b)'s engine at 16 planes: the raw float32 units through
+   the ``zfp.cu`` kernels at ndim 1, the shards byte for byte those the
+   plain codec writes from the same leaves, the kernels' decode bit for
+   bit the plain one;
 5f. the paper's float64 cell: 1152^3, ndiv 8, bt 12, code 4 at 24/64
    through ``OutOfCoreWave`` (the host bytes reckoned and printed
    first; Z cut, units kept, only if they do not fit), one sweep: wire
@@ -142,9 +164,11 @@ non-zero:
    every layer's ``h`` within the kernel's tolerance;
 10. the kernels line: every kernel with its launches on the main paths
    (the out-of-core wave of phases 4 and 5, the live engine of phase
-   5b, the float64 paper sweep, live run and precision tier of phases
-   5f, 5bf and 5p, the serving slice of phase 7 and the SSM slice of
-   phase 9, each counted from zero), its error and times.
+   5b, its checkpoints of phase 5c, the float64 paper sweep, live run
+   and precision tier of phases 5f, 5bf and 5p, the serving slice of
+   phase 7 and the SSM slice of phase 9, each counted from zero), its
+   error and times; the float32 codec's rows give their launches by
+   ndim.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -155,8 +179,10 @@ import collections
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
@@ -174,7 +200,13 @@ from repro_torch import device as device_mod  # noqa: E402
 from repro_torch.core import outofcore  # noqa: E402
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.base import SHAPES  # noqa: E402
-from repro_torch.core.executor import AsyncExecutor  # noqa: E402
+from repro_torch.checkpoint import checkpoint as ckpt  # noqa: E402
+from repro_torch.core.executor import (  # noqa: E402
+    AsyncExecutor, CheckpointPolicy, RecoveryPolicy,
+)
+from repro_torch.distributed.fault import (  # noqa: E402
+    FaultInjector, FaultPlan, FaultSpec, RetryPolicy,
+)
 from repro_torch.core.outofcore import (  # noqa: E402
     OOCConfig, OutOfCoreWave, paper_code_fields, to_host,
 )
@@ -387,10 +419,12 @@ def kernel_ptxas(source: str, entry: str):
 
 
 def path_counts():
-    """The codec and stencil launch counts, by counter name, and the
-    float64 codec's by counter, unit shape and planes."""
+    """The codec and stencil launch counts, by counter name, the float64
+    codec's by counter, unit shape and planes, and the float32 codec's by
+    counter and ndim."""
     return {**{f"zfp_{k}": v for k, v in zfp_kernel.launches.items()},
             **{f"zfp_{k}": v for k, v in zfp_kernel.f64_shapes.items()},
+            **{f"zfp_{k}": v for k, v in zfp_kernel.f32_ndims.items()},
             **stencil_kernel.launches}
 
 
@@ -992,9 +1026,11 @@ def paper_slice():
 # ----------------------------------------------------------------------
 
 
-def run_live(cfg, fields, label, **kw):
+def run_live(cfg, fields, label, cut=None, **kw):
     """Seed the live engine and run LIVE_SWEEPS sweeps, the window open
-    across each boundary (drained after the last). Its row: the wall of
+    across each boundary (drained after the last); ``cut(eng)`` runs at
+    each boundary (a checkpoint cut; its seconds in ``cut_s``). Its
+    row: the wall of
     each sweep (host clock; the last includes the drain), each stream's
     busy seconds (CUDA events around the engine's copies and compute
     spans), device compute (events around the codec and stencil calls,
@@ -1013,10 +1049,14 @@ def run_live(cfg, fields, label, **kw):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         dev0, crc0, thr0 = clock.device_s(), clock.crc_s, clock.crc_thread_s
-        walls = []
+        walls, cuts = [], []
         for k in range(LIVE_SWEEPS):
             ts = time.perf_counter()
             eng.sweep()
+            if cut is not None:
+                tc = time.perf_counter()
+                cut(eng)
+                cuts.append(time.perf_counter() - tc)
             if k == LIVE_SWEEPS - 1:
                 eng.finish()
                 torch.cuda.synchronize()
@@ -1031,6 +1071,7 @@ def run_live(cfg, fields, label, **kw):
     row = {"phase": label, "engine": "live", "schedule": LIVE_SCHEDULE,
            "shape": list(cfg.shape), "bt": cfg.bt, "sweeps": LIVE_SWEEPS,
            "seed_s": t1 - t0, "sweep_wall_s": walls, "wall_s": wall,
+           **({"cut_s": cuts} if cut is not None else {}),
            "stream_busy_s": busy, "device_compute_s": dev,
            "crc32_thread_s": thr, "crc32_caller_s": crc,
            "host_job_s": st["lanes"]["host_job_s"],
@@ -1071,7 +1112,8 @@ def live_paper(fields, ref2, sync4, sync_rows):
     code 1 bit for bit the in-core run of 2 BT steps, code 4 bit for bit
     the synchronous engine's two sweeps and within 5e-2 of the in-core
     run; the transfer summary that of the task graph and of the plan
-    arithmetic, twice."""
+    arithmetic, twice. Returns code 4's row."""
+    rows = {}
     for code in (4, 1):
         cfg = OOCConfig(PAPER, NDIV, BT, paper_code_fields(code))
         eng, row = run_live(cfg, fields, f"live_code{code}")
@@ -1105,6 +1147,7 @@ def live_paper(fields, ref2, sync4, sync_rows):
         row["sync"] = sync_rows[code]
         row["check"] = out
         emit(row)
+        rows[code] = row
         if code == 1:
             check(all(v["bitwise_incore"] for v in out.values()),
                   "live code 1 is not bit for bit the in-core run")
@@ -1115,6 +1158,22 @@ def live_paper(fields, ref2, sync4, sync_rows):
                   f"live code 4 rel err {out['p_cur']}")
         del eng
         torch.cuda.empty_cache()
+    return rows[4]
+
+
+def residency_cell():
+    """The bt 1 volume's config, its working set's bytes and the
+    residency budget, 90% of them: LRU over a cyclic sweep keeps nothing
+    a sweep later below ~80% of the working set (the task graph says
+    so); at 90% part of the units hit and the rest are evicted and
+    flushed."""
+    shape = (SMALL_Z,) + PAPER[1:]
+    cfg = OOCConfig(shape, NDIV, 1, paper_code_fields(4))
+    _, y, x = shape
+    ws = sum(unit_wire_bytes(spec, (hi - lo, y, x), 4)
+             for spec in cfg.fields.values()
+             for _, _, (lo, hi) in cfg.plan.units())
+    return cfg, ws, ws * 9 // 10
 
 
 def live_residency(fields, want, sync_rows):
@@ -1125,16 +1184,7 @@ def live_residency(fields, want, sync_rows):
     gathered fields ``want``, the bt 1 sync engine's after the same 2
     sweeps from the same ``fields`` (``single_step_dispatch``), bit for
     bit."""
-    shape = (SMALL_Z,) + PAPER[1:]
-    cfg = OOCConfig(shape, NDIV, 1, paper_code_fields(4))
-    _, y, x = shape
-    ws = sum(unit_wire_bytes(spec, (hi - lo, y, x), 4)
-             for spec in cfg.fields.values()
-             for _, _, (lo, hi) in cfg.plan.units())
-    # LRU over a cyclic sweep keeps nothing a sweep later below ~80% of
-    # the working set (the task graph says so); at 90% part of the
-    # units hit and the rest are evicted and flushed
-    budget = ws * 9 // 10
+    cfg, ws, budget = residency_cell()
     before = stencil_kernel.launches["wave_step"]
     eng, row = run_live(cfg, fields, "live_residency", cache_bytes=budget)
     steps = stencil_kernel.launches["wave_step"] - before
@@ -1161,12 +1211,15 @@ def live_residency(fields, want, sync_rows):
     check(cache["hits"] > 0 and row["transfer_summary"]["h2d_count"] > 0,
           "live residency: the budget kept nothing or everything")
     check(all(same.values()), "live residency: differs from sync engine")
+    return row
 
 
 def live_slice(fields, ref2, sync4, sync_rows, bt1):
-    live_paper(fields, ref2, sync4, sync_rows)
-    live_residency(*bt1)
-    return path_counts()
+    """Phase 5b. Returns its launch counts and the rows of live code 4
+    and of the residency run (phase 5c's uncut runs)."""
+    rows = {"paper": live_paper(fields, ref2, sync4, sync_rows),
+            "residency": live_residency(*bt1)}
+    return path_counts(), rows
 
 
 def single_step_dispatch():
@@ -1198,6 +1251,318 @@ def single_step_dispatch():
           "bitwise": same})
     check(all(same.values()), "bt=1 engine: cuda and ref backends differ")
     return counts, (fields, want, engines["cuda"].smoke_rows)
+
+
+# ----------------------------------------------------------------------
+# phase 5c: checkpoint, restore and recovery of the live engine
+# ----------------------------------------------------------------------
+
+# inside the checkout (``build/`` is not committed); removed after the phase
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "smoke_ckpt"
+
+
+def snapshot_reckoning(cfg):
+    """The bytes a raw snapshot of ``cfg``'s store writes, by field: a
+    raw unit's float32 planes, a compressed unit's uint32 payload and its
+    int32 emax a 4^3 block (the store's leaves), from the plan."""
+    _, y, x = cfg.shape
+    out = {}
+    for name, spec in cfg.fields.items():
+        n = 0
+        for _, _, (lo, hi) in cfg.plan.units():
+            if spec.compressed:
+                nb = -(-(hi - lo) // 4) * -(-y // 4) * -(-x // 4)
+                n += nb * 4 * (zfp_ref.payload_words(3, spec.planes) + 1)
+            else:
+                n += (hi - lo) * y * x * 4
+        out[name] = n
+    out["total"] = sum(out.values())
+    return out
+
+
+def ckpt_log(eng):
+    return sorted((t.direction, t.field, t.unit, t.sweep, t.flush, t.ckpt,
+                   t.wire_bytes if t.flush or t.ckpt else None)
+                  for t in eng.transfers)
+
+
+def ckpt_model_log(tasks):
+    return sorted((t.kind, t.field, t.unit, t.sweep, t.flush, t.ckpt,
+                   int(t.amount) if t.flush or t.ckpt else None)
+                  for t in tasks if t.kind in ("h2d", "d2h"))
+
+
+def gathered_equal(eng, want):
+    """Each field of ``eng`` bit for bit ``want``'s (numpy or card)."""
+    out = {}
+    for name, ref in want.items():
+        g = eng.gather(name)
+        out[name] = (same_bits(torch.from_numpy(g).cuda(), ref)
+                     if isinstance(ref, torch.Tensor)
+                     else bool(np.array_equal(g, ref)))
+        del g
+    return out
+
+
+def ckpt_paper(fields, sync4, uncut):
+    """5c (a): the 1152^3 code-4 cell through the live engine with its
+    own snapshot: sweep, the overlapped cut (raw shards), sweep, finish;
+    both fields bit for bit phase 4's two sweeps, the transfers the task
+    graph's with ``ckpt_every=1``; then a restore on the card and one
+    sweep, bit for bit again. The snapshot is reckoned first beside the
+    disk's free bytes; Z is cut, whole blocks kept, only if one snapshot
+    does not fit."""
+    cfg = OOCConfig(PAPER, NDIV, BT, paper_code_fields(4))
+    root = CKPT_DIR / "paper"
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    need = snapshot_reckoning(cfg)
+    z_cut = None
+    if free < 1.1 * need["total"]:
+        block = PAPER[0] // NDIV
+        for n in range(NDIV - 1, 1, -1):
+            cfg = OOCConfig((block * n,) + PAPER[1:], n, BT,
+                            paper_code_fields(4))
+            if free >= 1.1 * snapshot_reckoning(cfg)["total"]:
+                break
+        z_cut = cfg.shape[0]
+        check(free >= 1.1 * snapshot_reckoning(cfg)["total"],
+              f"the disk ({free} bytes free) holds no snapshot")
+        fields = {k: np.ascontiguousarray(v[:z_cut])
+                  for k, v in fields.items()}
+        sync = OutOfCoreWave(cfg, fields["p_prev"], fields["p_cur"],
+                             fields["vel2"])
+        sync.run(LIVE_SWEEPS * BT)
+        sync4 = {n: torch.from_numpy(sync.gather(n)).cuda()
+                 for n in ("p_prev", "p_cur")}
+        del sync
+    emit({"phase": "ckpt_paper_reckoning", "shape": list(cfg.shape),
+          "snapshot_bytes": need, "disk_free_bytes": free,
+          "z_cut": z_cut, "reason": None if z_cut is None else
+          "the disk cannot hold one snapshot of 1152^3",
+          "cut_snapshot_bytes": None if z_cut is None
+          else snapshot_reckoning(cfg)})
+
+    def cut(eng):
+        if eng.sweeps_done == 1:
+            eng.begin_checkpoint(str(root), zstd_level=0, keep=1)
+
+    eng, row = run_live(cfg, fields, "ckpt_paper", cut=cut)
+    st = eng.stats()["checkpoint"]
+    tasks = build_sweep_tasks(cfg, sweeps=LIVE_SWEEPS,
+                              schedule=LIVE_SCHEDULE, ckpt_every=1)
+    same_log = ckpt_model_log(tasks) == ckpt_log(eng)
+    path = eng.last_checkpoint_path
+    eng.close()
+    cut_bits = gathered_equal(eng, sync4)
+    del eng
+    gc.collect()
+    t0 = time.perf_counter()
+    back = AsyncExecutor.restore(str(root), device="cuda", backend="cuda")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    back.sweep()
+    back.finish()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    back.close()
+    back_bits = gathered_equal(back, sync4)
+    restored_at = back.sweeps_done - 1
+    del back
+    gc.collect()
+    shutil.rmtree(root)
+    row.update(
+        snapshot_bytes=need["total"], shard_bytes=st["shard_bytes"],
+        boundary_block_s=row["cut_s"][0], drain_s=st["drain_s"],
+        snapshot_s=row["cut_s"][0] + st["drain_s"],
+        shard_crc32_s=st["shard_crc32_s"], shard_write_s=st["shard_write_s"],
+        load_s=t1 - t0, restored_sweep_s=t2 - t1,
+        cut_sweep_wall_s=row["sweep_wall_s"][1],
+        uncut_sweep_wall_s=uncut["sweep_wall_s"][1] if z_cut is None
+        else None,
+        transfers_equal_graph=same_log, bitwise_sync=cut_bits,
+        restored_bitwise_sync=back_bits, checkpoint=Path(path).name)
+    emit(row)
+    check(st["overlapped"] == 1 and Path(path).name == "step_0000000001",
+          f"5c (a): no snapshot was published at boundary 1: {st}")
+    check(same_log, "5c (a): transfers differ from the task graph")
+    check(all(cut_bits.values()), f"5c (a): cut run differs: {cut_bits}")
+    check(restored_at == 1 and all(back_bits.values()),
+          f"5c (a): restored run differs: {back_bits}")
+
+
+def ckpt_residency(fields, want, uncut):
+    """5c (b)-(d) on the bt 1 volume at 90% of its working set. (b):
+    sweep, the overlapped cut, sweep, the cut again, finish: the cut pins
+    dirty residents and their snapshot D2H runs on the d2h stream; the
+    fields ``want`` bit for bit, the transfer log with its ``ckpt``
+    records and the pin and snapshot-flush counters the task graph's with
+    ``ckpt_every=1``; the first snapshot restored and swept once, bit for
+    bit. (c): ``run`` with periodic cuts and recovery under a crash at
+    boundary 1 and a shard-write fault healed by retry: bit for bit, one
+    rollback, the pool whole. (d): a lossy checkpoint (16 planes) of the
+    (b) engine codes its raw float32 units with the ``zfp.cu`` kernels at
+    ndim 1: shards byte for byte those the plain codec writes from the
+    same leaves on the CPU, and the kernels' decode bit for bit the plain
+    codec's (run on the card)."""
+    cfg, ws, budget = residency_cell()
+    root = CKPT_DIR / "residency"
+
+    def cut(eng):
+        eng.begin_checkpoint(str(root), zstd_level=0, keep=2)
+
+    eng, row = run_live(cfg, fields, "ckpt_residency", cut=cut,
+                        cache_bytes=budget)
+    stats = {}
+    tasks = build_sweep_tasks(cfg, sweeps=LIVE_SWEEPS,
+                              schedule=LIVE_SCHEDULE, cache_bytes=budget,
+                              policy="write-back", ckpt_every=1, stats=stats)
+    cache = eng.stats()["cache"]
+    same_log = ckpt_model_log(tasks) == ckpt_log(eng)
+    counters = ("pins", "pin_releases", "cow_shadows", "ckpt_flushes",
+                "ckpt_flush_wire_bytes", "hits", "evictions", "flushes")
+    same_cache = {k: cache[k] == stats[k] for k in counters}
+    ckpt_d2h = sum(t.ckpt for t in eng.transfers)
+    st = eng.stats()["checkpoint"]
+    bits = gathered_equal(eng, want)
+    back = AsyncExecutor.restore(str(root / "step_0000000001"),
+                                 device="cuda", backend="cuda")
+    back.sweep()
+    back.close()
+    back_bits = gathered_equal(back, want)
+    del back
+    row.update(budget_bytes=budget, working_set_bytes=ws,
+               cache={k: cache[k] for k in counters},
+               ckpt_d2h_records=ckpt_d2h, boundary_block_s=row["cut_s"],
+               drain_s=st["drain_s"], shard_bytes=st["shard_bytes"],
+               shard_crc32_s=st["shard_crc32_s"],
+               shard_write_s=st["shard_write_s"],
+               cut_sweep_wall_s=row["sweep_wall_s"][1],
+               uncut_sweep_wall_s=uncut["sweep_wall_s"][1],
+               transfers_equal_graph=same_log, cache_equal_graph=same_cache,
+               bitwise_sync=bits, restored_bitwise_sync=back_bits)
+    emit(row)
+    check(cache["pins"] > 0 and ckpt_d2h == cache["ckpt_flushes"] > 0,
+          f"5c (b): the cut pinned nothing: {cache}")
+    check(same_log and all(same_cache.values()),
+          f"5c (b): transfers or counters differ from the graph: "
+          f"{same_cache}")
+    check(all(bits.values()) and all(back_bits.values()),
+          f"5c (b): differs from the sync engine: {bits} {back_bits}")
+    lossy_leaves(eng)
+    eng.close()
+    del eng
+    recovery(cfg, fields, want, budget)
+    shutil.rmtree(CKPT_DIR)
+
+
+def plain_leaf_decode(path, entry):
+    """A raw lossy shard (``zfp+raw``: block count, uint32 payload, int16
+    emax) decoded by the plain codec on the card."""
+    blob = (path / entry["file"]).read_bytes()
+    n, w = int.from_bytes(blob[:8], "little"), entry["payload_words"]
+    payload = np.frombuffer(blob[8:8 + n * w * 4], np.int32).reshape(n, w)
+    emax = np.frombuffer(blob[8 + n * w * 4:], np.int16).astype(np.int32)
+    size = math.prod(entry["shape"])
+    c = zfp_ref.Compressed(
+        torch.from_numpy(payload.copy()).cuda().view(torch.uint32),
+        torch.from_numpy(emax).cuda(), (-(-size // 4) * 4,),
+        entry["planes"], 1, "float32")
+    out = zfp_ops.decompress(c, backend="ref").cpu().numpy()
+    return out[:size].reshape(entry["shape"])
+
+
+def lossy_leaves(eng):
+    """5c (d), on the engine of (b) after its run."""
+    before = dict(zfp_kernel.f32_ndims)
+    t0 = time.perf_counter()
+    path = Path(eng.checkpoint(str(CKPT_DIR / "lossy"), lossy_planes=16,
+                               zstd_level=0))
+    t1 = time.perf_counter()
+    encodes = zfp_kernel.f32_ndims["encode ndim1"] - before.get(
+        "encode ndim1", 0)
+    leaves, _ = eng.store.state_dict()
+    plain = Path(ckpt.save(str(CKPT_DIR / "lossy_plain"), eng.sweeps_done,
+                           leaves, lossy_planes=16, zstd_level=0,
+                           device="cpu"))
+    t2 = time.perf_counter()
+    names = sorted(f.name for f in path.iterdir() if f.name != "manifest.json")
+    same_files = names == sorted(f.name for f in plain.iterdir()
+                                 if f.name != "manifest.json") and all(
+        (path / n).read_bytes() == (plain / n).read_bytes() for n in names)
+    table = ckpt.read_manifest(str(path))["leaves"]
+    same_table = table == ckpt.read_manifest(str(plain))["leaves"]
+    lossy = [k for k, e in table.items() if e["codec"].startswith("zfp+")]
+    t3 = time.perf_counter()
+    _, kernel_out, _ = ckpt.load(str(path), device="cuda")
+    t4 = time.perf_counter()
+    decodes = zfp_kernel.f32_ndims["decode ndim1"] - before.get(
+        "decode ndim1", 0)
+    same_decode = all(np.array_equal(
+        kernel_out[k].view(np.uint8),
+        plain_leaf_decode(path, table[k]).view(np.uint8)) for k in lossy)
+    t5 = time.perf_counter()
+    err = max((float(np.abs(kernel_out[k] - leaves[k]).max())
+               for k in lossy), default=None)
+    emit({"phase": "ckpt_lossy", "planes": 16, "lossy_leaves": len(lossy),
+          "lossy_values": sum(int(np.prod(table[k]["shape"]))
+                              for k in lossy),
+          "encode_ndim1_launches": encodes, "decode_ndim1_launches": decodes,
+          "shards_equal_plain": same_files, "table_equal_plain": same_table,
+          "decode_equal_plain": same_decode, "max_abs_err": err,
+          "kernel_save_s": t1 - t0, "plain_save_s": t2 - t1,
+          "kernel_load_s": t4 - t3, "plain_decode_card_s": t5 - t4})
+    check(lossy and encodes == decodes == len(lossy),
+          f"5c (d): {encodes} encodes, {decodes} decodes for "
+          f"{len(lossy)} lossy leaves")
+    check(same_files and same_table,
+          "5c (d): the kernels' lossy shards differ from the plain codec's")
+    check(same_decode, "5c (d): the kernels' decode differs from the plain")
+
+
+def recovery(cfg, fields, want, budget):
+    """5c (c)."""
+    root = CKPT_DIR / "recovery"
+    plan = FaultPlan([FaultSpec(kind="crash", sweep=1),
+                      FaultSpec(kind="shard", field="p_cur", unit="R0")])
+    eng = AsyncExecutor(cfg, fields["p_prev"], fields["p_cur"],
+                        fields["vel2"], schedule=LIVE_SCHEDULE,
+                        cache_bytes=budget, retry=RetryPolicy(attempts=2),
+                        injector=FaultInjector(plan))
+    t0 = time.perf_counter()
+    eng.run(LIVE_SWEEPS, ckpt_policy=CheckpointPolicy(
+        str(root), every_sweeps=1, zstd_level=0),
+        recovery=RecoveryPolicy(str(root), zstd_level=0))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = eng.stats()
+    whole = st["lanes"]["free_slots"] == len(eng.lanes._slots)
+    eng.close()
+    bits = gathered_equal(eng, want)
+    log = [dict(e, checkpoint=Path(e["checkpoint"]).name)
+           for e in eng.recovery_log]
+    emit({"phase": "ckpt_recovery", "wall_s": wall, "recovery_log": log,
+          "injected": st["injected"],
+          "recoveries": st["cache"]["recoveries"],
+          "replayed_sweeps": st["cache"]["replayed_sweeps"],
+          "shard_retries": st["cache"]["shard_retries"],
+          "checkpoint": st["checkpoint"], "pool_whole": whole,
+          "bitwise_sync": bits})
+    check(len(log) == 1 and st["cache"]["recoveries"] == 1
+          and st["injected"].get("crashes") == 1,
+          f"5c (c): expected one rollback: {log}")
+    check(st["cache"]["shard_retries"] > 0, "5c (c): no shard write retried")
+    check(whole, "5c (c): staging slots still held after the run")
+    check(all(bits.values()), f"5c (c): differs from the sync engine: {bits}")
+
+
+def ckpt_slice(fields, sync4, bt1, uncut_rows):
+    """Phase 5c. Returns its launch counts."""
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    ckpt_paper(fields, sync4, uncut_rows["paper"])
+    torch.cuda.empty_cache()
+    ckpt_residency(bt1[0], bt1[1], uncut_rows["residency"])
+    return path_counts()
 
 
 # ----------------------------------------------------------------------
@@ -1693,6 +2058,7 @@ def serving_slice():
         outs, logits, wall, eng = serve(cfg, params, prompts, MAX_NEW, "cuda")
     counts = {"zfp_encode": zfp_kernel.launches["encode"],
               "zfp_decode": zfp_kernel.launches["decode"],
+              **{f"zfp_{k}": v for k, v in zfp_kernel.f32_ndims.items()},
               "cdecode": cdecode_kernel.launches["cdecode"]}
     check(all(len(o) == MAX_NEW for o in outs), "a request fell short")
     check(bool(torch.isfinite(logits).all()), "non-finite logits")
@@ -2007,6 +2373,7 @@ def ssm_slice():
     counts = {"sscan": sscan_kernel.launches["sscan"],
               "zfp_encode": zfp_kernel.launches["encode"],
               "zfp_decode": zfp_kernel.launches["decode"],
+              **{f"zfp_{k}": v for k, v in zfp_kernel.f32_ndims.items()},
               "cdecode": cdecode_kernel.launches["cdecode"],
               **stencil_kernel.launches}
     del eng
@@ -2138,12 +2505,21 @@ def main() -> int:
     emit({"phase": "launches", "path": "ooc_wave", **counts})
     torch.cuda.empty_cache()
     reset_counts()
-    live_counts = live_slice(fields, ref2, sync4, sync_rows, bt1)
+    live_counts, live_rows = live_slice(fields, ref2, sync4, sync_rows, bt1)
     emit({"phase": "launches", "path": "ooc_live", **live_counts})
     for name in ("zfp_encode", "zfp_decode", "wave_multistep", "wave_step"):
         check(live_counts[name] > 0,
               f"the live engine never launched {name}")
-    del fields, ref2, sync4, bt1
+    del ref2
+    torch.cuda.empty_cache()
+    reset_counts()
+    ckpt_counts = ckpt_slice(fields, sync4, bt1, live_rows)
+    emit({"phase": "launches", "path": "ooc_ckpt", **ckpt_counts})
+    for name in ("zfp_encode", "zfp_decode", "wave_multistep", "wave_step",
+                 "zfp_encode ndim1", "zfp_decode ndim1"):
+        check(ckpt_counts.get(name, 0) > 0,
+              f"the checkpoint phase never launched {name}")
+    del fields, sync4, bt1
     torch.cuda.empty_cache()
 
     live64_counts = live_f64()
@@ -2205,9 +2581,12 @@ def main() -> int:
                  "src/repro_torch/csrc/sscan.cu",
                  (SSCAN_SHAPES[0], SSCAN_CHUNK)))
     paths = {"ooc_wave": counts, "ooc_live": live_counts,
+             "ooc_ckpt": ckpt_counts,
              "ooc_f64": f64_counts, "ooc_live_f64": live64_counts,
              "precision": prec_counts, "serving": serve_counts,
              "ssm_serving": ssm_counts}
+    # the float32 codec's rows time the ndim-3 unit and give their launches
+    # by ndim (the lossy checkpoint leaves at 1, the KV cache at 2);
     # a kernel with two rows: each row counts the paths that launch it at
     # its shape (the float64 rung on the engines' blocks, 1152^2 and
     # 576^2 planes, and on the precision tier's; the float64 codec on the
@@ -2225,8 +2604,8 @@ def main() -> int:
         r = results[(name, shape, arg)]
         by_path = {p: c.get(counter, 0) for p, c in paths.items()
                    if p in row_paths.get((name, shape), paths)}
-        # the float64 codec's rows: their launches by unit and planes (the
-        # times are of the row's own shape)
+        # the codec's rows: their launches by unit and planes (float64)
+        # or by ndim (float32); the times are of the row's own shape
         by_shape = collections.Counter()
         for p in by_path:
             by_shape.update({k[len(counter) + 1:]: v

@@ -31,31 +31,45 @@ units beside the streams. A digest is still verified by the store
 decoded or committed. On the CPU (``device="cpu"``, ``backend="ref"``)
 the same code runs with no streams.
 
+Checkpoints (``repro_torch.checkpoint``, the reference's on-disk format):
+``checkpoint(dir)`` quiesces the window, flushes residency and persists
+the store, its version vector and the engine's progress in one call;
+``begin_checkpoint(dir)`` (or ``run(ckpt_policy=CheckpointPolicy(...))``)
+is the overlapped cut: it freezes the version vector at a sweep boundary
+without draining the window, pins the dirty residents copy-on-write and
+writes the snapshot a chunk a block visit of the next sweep, a pinned
+unit's snapshot D2H going through one staging slot at a time on the d2h
+stream. ``restore(dir)`` rebuilds an engine (on the CUDA device unless
+``device="cpu"``) that resumes bit for bit; ``run(recovery=
+RecoveryPolicy(dir))`` rolls back to the last good checkpoint on an
+unrecoverable fault and replays, giving back every staging slot the lost
+crossings held.
+
 Numerics: the same ops on the same values as ``OutOfCoreWave``, and the
 round trips residency elides are byte-preserving, so the output is bit
 for bit the synchronous engine's.
 
-Not ported yet, each raising with its ROADMAP queue 1 item:
-checkpointing (``checkpoint``, ``begin_checkpoint``, ``restore``,
-``run(ckpt_policy=)``: item 7b), rollback and replay
-(``run(recovery=)``: item 7c), and sharding (``shard=`` and the halo
-methods: item 11).
+Not ported yet: sharding (``shard=`` and the halo methods), raising with
+its ROADMAP queue 1 item 11.
 """
 
 from __future__ import annotations
 
 import os
+import pathlib
 import statistics
 import time
 from collections import deque
+from dataclasses import dataclass
 from typing import Deque, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core.outofcore import HostUnitStore, OOCConfig, \
-    engine_device, unit_bytes
-from repro_torch.core.ratecontrol import rate_label
+    engine_device, unit_bytes, unit_shards
+from repro_torch.core.ratecontrol import RateController, rate_label
 from repro_torch.core.streams import Fetch, Lanes, Writeback
 from repro_torch.core.taskgraph import (
     SHARDING_TODO,
@@ -68,24 +82,21 @@ from repro_torch.core.taskgraph import (
 )
 from repro_torch.core.unitcache import DeviceResidencyManager, Entry
 from repro_torch.distributed.fault import (
+    ChecksumError,
+    FaultError,
     FaultInjector,
     InjectedCrash,
     ReissuePolicy,
     RetryPolicy,
+    UnrecoverableFault,
 )
 from repro_torch.kernels.stencil import ops as stencil_ops
 from repro_torch.kernels.zfp import ops as zfp_ops
 from repro_torch.kernels.zfp import ref as zfp_ref
 from repro_torch.kernels.zfp.ref import Compressed
 
-CHECKPOINT_TODO = (
-    "checkpointing of the live engine is not ported yet: ROADMAP.md "
-    "queue 1 item 7b (after item 9)"
-)
-RECOVERY_TODO = (
-    "rollback-and-replay recovery is not ported yet: ROADMAP.md queue 1 "
-    "item 7c"
-)
+# manifest schema version of AsyncExecutor.checkpoint payloads
+CKPT_FORMAT = 1
 
 UnitKey = Tuple[str, Tuple[str, int]]  # (field, (kind, idx))
 
@@ -97,6 +108,63 @@ HOST_THREADS = min(8, os.cpu_count() or 1)
 # writeback in flight or None)])
 _Parked = Tuple[int, List[Tuple[Task, object, int, int,
                                 Optional[Writeback]]]]
+
+
+@dataclass
+class CheckpointPolicy:
+    """Periodic checkpoints for ``AsyncExecutor.run``, consulted at every
+    sweep boundary: every ``every_sweeps`` completed sweeps and/or once
+    ``wall_budget_s`` passed since the last snapshot. ``mode``
+    ``"overlapped"`` (the default) takes the overlapped cut
+    (``begin_checkpoint``), ``"quiesced"`` the one-call ``checkpoint``.
+    ``zstd_level``/``keep`` pass through to the writer."""
+
+    directory: str
+    every_sweeps: Optional[int] = None
+    wall_budget_s: Optional[float] = None
+    mode: str = "overlapped"
+    zstd_level: Optional[int] = None
+    keep: int = 3
+
+    def __post_init__(self):
+        if self.mode not in ("overlapped", "quiesced"):
+            raise ValueError(
+                f"unknown checkpoint mode {self.mode!r}; "
+                "expected 'overlapped' or 'quiesced'"
+            )
+        if self.every_sweeps is None and self.wall_budget_s is None:
+            raise ValueError(
+                "CheckpointPolicy needs every_sweeps and/or wall_budget_s"
+            )
+        if self.every_sweeps is not None and self.every_sweeps < 1:
+            raise ValueError(
+                f"every_sweeps must be >= 1, got {self.every_sweeps}"
+            )
+
+    def due(self, sweeps_done: int, elapsed_s: float) -> bool:
+        """Whether a snapshot is due at boundary ``sweeps_done``,
+        ``elapsed_s`` after the previous one (or the run's start)."""
+        if self.every_sweeps and sweeps_done % self.every_sweeps == 0:
+            return True
+        return (
+            self.wall_budget_s is not None
+            and elapsed_s >= self.wall_budget_s
+        )
+
+
+@dataclass
+class RecoveryPolicy:
+    """Rollback and replay for ``AsyncExecutor.run``: on an
+    unrecoverable fault (retries exhausted, a checksum mismatch with no
+    good source, an injected crash point) the run reloads the newest
+    checkpoint under ``directory`` that verifies and replays from it, at
+    most ``max_restarts`` times. A baseline snapshot is taken first when
+    the directory holds none."""
+
+    directory: str
+    max_restarts: int = 3
+    zstd_level: Optional[int] = None
+    keep: int = 3
 
 
 def _rate(value) -> str:
@@ -121,6 +189,16 @@ class _Incoming:
             self.store.cross_h2d(*self.key, self.fetch.send)
             self._value = self.fetch.value()
         return self._value
+
+
+def _version_vector(extra: Dict[str, object]) -> Dict[UnitKey, int]:
+    """The issued version of every written unit in a checkpoint's unit
+    table (the window was empty and residency flushed at the cut)."""
+    return {
+        (u["field"], (u["kind"], int(u["idx"]))): int(u["version"])
+        for u in extra["store"]["units"].values()
+        if int(u["version"]) > 0
+    }
 
 
 def _claim(value):
@@ -189,6 +267,7 @@ class AsyncExecutor:
                 raise ValueError("seed all three fields or none")
             self.store.seed({"p_prev": p_prev, "p_cur": p_cur,
                              "vel2": vel2})
+        self.recovery_log: List[Dict[str, object]] = []
         # monotonic clock for flush straggler detection
         self._timer = time.perf_counter
         self._flush_times: List[float] = []
@@ -210,6 +289,27 @@ class AsyncExecutor:
         # visits whose d2h tasks are parked, oldest first; survives
         # sweep boundaries (the cross-sweep window)
         self._pending: Deque[_Parked] = deque()
+        # the overlapped snapshot in flight (begin_checkpoint): its
+        # writer and the frozen cut's two queues, pinned dirty residents
+        # awaiting their snapshot D2H and host payloads (with their
+        # digests) awaiting their shard writes
+        self._ckpt_writer: Optional[ckpt.ShardWriter] = None
+        self._ckpt_queue: Deque[Tuple[UnitKey, int]] = deque()
+        self._ckpt_host_queue: Deque[
+            Tuple[str, str, int, object, int, int]] = deque()
+        self._ckpt_units_meta: Dict[str, Dict[str, object]] = {}
+        self._ckpt_extra: Dict[str, object] = {}
+        self._ckpt_chunk = 0
+        self._ckpt_host_chunk = 0
+        self._ckpt_keep = 3
+        self._ckpt_cut_sweep = -1
+        self._ckpt_expected_units = 0
+        self.last_checkpoint_path: Optional[str] = None
+        self.ckpt_stats: Dict[str, object] = {
+            "snapshots": 0, "overlapped": 0, "quiesced": 0,
+            "boundary_block_s": 0.0, "drain_s": 0.0, "shard_bytes": 0,
+            "units_reused": 0, "shard_crc32_s": 0.0, "shard_write_s": 0.0,
+        }
 
     def _staging_plan(self) -> Tuple[int, int]:
         """``(slot_bytes, slots)`` of the pinned pool: a slot holds the
@@ -554,6 +654,9 @@ class AsyncExecutor:
                 btasks = self._by_block[i]
                 # window admission precedes this visit's first transfer
                 self._admit()
+                # one chunk of an overlapped snapshot drains here, the
+                # cadence the checkpoint-aware task graph replays
+                self._drain_ckpt(paced=True)
                 for t in (t for t in btasks if t.kind == "h2d"):
                     self._exec_h2d(t)
                 self._claim_visit()
@@ -576,7 +679,9 @@ class AsyncExecutor:
     def finish(self) -> None:
         """Drain the window: every issued writeback is committed, on the
         host or (write-back) on the device. Dirty residents stay; call
-        ``flush()`` (``gather()`` does) before reading the store."""
+        ``flush()`` (``gather()`` does) before reading the store. An
+        overlapped snapshot in flight is completed first."""
+        self._drain_ckpt()
         self._drain_all()
 
     def flush(self) -> int:
@@ -588,7 +693,9 @@ class AsyncExecutor:
         dirty, so a retry flushes exactly the remainder. With it, a
         failed put is re-put once (``CacheStats.flush_reissues``) and a
         put slower than ``reissue.deadline`` of the median is counted in
-        ``CacheStats.flush_stragglers``."""
+        ``CacheStats.flush_stragglers``. An overlapped snapshot in
+        flight is completed (its pins released) first."""
+        self._drain_ckpt()
         n = 0
         for key, ent in self.cache.dirty_entries():
             t0 = self._timer()
@@ -617,20 +724,50 @@ class AsyncExecutor:
             n += 1
         return n
 
-    def run(self, total_steps: int, ckpt_policy=None,
-            recovery=None) -> None:
+    def run(
+        self,
+        total_steps: int,
+        ckpt_policy: Optional[CheckpointPolicy] = None,
+        recovery: Optional[RecoveryPolicy] = None,
+    ) -> None:
         """Advance the run by ``total_steps`` (a multiple of ``bt``) and
-        drain the window."""
-        if ckpt_policy is not None:
-            raise NotImplementedError(CHECKPOINT_TODO)
-        if recovery is not None:
-            raise NotImplementedError(RECOVERY_TODO)
+        drain the window.
+
+        With ``ckpt_policy`` every sweep boundary where the policy is
+        due takes a snapshot (overlapped or quiesced); the final
+        ``finish()`` publishes one still draining. With ``recovery`` an
+        unrecoverable fault rolls the engine back to the last good
+        checkpoint under ``recovery.directory`` and replays, at most
+        ``recovery.max_restarts`` times; a baseline snapshot is taken
+        first when there is none. Replay is deterministic: the result is
+        bit for bit that of a run without faults."""
         if total_steps % self.cfg.bt:
             raise ValueError(
                 f"total_steps={total_steps} is not a multiple of "
                 f"bt={self.cfg.bt}"
             )
-        self._run_to(self.sweeps_done + total_steps // self.cfg.bt)
+        target = self.sweeps_done + total_steps // self.cfg.bt
+        restarts = 0
+        while True:
+            try:
+                if recovery is not None and ckpt.latest(
+                    recovery.directory
+                ) is None:
+                    # a rollback needs a last good state to roll back to
+                    self.checkpoint(recovery.directory,
+                                    zstd_level=recovery.zstd_level,
+                                    keep=recovery.keep)
+                self._run_to(target, ckpt_policy)
+                return
+            except FaultError as e:
+                if (
+                    recovery is None
+                    or restarts >= recovery.max_restarts
+                    or ckpt.latest(recovery.directory) is None
+                ):
+                    raise
+                restarts += 1
+                self._rollback(recovery.directory, e)
 
     def advance_round(self, target: int) -> int:
         """Advance one temporal round toward ``target`` completed sweeps
@@ -649,23 +786,474 @@ class AsyncExecutor:
             )
         return kr
 
-    def _run_to(self, target: int) -> None:
+    def _run_to(self, target: int,
+                ckpt_policy: Optional[CheckpointPolicy] = None) -> None:
+        """Advance to ``target`` completed sweeps, consulting
+        ``ckpt_policy`` at every boundary (the seconds the boundary
+        blocks add to ``ckpt_stats["boundary_block_s"]``), then drain."""
+        last_ckpt = self._timer()
         while self.sweeps_done < target:
             self.advance_round(target)
+            if ckpt_policy is not None and ckpt_policy.due(
+                self.sweeps_done, self._timer() - last_ckpt
+            ):
+                t0 = self._timer()
+                cut = (self.checkpoint if ckpt_policy.mode == "quiesced"
+                       else self.begin_checkpoint)
+                cut(ckpt_policy.directory, zstd_level=ckpt_policy.zstd_level,
+                    keep=ckpt_policy.keep)
+                self.ckpt_stats["boundary_block_s"] += self._timer() - t0
+                last_ckpt = self._timer()
         self.finish()
 
     # ------------------------------------------------------------------
-    # checkpointing (item 7b)
+    # rollback and replay
     # ------------------------------------------------------------------
-    def checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(CHECKPOINT_TODO)
+    def _release_inflight(self) -> None:
+        """Give back every staging slot a lost crossing holds: parked
+        writebacks and fetches not yet claimed, each once its host job
+        is done with the slot, so a replay finds the pool whole and no
+        late job writes into a reused slot."""
+        for _, parked in self._pending:
+            for *_, wb in parked:
+                if wb is not None:
+                    wb.release()
+        for units in (self._staged, self._dev):
+            for value in units.values():
+                if isinstance(value, _Incoming):
+                    value.fetch.abandon()
 
-    def begin_checkpoint(self, *args, **kwargs):
-        raise NotImplementedError(CHECKPOINT_TODO)
+    def _rollback(self, directory: str, cause: Exception) -> None:
+        """Reset to the last good checkpoint under ``directory``: drop
+        what a crash would lose (the window, staged and computed units,
+        residency, a half-written overlapped snapshot, whose tmp dir is
+        aborted), then reload the newest checkpoint that verifies."""
+        if self._ckpt_writer is not None:
+            self._ckpt_writer.abort()
+            self._ckpt_writer = None
+        self._ckpt_queue.clear()
+        self._ckpt_host_queue.clear()
+        self._ckpt_units_meta = {}
+        self._release_inflight()
+        self._pending.clear()
+        self._dev.clear()
+        self._staged.clear()
+        self._outvals.clear()
+        self._outraw.clear()
+        self._flush_times.clear()
+        # cold residency, the same cumulative stats
+        self.cache = self.cache.rollback_reset()
+        stats = self.cache.stats
+        self.store.stats = stats
+        _, leaves, extra, path = self._load_last_good(directory,
+                                                      self.device)
+        self.store.load_state(leaves, extra["store"])
+        prior = self.sweeps_done
+        self.sweeps_done = int(extra["progress"]["sweeps_done"])
+        self._ver = _version_vector(extra)
+        stats.recoveries += 1
+        stats.replayed_sweeps += max(0, prior - self.sweeps_done)
+        self.recovery_log.append({
+            "fault": f"{type(cause).__name__}: {cause}",
+            "from_sweep": prior,
+            "resumed_at": self.sweeps_done,
+            "checkpoint": path,
+        })
+
+    @staticmethod
+    def _load_last_good(directory: str, device=None):
+        """``(step, leaves, extra, path)`` of the newest checkpoint under
+        ``directory`` that passes manifest, shard and unit-digest
+        checks; corrupt ones are skipped, newest first."""
+        base = pathlib.Path(directory)
+        candidates = sorted(
+            (p for p in base.iterdir() if p.name.startswith("step_")),
+            reverse=True,
+        ) if base.exists() else []
+        last: Optional[Exception] = None
+        for p in candidates:
+            try:
+                step, leaves, extra = ckpt.load(str(p), device)
+                return step, leaves, extra, str(p)
+            except FaultError as e:  # corrupt: try the previous cut
+                last = e
+        raise UnrecoverableFault(
+            f"no loadable checkpoint under {directory!r} to roll "
+            f"back to: {last}"
+        ) from last
+
+    # ------------------------------------------------------------------
+    # the overlapped checkpoint cut
+    # ------------------------------------------------------------------
+    def _progress_extra(self) -> Dict[str, object]:
+        """Manifest ``extra`` shared by both cuts: config and progress
+        (each cut appends the store's unit table)."""
+        return {
+            "format": CKPT_FORMAT,
+            "kind": "ooc-executor",
+            "cfg": self.cfg.to_dict(),
+            "progress": {
+                "sweeps_done": self.sweeps_done,
+                "schedule": self.schedule.name,
+                # a custom Schedule restores from its fields
+                "schedule_spec": {
+                    "name": self.schedule.name,
+                    "codec_sync": self.schedule.codec_sync,
+                    "window": self.schedule.window,
+                    "temporal": self.schedule.temporal,
+                },
+                "depth": self.depth,
+                "cache_bytes": self.cache.budget_bytes,
+                "policy": self.cache.policy,
+                "shard": None,  # sharded layouts are item 11
+            },
+            # the rate controller's whole state, so a resumed run
+            # re-decides what this one would have
+            **({"rates": self.rates.state_dict()}
+               if self.rates is not None else {}),
+        }
+
+    def _early_commit_parked(self) -> None:
+        """Commit to the host every parked writeback with no dirty
+        residency (a refused deposit, or write-through), without
+        draining the window: its ordinary D2H, only earlier, so the
+        snapshot can read the host bytes. Its slot goes back to the
+        pool; dirty-resident writebacks stay parked (the cut pins
+        them)."""
+        for i, (sweep_no, parked) in enumerate(self._pending):
+            kept = []
+            done = []
+            try:
+                for item in parked:
+                    task, value, raw, ver, wb = item
+                    kind, idx = task.unit
+                    key = (task.field, task.unit)
+                    if self.store.version_of(task.field, kind, idx) >= ver:
+                        done.append(wb)
+                        continue  # an eviction flush committed it
+                    if self.cache.enabled and self.cache.write_back:
+                        ent = self.cache.peek(key)
+                        if (ent is not None and ent.dirty
+                                and ent.version >= ver):
+                            kept.append(item)
+                            continue  # the cut pins the dirty resident
+                    if wb is None:
+                        wb = self.lanes.writeback(
+                            value, ver, self.lanes.mark("compute"))
+                    done.append(wb)
+                    host, crc = wb.result()
+                    wire = self.store.put(task.field, kind, idx, host,
+                                          version=ver, crc=crc,
+                                          send=wb.send)
+                    self.transfers.append(Transfer(
+                        "d2h", task.field, task.unit, raw, wire,
+                        sweep_no, task.block,
+                    ))
+            finally:
+                for wb in done:
+                    if wb is not None:
+                        wb.release()
+            self._pending[i] = (sweep_no, kept)
+
+    def begin_checkpoint(
+        self,
+        directory: str,
+        *,
+        zstd_level: Optional[int] = None,
+        keep: int = 3,
+    ) -> None:
+        """The overlapped checkpoint cut: snapshot the run at this sweep
+        boundary without draining the window.
+
+        Every unit is classified at the frozen version vector: a unit
+        whose committed payload is on the host has that payload and its
+        digest captured (puts replace, never mutate); a dirty resident
+        is pinned copy-on-write (a newer writeback shadows the pre-cut
+        payload, eviction skips it) and queued for its snapshot D2H;
+        parked writebacks with no residency commit now. The boundary
+        itself moves no bytes and writes no file; the queues drain a
+        chunk a block visit of the next sweep through the incremental
+        ``ShardWriter``, which publishes when the last shard lands.
+        ``finish``/``flush``/``gather``/``checkpoint`` and the next cut
+        complete a snapshot in flight first. The snapshot restores as
+        one from ``checkpoint`` at the same boundary does."""
+        self._drain_ckpt()  # at most one snapshot in flight
+        self._early_commit_parked()
+        self._ckpt_extra = self._progress_extra()
+        self._ckpt_writer = ckpt.ShardWriter(
+            directory, self.sweeps_done,
+            zstd_level=zstd_level, extra=self._ckpt_extra,
+            injector=self.injector, retry=self.retry,
+            stats=self.cache.stats,
+        )
+        self._ckpt_keep = keep
+        self._ckpt_cut_sweep = self.sweeps_done - 1
+        self._ckpt_units_meta = {}
+        unit_keys = self.store.unit_keys()
+        self._ckpt_expected_units = len(unit_keys)
+        for (field, kind, idx) in unit_keys:
+            key: UnitKey = (field, (kind, idx))
+            ver = self._ver.get(key, self.store.version_of(field, kind, idx))
+            if self.store.host_version_of(field, kind, idx) >= ver:
+                self._ckpt_host_queue.append((
+                    field, kind, idx,
+                    self.store.host_payload(field, kind, idx, ver), ver,
+                    self.store.checksum_of(field, kind, idx),
+                ))
+            # else: committed ahead of the host means dirty-resident,
+            # pinned below in LRU order (the task graph's order)
+        for key, ent in self.cache.dirty_entries():
+            field, (kind, idx) = key
+            ver = self._ver.get(key, 0)
+            assert (
+                ent.version == ver
+                and self.store.host_version_of(field, kind, idx) < ver
+            ), ("overlapped cut: dirty resident out of step", key, ver)
+            self.cache.pin(key)
+            self._ckpt_queue.append((key, ver))
+        assert (
+            len(self._ckpt_queue) + len(self._ckpt_host_queue)
+            == self._ckpt_expected_units
+        ), "overlapped cut must cover every unit exactly once"
+        ndiv = self.plan.ndiv
+        self._ckpt_chunk = -(-len(self._ckpt_queue) // ndiv)
+        self._ckpt_host_chunk = -(-len(self._ckpt_host_queue) // ndiv)
+
+    def _snapshot_d2h(self, value, ver: int):
+        """``(host, crc)`` of a pinned device payload: its D2H on the
+        d2h stream, after the compute so far, through one staging slot
+        that goes back to the pool before the shard is written (a
+        paced chunk never needs more than the pool's spare slot). The
+        host copy is held to the digest of the bytes as they left the
+        device."""
+        wb = self.lanes.writeback(value, ver, self.lanes.mark("compute"))
+        try:
+            host, crc = wb.result()
+            _, digest = wb.send()
+        finally:
+            wb.release()
+        if digest != crc:
+            raise ChecksumError(
+                f"snapshot D2H checksum mismatch: expected {crc:#010x}, "
+                f"got {digest:#010x}"
+            )
+        return host, crc
+
+    def _drain_ckpt(self, paced: bool = False) -> None:
+        """Advance the snapshot in flight: the snapshot D2H and shards
+        of pinned units, then the shards of host-current ones. ``paced``
+        does one chunk of each queue (a block visit's share); otherwise
+        everything drains and the snapshot publishes."""
+        if self._ckpt_writer is None:
+            return
+        t0 = self._timer()
+        n_flush = self._ckpt_chunk if paced else len(self._ckpt_queue)
+        for _ in range(min(n_flush, len(self._ckpt_queue))):
+            key, ver = self._ckpt_queue.popleft()
+            ent = self.cache.pinned_entry(key)
+            assert ent is not None and ent.version == ver, (key, ver)
+            field, (kind, idx) = key
+            host, crc = self._snapshot_d2h(ent.value, ver)
+            self._write_unit_shards(field, kind, idx, host, ver, crc)
+            raw, wire = unit_bytes(ent.value)
+            # releasing the pin re-enforces the budget: dirty victims of
+            # the pin pressure flush to the host here
+            for ekey, eent in self.cache.release(key):
+                self._flush_entry(ekey, eent, -1)
+            self.cache.note_ckpt_flush(wire)
+            self.transfers.append(Transfer(
+                "d2h", field, (kind, idx), raw, wire,
+                self._ckpt_cut_sweep, -1, ckpt=True,
+            ))
+        n_host = (self._ckpt_host_chunk if paced
+                  else len(self._ckpt_host_queue))
+        for _ in range(min(n_host, len(self._ckpt_host_queue))):
+            self._write_unit_shards(*self._ckpt_host_queue.popleft())
+        self.ckpt_stats["drain_s"] += self._timer() - t0
+        if not self._ckpt_queue and not self._ckpt_host_queue:
+            self._finalize_ckpt()
+
+    def _write_unit_shards(self, field: str, kind: str, idx: int, value,
+                           ver: int, crc: int) -> None:
+        """One unit into the snapshot in flight: its shards and its
+        entry in the unit table (``crc``, its ``unit_checksum``, is
+        known already)."""
+        leaves, meta = unit_shards(field, kind, idx, value, ver, crc=crc)
+        for lkey, arr in leaves.items():
+            self.ckpt_stats["shard_bytes"] += self._ckpt_writer.add(lkey, arr)
+        self._ckpt_units_meta[f"{field}.{kind}{idx}"] = meta
+
+    def _count_writer(self, w: ckpt.ShardWriter) -> None:
+        self.ckpt_stats["shard_crc32_s"] += w.crc_s
+        self.ckpt_stats["shard_write_s"] += w.write_s
+
+    def _finalize_ckpt(self) -> None:
+        """Publish the overlapped snapshot (atomic rename, gc), refusing
+        one that does not cover every unit of the cut."""
+        assert len(self._ckpt_units_meta) == self._ckpt_expected_units, (
+            "incomplete overlapped snapshot: refusing to publish",
+            len(self._ckpt_units_meta), self._ckpt_expected_units,
+        )
+        extra = dict(self._ckpt_extra)
+        extra["store"] = {"units": self._ckpt_units_meta}
+        self._ckpt_writer.set_extra(extra)
+        self.last_checkpoint_path = self._ckpt_writer.finalize(
+            keep=self._ckpt_keep)
+        self._count_writer(self._ckpt_writer)
+        self._ckpt_writer = None
+        self._ckpt_units_meta = {}
+        self.ckpt_stats["snapshots"] += 1
+        self.ckpt_stats["overlapped"] += 1
+
+    # ------------------------------------------------------------------
+    # the quiesced checkpoint and restore
+    # ------------------------------------------------------------------
+    def checkpoint(
+        self,
+        directory: str,
+        *,
+        zstd_level: Optional[int] = None,
+        lossy_planes: Optional[int] = None,
+        keep: int = 3,
+        incremental: bool = False,
+    ) -> str:
+        """Snapshot the run in one call: drain the window (``finish``),
+        flush every dirty resident in LRU order (``flush``, with the
+        ``reissue`` second attempt), then persist the store's payloads,
+        the version vector and the progress record atomically as
+        ``<directory>/step_<sweeps_done>``. ``lossy_planes`` codes the
+        float32 leaves with the ZFP kernels at ndim 1 on the engine's
+        device. ``incremental=True`` points units whose version did not
+        move since the previous cut in ``directory`` at that cut's
+        shards (``ckpt_stats["units_reused"]``). Returns the path."""
+        self.finish()
+        self.flush()
+        leaves, store_meta = self.store.state_dict()
+        extra = self._progress_extra()
+        extra["store"] = store_meta
+        prev_leaves: Dict[str, Dict[str, object]] = {}
+        prev_units: Dict[str, Dict[str, object]] = {}
+        prev_dir = None
+        if incremental:
+            found = ckpt.latest(directory)
+            if found is not None:
+                try:
+                    prev = ckpt.read_manifest(found)
+                except Exception:
+                    prev = None  # unreadable previous cut: full snapshot
+                if prev is not None:
+                    prev_dir = pathlib.Path(found).name
+                    prev_leaves = prev.get("leaves", {})
+                    prev_units = (prev.get("extra", {}).get("store", {})
+                                  .get("units", {}))
+        unchanged = {
+            ukey for ukey, u in store_meta["units"].items()
+            if ukey in prev_units
+            and int(prev_units[ukey]["version"]) == int(u["version"])
+        }
+        w = ckpt.ShardWriter(
+            directory, self.sweeps_done, zstd_level=zstd_level,
+            lossy_planes=lossy_planes, extra=extra,
+            injector=self.injector, retry=self.retry,
+            stats=self.cache.stats, device=self.device,
+        )
+        reused = 0
+        try:
+            for key, leaf in leaves.items():
+                ukey = key
+                for suf in (".payload", ".emax"):
+                    if key.endswith(suf):
+                        ukey = key[: -len(suf)]
+                ent = prev_leaves.get(key)
+                if ukey in unchanged and ent is not None:
+                    w.add_external(key, ent, prev_dir)
+                    reused += 1
+                else:
+                    self.ckpt_stats["shard_bytes"] += w.add(key, leaf)
+        except BaseException:
+            w.abort()
+            raise
+        path = w.finalize(keep=keep)
+        self._count_writer(w)
+        self.last_checkpoint_path = path
+        self.ckpt_stats["snapshots"] += 1
+        self.ckpt_stats["quiesced"] += 1
+        self.ckpt_stats["units_reused"] += reused
+        return path
 
     @classmethod
-    def restore(cls, *args, **kwargs):
-        raise NotImplementedError(CHECKPOINT_TODO)
+    def restore(
+        cls,
+        directory: str,
+        *,
+        schedule: Union[str, Schedule, None] = None,
+        cache_bytes: Optional[int] = None,
+        policy: Optional[str] = None,
+        reissue: Optional[ReissuePolicy] = None,
+        retry: Optional[RetryPolicy] = None,
+        injector: Optional[FaultInjector] = None,
+        device=None,
+        backend: Optional[str] = None,
+    ) -> "AsyncExecutor":
+        """Rebuild a live engine from a checkpoint of this package's or
+        of the reference's engine.
+
+        ``directory`` is a checkpoint root (its latest ``step_<k>``) or
+        one checkpoint. The store, the version vector and the sweep
+        cursor come back exactly; residency restarts cold, so the
+        resumed run moves other transfers but not one other bit.
+        ``schedule``/``cache_bytes``/``policy`` default to the recorded
+        ones. The engine runs on ``device`` (default the CUDA device;
+        ``device="cpu"`` by name) with ``backend``, by default the
+        recorded one, the reference's ``"pallas"`` read as ``"cuda"``:
+        a recorded ``"ref"`` stays ``"ref"``, and a ``"cuda"`` engine
+        needs a CUDA device."""
+        path = pathlib.Path(directory)
+        if not (path / "manifest.json").exists():
+            found = ckpt.latest(directory)
+            if found is None:
+                raise FileNotFoundError(f"no checkpoint under {directory!r}")
+            path = pathlib.Path(found)
+        manifest = ckpt.read_manifest(str(path))
+        extra = manifest.get("extra", {})
+        if extra.get("kind") != "ooc-executor":
+            raise ValueError(
+                f"{path} is not an AsyncExecutor checkpoint "
+                f"(kind={extra.get('kind')!r})"
+            )
+        prog = extra["progress"]
+        if prog.get("shard"):
+            raise NotImplementedError(SHARDING_TODO)
+        cfg_d = dict(extra["cfg"], device=device)
+        if backend is not None:
+            cfg_d["backend"] = backend
+        cfg = OOCConfig.from_dict(cfg_d)
+        engine_device(cfg)  # no device, or the wrong one: raise now
+        _, leaves, extra = ckpt.load(str(path), device)
+        if schedule is None:
+            try:
+                schedule = get_schedule(prog["schedule"])
+            except ValueError:
+                spec = prog["schedule_spec"]
+                schedule = Schedule(
+                    spec["name"], codec_sync=spec["codec_sync"],
+                    window=spec["window"],
+                    temporal=spec.get("temporal", 1),
+                )
+        rates = (RateController.from_state(cfg, extra["rates"])
+                 if "rates" in extra else None)
+        ex = cls(
+            cfg, schedule=schedule,
+            cache_bytes=(prog["cache_bytes"] if cache_bytes is None
+                         else cache_bytes),
+            policy=prog["policy"] if policy is None else policy,
+            reissue=reissue, retry=retry, injector=injector, rates=rates,
+        )
+        ex.store.load_state(leaves, extra["store"])
+        ex.sweeps_done = int(prog["sweeps_done"])
+        # newest issued version == committed at the cut
+        ex._ver = _version_vector(extra)
+        return ex
 
     # ------------------------------------------------------------------
     def gather(self, name: str) -> np.ndarray:
@@ -691,12 +1279,16 @@ class AsyncExecutor:
             "cache_bytes_used": self.cache.bytes_used,
             "cache_peak_bytes": self.cache.peak_bytes,
             "cache_dirty_bytes": self.cache.dirty_bytes,
+            "checkpoint": dict(self.ckpt_stats),
+            "ckpt_pending_units": (len(self._ckpt_queue)
+                                   + len(self._ckpt_host_queue)),
             "wire": dict(self.store.wire_stats),
             "wire_backoff_s": self.store.backoff_s,
             "injected": (
                 dict(self.injector.counts)
                 if self.injector is not None else {}
             ),
+            "recoveries": list(self.recovery_log),
             "lanes": {
                 "streams": len({s.cuda_stream for s in
                                 self.lanes.streams.values()
@@ -706,5 +1298,6 @@ class AsyncExecutor:
                 "host_wait_s": self.lanes.wait_s,
                 "crc_wait_s": self.lanes.crc_wait_s,
                 "host_jobs": self.lanes.jobs,
+                "free_slots": self.lanes.free_slots,
             },
         }

@@ -134,6 +134,9 @@ class OOCConfig:
 
     @classmethod
     def from_dict(cls, d: Dict[str, object]) -> "OOCConfig":
+        """Inverse of ``to_dict``; also reads the reference's dict, whose
+        ``"pallas"`` backend is the port's ``"cuda"``."""
+        backend = d.get("backend", "cuda")
         return cls(
             shape=tuple(d["shape"]),
             ndiv=int(d["ndiv"]),
@@ -145,7 +148,7 @@ class OOCConfig:
                 )
                 for name, f in d["fields"].items()
             },
-            backend=d.get("backend", "cuda"),
+            backend="cuda" if backend == "pallas" else backend,
             dtype=d.get("dtype", "float32"),
             device=d.get("device"),
         )
@@ -240,11 +243,14 @@ def unit_checksum(value, version: int) -> int:
 
 def unit_shards(
     field: str, kind: str, idx: int, value, version: int,
+    crc: Optional[int] = None,
 ) -> Tuple[Dict[str, np.ndarray], Dict[str, object]]:
     """Checkpoint serialization of ONE unit: ``(leaves, meta)``, in the
     reference's layout (one leaf per raw unit, payload + emax per
     compressed unit, keyed ``field.kindidx[...]``) with the codec, the
-    version and the crc32 of the persisted bytes."""
+    version and the crc32 of the persisted bytes: ``crc`` when the
+    caller has that ``unit_checksum`` already (the store's record, or a
+    writeback's digest), else computed here."""
     ukey = f"{field}.{kind}{idx}"
     meta: Dict[str, object] = {
         "field": field, "kind": kind, "idx": idx, "version": int(version),
@@ -261,7 +267,7 @@ def unit_shards(
     else:
         leaves[ukey] = host
         meta["codec"] = "raw"
-    meta["crc32"] = unit_checksum(host, version)
+    meta["crc32"] = unit_checksum(host, version) if crc is None else int(crc)
     return leaves, meta
 
 
@@ -533,6 +539,7 @@ class HostUnitStore:
             uleaves, meta = unit_shards(
                 field, kind, idx, stored,
                 self._versions.get((field, kind, idx), 0),
+                crc=self._crc[(field, kind, idx)],
             )
             leaves.update(uleaves)
             units[f"{field}.{kind}{idx}"] = meta

@@ -163,6 +163,11 @@ class Lanes:
     def pinned_bytes(self) -> int:
         return len(self._slots) * self.slot_bytes if self.cuda else 0
 
+    @property
+    def free_slots(self) -> int:
+        """Slots in the pool (all of them when no crossing holds one)."""
+        return len(self._free)
+
     # ------------------------------------------------------------------
     # streams and events
     # ------------------------------------------------------------------
@@ -358,6 +363,16 @@ class Fetch:
             lanes._release(self._slot)
             self._dev, self._done = dev, True
         return self._dev
+
+    def abandon(self) -> None:
+        """Give the slot back unclaimed (a rollback drops the unit): once
+        the host job is done with it, and with the event of a copy that
+        may still read it."""
+        if not self._done:
+            if self._job.exception() is None:
+                self._slot.pending = (self._dev or self._job.result())[1]
+            self.lanes._release(self._slot)
+            self._done = True
 
 
 class Writeback:

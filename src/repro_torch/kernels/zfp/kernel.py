@@ -19,7 +19,9 @@ On a CPU tensor each wrapper runs the plain version (``ref``); on a
 CUDA tensor it launches the kernel or raises. ``launches`` counts kernel
 launches, one per call that reaches the card: ``encode``/``decode`` for
 float32, ``encode_f64``/``decode_f64`` for float64; ``f64_shapes`` splits
-the float64 launches by counter, unit shape and planes.
+the float64 launches by counter, unit shape and planes, ``f32_ndims`` the
+float32 ones by counter and ndim (the engines' units at 3, lossy
+checkpoint leaves at 1, the KV cache's chunks at 2).
 """
 
 from __future__ import annotations
@@ -39,6 +41,8 @@ from repro_torch.kernels.zfp import ref
 launches = {"encode": 0, "decode": 0, "encode_f64": 0, "decode_f64": 0}
 # "<counter> [shape] <planes>" -> float64 launches
 f64_shapes: collections.Counter = collections.Counter()
+# "<counter> ndim<k>" -> float32 launches
+f32_ndims: collections.Counter = collections.Counter()
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -62,6 +66,7 @@ def reset_launches() -> None:
     for k in launches:
         launches[k] = 0
     f64_shapes.clear()
+    f32_ndims.clear()
 
 
 def stream_order(planes: int, ndim: int, width: int = 32) -> int:
@@ -157,6 +162,8 @@ def _launch(key: str, encode: bool, a, b, c, shape, ndim: int,
     launches[kind] += 1
     if suffix:
         f64_shapes[f"{kind} {list(shape)} {int(planes)}"] += 1
+    else:
+        f32_ndims[f"{kind} ndim{ndim}"] += 1
 
 
 def _require(x: torch.Tensor, dtype: torch.dtype, what: str) -> None:

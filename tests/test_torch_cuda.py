@@ -7,7 +7,10 @@ card. Every test here needs a CUDA device and ``nvcc``; without them the
 The live engine (``AsyncExecutor``) is held bit for bit to the
 synchronous engine on the card, on three streams of its own with pinned
 staging, against reuse of freed memory across its streams (the
-``record_stream`` hazard) and under injected in-flight corruption.
+``record_stream`` hazard) and under injected in-flight corruption; its
+overlapped checkpoint cut keeps the pre-cut device bytes, lossy
+checkpoint leaves coded by the kernels are the plain codec's byte for
+byte, and a rollback gives every pinned slot back.
 
 Contract: the codec and stencil kernels are bit for bit equal to their
 plain versions (``-fmad=false`` and the reference's order of
@@ -21,6 +24,8 @@ stencil kernels (``csrc/zfp64.cu``, ``csrc/stencil64.cu``) are held bit
 for bit too, alone, through the float64 engines, and through the
 precision curve, whose lossless code must be exactly 0 on the card.
 """
+
+import pathlib
 
 import numpy as np
 import pytest
@@ -655,6 +660,125 @@ def test_live_engine_crc_mismatch_on_card(cuda_device):
         live.run(4)
     assert live.store.version_of("p_prev", "R", 0) == 0
     assert live.store.checksum_of("p_prev", "R", 0) == crc0
+
+
+# ----------------------------------------------------------------------
+# checkpoints of the live engine on the card
+# ----------------------------------------------------------------------
+def _payload_bytes(value):
+    """The host bytes of a device unit (a raw tensor or a Compressed)."""
+    if hasattr(value, "payload"):
+        return (value.payload.view(torch.int32).cpu().numpy().tobytes()
+                + value.emax.cpu().numpy().tobytes())
+    return value.cpu().numpy().tobytes()
+
+
+@pytest.mark.parametrize("budget", [100_000, 1 << 30])
+def test_overlapped_cut_on_card_keeps_precut_bytes(cuda_device, tmp_path,
+                                                   budget):
+    """The overlapped cut with write-back residency on the card: the
+    pinned residents' snapshot D2H runs on the d2h stream after the next
+    sweep overwrote half of them (copy-on-write shadows), the shards hold
+    the pre-cut device bytes, and the run, the snapshot and its restore
+    are bit for bit the port's CPU run."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    def run(cfg, root):
+        live = AsyncExecutor(cfg, *_live_fields(), cache_bytes=budget)
+        live.sweep()
+        live.sweep()
+        live.begin_checkpoint(str(root), zstd_level=0)
+        pinned = {key: _payload_bytes(live.cache.pinned_entry(key).value)
+                  for key, _ in live._ckpt_queue}
+        live._ckpt_queue.rotate(-(len(live._ckpt_queue) // 2))
+        live.sweep()
+        live.finish()
+        return live, pinned
+
+    cpu_cfg = OOCConfig(LIVE_SHAPE, 4, 2, paper_code_fields(4),
+                        backend="ref", device="cpu")
+    cpu, _ = run(cpu_cfg, tmp_path / "cpu")
+    live, pinned = run(OOCConfig(LIVE_SHAPE, 4, 2, paper_code_fields(4)),
+                       tmp_path / "card")
+    assert pinned and live.stats()["cache"]["cow_shadows"] > 0
+    assert sum(t.ckpt for t in live.transfers) == len(pinned)
+    _, leaves, _ = ckpt.load(live.last_checkpoint_path)
+    for (field, (kind, idx)), want in pinned.items():
+        ukey = f"{field}.{kind}{idx}"
+        got = (leaves[ukey].tobytes() if ukey in leaves else
+               leaves[ukey + ".payload"].tobytes()
+               + leaves[ukey + ".emax"].tobytes())
+        assert got == want, ukey
+    _, cpu_leaves, _ = ckpt.load(cpu.last_checkpoint_path)
+    assert list(leaves) == list(cpu_leaves)
+    for key in leaves:
+        assert leaves[key].tobytes() == cpu_leaves[key].tobytes(), key
+    assert live.lanes.free_slots == len(live.lanes._slots)
+    back = AsyncExecutor.restore(str(tmp_path / "card"))
+    back.run(2)
+    for name in ("p_prev", "p_cur", "vel2"):
+        want = cpu.gather(name)
+        np.testing.assert_array_equal(live.gather(name), want)
+        np.testing.assert_array_equal(back.gather(name), want)
+    live.close()
+    back.close()
+
+
+def test_lossy_leaf_shards_from_kernel_equal_plain(cuda_device, tmp_path):
+    """Lossy float32 leaves coded by the ``zfp.cu`` kernels at ndim 1 give
+    shards byte for byte those of the plain codec, and the kernels'
+    decode is bit for bit the plain one."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+
+    rng = np.random.default_rng(11)
+    tree = {"a": (rng.standard_normal(1024) * 7.3).astype(np.float32),
+            "b": (rng.standard_normal((37, 129)) * 1e-3).astype(np.float32),
+            "c": torch.from_numpy(rng.standard_normal(5003).astype(
+                np.float32)).to(cuda_device)}
+    zfp_kernel.reset_launches()
+    for planes in (16, 12, 32):
+        card = ckpt.save(str(tmp_path / f"k{planes}"), 1, tree,
+                         zstd_level=0, lossy_planes=planes)
+        plain = ckpt.save(str(tmp_path / f"p{planes}"), 1, tree,
+                          zstd_level=0, lossy_planes=planes, device="cpu")
+        for f in sorted(pathlib.Path(card).iterdir()):
+            assert f.read_bytes() == (pathlib.Path(plain) / f.name
+                                      ).read_bytes(), (planes, f.name)
+        _, got, _ = ckpt.load(card)
+        _, want, _ = ckpt.load(card, device="cpu")
+        for key in want:
+            assert got[key].tobytes() == want[key].tobytes(), key
+    assert zfp_kernel.f32_ndims["encode ndim1"] == 9
+    assert zfp_kernel.f32_ndims["decode ndim1"] == 9
+
+
+def test_rollback_on_card_gives_every_slot_back(cuda_device, tmp_path):
+    """A fetch that fails mid-visit on the card, with writebacks parked
+    and a snapshot half written: the rollback gives every pinned slot
+    back, and the replay is bit for bit the synchronous engine's."""
+    cfg = OOCConfig(LIVE_SHAPE, 4, 2, paper_code_fields(4))
+    sync = OutOfCoreWave(cfg, *_live_fields())
+    sync.run(8)
+    live = AsyncExecutor(cfg, *_live_fields(), retry=RetryPolicy(attempts=2),
+                         injector=FaultInjector(FaultPlan([FaultSpec(
+                             "corrupt", op="h2d", field="p_cur", unit="R0",
+                             version=1, attempts=2)])))
+    lanes = live.lanes
+    live.checkpoint(str(tmp_path / "base"), zstd_level=0)
+    live.sweep()
+    live.begin_checkpoint(str(tmp_path / "cut"), zstd_level=0)
+    with pytest.raises(UnrecoverableFault, match="p_cur.R0"):
+        live.sweep()
+    assert lanes.free_slots < len(lanes._slots)
+    live.injector = live.store.injector = None
+    live._rollback(str(tmp_path / "base"), RuntimeError("lost"))
+    assert lanes.free_slots == len(lanes._slots)
+    assert all(slot.tensor.is_pinned() for slot in lanes._slots)
+    live.run(8)
+    assert lanes.free_slots == len(lanes._slots)
+    for name in ("p_prev", "p_cur"):
+        np.testing.assert_array_equal(live.gather(name), sync.gather(name))
+    live.close()
 
 
 # ----------------------------------------------------------------------

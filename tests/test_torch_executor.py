@@ -18,7 +18,7 @@ the contract of ``tests/test_executor.py`` on the port.
   flush leaving its entry dirty, a ``reissue=`` second attempt;
 * the wire under a fault injector: a corrupt crossing is retried, or
   raises before the unit it guards is decoded or committed;
-* the parts not ported yet raise naming their ROADMAP items;
+* the part not ported yet (sharding) raises naming its ROADMAP item;
 * float64 at the paper's rates: bit for bit the float64 sync engine, its
   transfers those of the task graph, every assembly of one type.
 """
@@ -407,15 +407,6 @@ def test_unported_parts_raise_naming_their_items(monkeypatch):
     with pytest.raises(NotImplementedError, match="item 11"):
         AsyncExecutor(cfg, *_initial(), shard=object())
     live = AsyncExecutor(cfg, *_initial())
-    with pytest.raises(NotImplementedError, match="item 7b"):
-        live.run(2, ckpt_policy=object())
-    with pytest.raises(NotImplementedError, match="item 7c"):
-        live.run(2, recovery=object())
-    for call in (lambda: live.checkpoint("d"),
-                 lambda: live.begin_checkpoint("d"),
-                 lambda: AsyncExecutor.restore("d")):
-        with pytest.raises(NotImplementedError, match="item 7b"):
-            call()
     for call in (live.take_held, live.take_halo,
                  lambda: live.deliver_held("p_cur", None),
                  lambda: live.deliver_halo("p_cur", "C", 0, None, 1)):

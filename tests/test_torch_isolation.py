@@ -114,3 +114,26 @@ def test_cdecode_cuda_backend_on_cpu_tensor_raises():
     out = cdecode_ops.fused_compressed_decode_attention(
         q, ckv, planes=16, max_len=64, backend="ref")
     assert out.shape == (1, 1, 4, 16)
+
+
+def test_checkpoint_entry_points_without_device_raise(tmp_path,
+                                                      monkeypatch):
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core.executor import AsyncExecutor
+
+    tree = {"w": np.ones(2048, np.float32)}
+    path = ckpt.save(str(tmp_path / "lossy"), 1, tree, zstd_level=0,
+                     lossy_planes=16, device="cpu")
+    live = AsyncExecutor(_cfg(backend="ref", device="cpu"), *_fields())
+    live.checkpoint(str(tmp_path / "run"), zstd_level=0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(device_mod.NoCudaDevice):
+        ckpt.save(str(tmp_path / "b"), 1, tree, lossy_planes=16)
+    with pytest.raises(device_mod.NoCudaDevice):
+        ckpt.load(path)
+    with pytest.raises(device_mod.NoCudaDevice):
+        AsyncExecutor.restore(str(tmp_path / "run"))
+    assert AsyncExecutor.restore(str(tmp_path / "run"),
+                                 device="cpu").sweeps_done == 0
