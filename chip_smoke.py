@@ -90,6 +90,23 @@ non-zero:
    the ``zfp.cu`` kernels at ndim 1, the shards byte for byte those the
    plain codec writes from the same leaves, the kernels' decode bit for
    bit the plain one;
+5s. the sharded engine, ``ShardedExecutor``, its shards on the one card
+   (each an ``AsyncExecutor`` with its own streams, pinned pool and host
+   threads; the held slice crossing their compute streams, the unit halo
+   leaving its exporter's card on the d2h stream after the encode), the
+   launch counts zeroed first (path ``ooc_sharded``): (a) the paper's
+   cell, 1152^3, ndiv 8, bt 12, code 4, 2 shards, depth2, 2 sweeps, from
+   phase 4's fields (the host's bytes reckoned first): both fields bit
+   for bit phase 4's two sweeps, each shard's transfers those of
+   ``build_sharded_tasks`` for it, halos included, the wire bytes the
+   plan's plus the boundary fetches and the halos' the graph's; (b) the
+   bt 1 volume of phase 5 with 4 shards, each with a quarter of 90% of
+   the working set: bit for bit phase 5's fields, each shard's transfers
+   and residency counters the merged graph's, wave_step once a block a
+   sweep; (c) 5bf's float64 cell with 2 shards: bit for bit the float64
+   sync engine's two sweeps. Each prints its round walls, device compute,
+   crc32 seconds, idle share, the halo count and bytes, and by shard its
+   streams' busy time, pinned bytes and host threads;
 5f. the paper's float64 cell: 1152^3, ndiv 8, bt 12, code 4 at 24/64
    through ``OutOfCoreWave`` (the host bytes reckoned and printed
    first; Z cut, units kept, only if they do not fit), one sweep: wire
@@ -121,8 +138,9 @@ non-zero:
    tokens/s, cache bytes and the launches of the encode and cdecode
    kernels. The same token streams are then replayed, teacher-forced,
    through an engine with the plain versions (``backend="ref"``) on the
-   card, whose logits must agree within 5e-2 of their largest, and
-   through a raw-cache engine (printed, not checked). On the cuda
+   card, whose logits must agree within 5e-2 of their largest (a replay
+   through a raw-cache engine, printed and never checked, was cut to make
+   room for phase 5s). On the cuda
    engine's own cache after its run, cdecode is held to its plain
    version (within 2e-5) on every layer's history with that layer's
    last query, and the chunk-flush encode of every layer's tail to the
@@ -164,7 +182,8 @@ non-zero:
    every layer's ``h`` within the kernel's tolerance;
 10. the kernels line: every kernel with its launches on the main paths
    (the out-of-core wave of phases 4 and 5, the live engine of phase
-   5b, its checkpoints of phase 5c, the float64 paper sweep, live run
+   5b, its checkpoints of phase 5c, the sharded engine of phase 5s, the
+   float64 paper sweep, live run
    and precision tier of phases 5f, 5bf and 5p, the serving slice of
    phase 7 and the SSM slice of phase 9, each counted from zero), its
    error and times; the float32 codec's rows give their launches by
@@ -210,8 +229,9 @@ from repro_torch.distributed.fault import (  # noqa: E402
 from repro_torch.core.outofcore import (  # noqa: E402
     OOCConfig, OutOfCoreWave, paper_code_fields, to_host,
 )
+from repro_torch.core.sharded import ShardedExecutor  # noqa: E402
 from repro_torch.core.taskgraph import (  # noqa: E402
-    build_sweep_tasks, unit_wire_bytes, wire_totals,
+    build_sharded_tasks, build_sweep_tasks, unit_wire_bytes, wire_totals,
 )
 from repro_torch.kernels.cdecode import kernel as cdecode_kernel  # noqa: E402
 from repro_torch.kernels.cdecode import ops as cdecode_ops  # noqa: E402
@@ -248,6 +268,8 @@ STEP_PATH = (20, 1152, 1152)
 SMALL_Z = 96  # phase 5's volume depth (bt=1)
 # phase 5b: the live engine
 LIVE_SCHEDULE, LIVE_SWEEPS = "depth2", 2
+# phase 5s: the sharded engine's shards (4 on the bt 1 volume)
+SHARDS = 2
 # phase 6: the fused attention kernel at the decode_32k context
 CTX = SHAPES["decode_32k"].seq_len
 CD_SLOTS, CD_KVH, CD_QPK, CD_D = 16, 2, 6, 128
@@ -1566,6 +1588,252 @@ def ckpt_slice(fields, sync4, bt1, uncut_rows):
 
 
 # ----------------------------------------------------------------------
+# phase 5s: the sharded engine (ShardedExecutor), its shards on one card
+# ----------------------------------------------------------------------
+
+
+def run_sharded(cfg, fields, label, nshards, **kw):
+    """Seed the sharded engine (``nshards`` shards on the card, each an
+    ``AsyncExecutor`` with its own streams, pool and host threads) and
+    run LIVE_SWEEPS rounds of one sweep, the windows open across each
+    boundary (drained after the last). Its row: each round's wall (host
+    clock; the last includes the drain), device compute (events around
+    the codec and stencil calls, on the shards' compute streams), crc32
+    seconds on the host threads and on the caller's thread, the idle
+    share (1 - device compute / wall), the halo count and bytes, and by
+    shard its blocks, its streams' busy seconds, pinned bytes, host
+    threads, host-job and wait seconds and window peak."""
+    clock = DeviceClock()
+    try:
+        t0 = time.perf_counter()
+        eng = ShardedExecutor(cfg, fields["p_prev"], fields["p_cur"],
+                              fields["vel2"], nshards=nshards,
+                              schedule=LIVE_SCHEDULE, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        dev0, crc0, thr0 = clock.device_s(), clock.crc_s, clock.crc_thread_s
+        walls = []
+        for k in range(LIVE_SWEEPS):
+            ts = time.perf_counter()
+            eng.sweep()
+            if k == LIVE_SWEEPS - 1:
+                eng.finish()
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - ts)
+        dev = clock.device_s() - dev0
+        crc, thr = clock.crc_s - crc0, clock.crc_thread_s - thr0
+    finally:
+        clock.restore()
+    wall = sum(walls)
+    summary = eng.transfer_summary()
+    shards = []
+    for spec, ex in zip(eng.specs, eng.shards):
+        st = ex.stats()
+        shards.append({
+            "index": spec.index, "blocks": [spec.block_lo, spec.block_hi],
+            "device": str(ex.device), "stream_busy_s": ex.lanes.busy_s(),
+            "pinned_bytes": st["lanes"]["pinned_bytes"],
+            "host_threads": ex.lanes.threads,
+            "host_job_s": st["lanes"]["host_job_s"],
+            "host_wait_s": st["lanes"]["host_wait_s"],
+            "crc32_wait_s": st["lanes"]["crc_wait_s"],
+            "max_inflight": st["max_inflight"],
+            "halo_count": st["cache"]["halo_count"],
+            "halo_wire_bytes": st["cache"]["halo_wire_bytes"],
+        })
+        check(st["lanes"]["streams"] == 3
+              and st["lanes"]["pinned_bytes"] > 0,
+              f"{label} shard {spec.index}: not on three streams with "
+              f"pinned staging")
+    computes = {ex.lanes.streams["compute"].cuda_stream for ex in eng.shards}
+    check(len(computes) == nshards,
+          f"{label}: the shards share a compute stream")
+    row = {"phase": label, "engine": "sharded", "nshards": nshards,
+           "schedule": LIVE_SCHEDULE, "shape": list(cfg.shape), "bt": cfg.bt,
+           "dtype": cfg.dtype, "sweeps": LIVE_SWEEPS, "seed_s": t1 - t0,
+           "sweep_wall_s": walls, "wall_s": wall, "device_compute_s": dev,
+           "crc32_thread_s": thr, "crc32_caller_s": crc,
+           "idle_share": 1.0 - dev / wall,
+           "halo_count": summary["halo_count"],
+           "halo_raw_bytes": summary["halo_raw"],
+           "halo_wire_bytes": summary["halo_wire"],
+           "pinned_bytes": sum(r["pinned_bytes"] for r in shards),
+           "host_threads": sum(r["host_threads"] for r in shards),
+           "shards": shards,
+           "transfer_summary": {k: v for k, v in summary.items()
+                                if k != "per_device"}}
+    return eng, row
+
+
+def sharded_logs(eng, tasks):
+    """Each shard's transfer log and the merged graph's tasks of that
+    shard (halos included; flush and halo records with their bytes)."""
+    live = [sorted((t.direction, t.field, t.unit, t.sweep, t.flush,
+                    t.wire_bytes if t.flush or t.direction == "halo"
+                    else None) for t in ex.transfers)
+            for ex in eng.shards]
+    model = [sorted((t.kind, t.field, t.unit, t.sweep, t.flush,
+                     int(t.amount) if t.flush or t.kind == "halo" else None)
+                    for t in tasks if t.kind in ("h2d", "d2h", "halo")
+                    and t.resource.startswith(f"s{d}:"))
+             for d in range(eng.nshards)]
+    return live, model
+
+
+def boundary_fetch_wire(cfg, specs):
+    """The wire bytes a round adds to the plan's: each non-first shard's
+    first block fetches its left common, which one engine carries."""
+    _, y, x = cfg.shape
+    itemsize = np.dtype(cfg.dtype).itemsize
+    n = 0
+    for spec in specs[1:]:
+        lo, hi = cfg.plan.common(spec.block_lo - 1)
+        n += sum(unit_wire_bytes(sp, (hi - lo, y, x), itemsize)
+                 for sp in cfg.fields.values())
+    return n
+
+
+def sharded_paper(fields, sync4, live_row):
+    """5s (a): the paper's cell, 1152^3, ndiv 8, bt 12, code 4, through
+    ``ShardedExecutor`` with 2 shards on the card, depth2, 2 sweeps; both
+    fields bit for bit phase 4's two sweeps (``sync4``), each shard's
+    transfers those of ``build_sharded_tasks`` for it, halos included,
+    and the wire bytes the plan's plus the boundary fetches, and the
+    halos' the graph's. The host's bytes are reckoned first."""
+    cfg = OOCConfig(PAPER, NDIV, BT, paper_code_fields(4))
+    field = math.prod(PAPER) * 4
+    store = sum(unit_wire_bytes(spec, (hi - lo,) + PAPER[1:], 4)
+                for spec in cfg.fields.values()
+                for _, _, (lo, hi) in cfg.plan.units())
+    # each shard's pool is the single engine's, and a shard's first
+    # block fetches one unit a field more: one slot each, of the
+    # largest unit's raw bytes
+    slot = max(hi - lo for _, _, (lo, hi) in cfg.plan.units()) * (
+        PAPER[1] * PAPER[2] * 4)
+    pinned = (SHARDS * live_row["pinned_bytes"]
+              + (SHARDS - 1) * len(cfg.fields) * slot)
+    avail = mem_available()
+    # the fields held, the stores, the pools, a gathered field
+    need = store + pinned + field
+    emit({"phase": "sharded_host_bytes", "fields_bytes": 3 * field,
+          "store_bytes": store, "pinned_bytes_estimate": pinned,
+          "gathered_bytes": field, "need_bytes": need,
+          "mem_available_bytes": avail})
+    check(need <= 0.85 * avail, "5s (a) does not fit the host")
+    eng, row = run_sharded(cfg, fields, "sharded_paper", SHARDS)
+    tasks = build_sharded_tasks(cfg, SHARDS, sweeps=LIVE_SWEEPS,
+                                schedule=LIVE_SCHEDULE)
+    live, model = sharded_logs(eng, tasks)
+    summary = eng.transfer_summary()
+    plan = {k: LIVE_SWEEPS * v for k, v in expected_summary(cfg).items()}
+    extra = LIVE_SWEEPS * boundary_fetch_wire(cfg, eng.specs)
+    wire = {"h2d": summary["h2d_wire"] == plan["h2d_wire"] + extra,
+            "d2h": summary["d2h_wire"] == plan["d2h_wire"],
+            "halo": summary["halo_wire"] == sum(
+                int(t.amount) for t in tasks if t.kind == "halo")}
+    eng.close()
+    bits = gathered_equal(eng, sync4)
+    row.update(transfers_equal_graph=[a == b for a, b in zip(live, model)],
+               wire_equal_plan=wire, boundary_fetch_wire=extra,
+               bitwise_sync=bits, live_sweep_wall_s=live_row["sweep_wall_s"])
+    emit(row)
+    check(all(row["transfers_equal_graph"]),
+          "5s (a): a shard's transfers differ from the sharded graph")
+    check(all(wire.values()), f"5s (a): wire bytes off the plan: {wire}")
+    check(row["halo_count"] > 0, "5s (a): no halo crossed")
+    check(all(bits.values()), f"5s (a): differs from the sync engine: {bits}")
+
+
+def sharded_residency(fields, want):
+    """5s (b): the bt 1 volume of phase 5 with 4 shards on the card, each
+    with a quarter of 90% of the working set's bytes: the fields ``want``
+    (phase 5's bt 1 sync engine) bit for bit, each shard's residency
+    counters and transfers those of the merged graph for it, wave_step
+    launched once a block a sweep."""
+    cfg, ws, budget = residency_cell()
+    nshards = 4
+    before = stencil_kernel.launches["wave_step"]
+    eng, row = run_sharded(cfg, fields, "sharded_residency", nshards,
+                           cache_bytes=budget // nshards)
+    steps = stencil_kernel.launches["wave_step"] - before
+    stats = {}
+    tasks = build_sharded_tasks(cfg, nshards, sweeps=LIVE_SWEEPS,
+                                schedule=LIVE_SCHEDULE,
+                                cache_bytes=budget // nshards,
+                                policy="write-back", stats=stats)
+    live, model = sharded_logs(eng, tasks)
+    keys = ("hits", "evictions", "flushes", "d2h_elided")
+    caches = [ex.stats()["cache"] for ex in eng.shards]
+    same_cache = [all(c[k] == stats["per_device"][d][k] for k in keys)
+                  for d, c in enumerate(caches)]
+    eng.close()
+    bits = gathered_equal(eng, want)
+    row.update(budget_bytes=budget, working_set_bytes=ws,
+               cache=[{k: c[k] for k in keys} for c in caches],
+               transfers_equal_graph=[a == b for a, b in zip(live, model)],
+               cache_equal_graph=same_cache, wave_step_launches=steps,
+               bitwise_sync=bits)
+    emit(row)
+    check(steps == LIVE_SWEEPS * NDIV,
+          f"5s (b): wave_step launched {steps} times")
+    check(all(row["transfers_equal_graph"]) and all(same_cache),
+          "5s (b): transfers or counters differ from the sharded graph")
+    check(sum(c["hits"] for c in caches) > 0,
+          "5s (b): the budgets kept nothing")
+    check(all(bits.values()), f"5s (b): differs from the sync engine: {bits}")
+
+
+def sharded_f64(want):
+    """5s (c): the float64 cell of phase 5bf, (288, 576, 576), ndiv 2,
+    bt 12, code 4 at 24/64, with 2 shards (one block each): bit for bit
+    ``want``, the sync engine's two sweeps from the same fields (5bf
+    holds its live engine to the same), transfers the graph's."""
+    cfg = OOCConfig(F64_LIVE, 2, BT, paper_code_fields(4, f32=False),
+                    dtype="float64")
+    fields = initial_fields(F64_LIVE, torch.float64)
+    eng, row = run_sharded(cfg, fields, "sharded_f64", SHARDS)
+    tasks = build_sharded_tasks(cfg, SHARDS, sweeps=LIVE_SWEEPS,
+                                schedule=LIVE_SCHEDULE)
+    live, model = sharded_logs(eng, tasks)
+    eng.close()
+    bits = gathered_equal(eng, want)
+    row.update(transfers_equal_graph=[a == b for a, b in zip(live, model)],
+               bitwise_sync=bits)
+    emit(row)
+    check(all(row["transfers_equal_graph"]),
+          "5s (c): a shard's transfers differ from the sharded graph")
+    check(all(bits.values()), f"5s (c): differs from the sync engine: {bits}")
+
+
+def f64_live_reference():
+    """The float64 sync engine's two sweeps at F64_LIVE (5bf's reference),
+    for 5s (c)."""
+    cfg = OOCConfig(F64_LIVE, 2, BT, paper_code_fields(4, f32=False),
+                    dtype="float64")
+    fields = initial_fields(F64_LIVE, torch.float64)
+    sync = OutOfCoreWave(cfg, fields["p_prev"], fields["p_cur"],
+                         fields["vel2"])
+    sync.run(LIVE_SWEEPS * BT)
+    return {n: sync.gather(n) for n in ("p_prev", "p_cur", "vel2")}
+
+
+def sharded_slice(fields, sync4, bt1, live_rows):
+    """Phase 5s. Prints its seconds (host clock, references included);
+    returns its launch counts (path ``ooc_sharded``)."""
+    t0 = time.perf_counter()
+    want64 = f64_live_reference()
+    torch.cuda.empty_cache()
+    reset_counts()
+    sharded_paper(fields, sync4, live_rows["paper"])
+    torch.cuda.empty_cache()
+    sharded_residency(bt1[0], bt1[1])
+    torch.cuda.empty_cache()
+    sharded_f64(want64)
+    emit({"phase": "sharded_seconds", "seconds": time.perf_counter() - t0})
+    return path_counts()
+
+
+# ----------------------------------------------------------------------
 # phases 5f-5p: float64, the paper's configuration
 # ----------------------------------------------------------------------
 
@@ -2043,9 +2311,8 @@ def serve_kernels_on_cache(cfg, eng, seen):
 
 
 def serving_slice():
-    base = dataclasses.replace(get_config(SERVE_ARCH),
-                               num_layers=SERVE_LAYERS)
-    cfg = dataclasses.replace(base, kv_compress_planes=SERVE_PLANES)
+    cfg = dataclasses.replace(get_config(SERVE_ARCH), num_layers=SERVE_LAYERS,
+                              kv_compress_planes=SERVE_PLANES)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = lm.init_params(cfg, gen, device="cuda")
     rng = np.random.default_rng(SEED)
@@ -2085,23 +2352,20 @@ def serving_slice():
     del eng, seen
     torch.cuda.empty_cache()
 
-    # teacher-forced replays of the same streams
+    # the same streams replayed, teacher-forced, through the plain versions
     forced = [p + o[:-1] for p, o in zip(prompts, outs)]
     chosen = torch.tensor(outs).T  # (MAX_NEW, slots)
-    for label, rcfg, backend in (("ref", cfg, "ref"), ("raw_cache", base,
-                                                          "cuda")):
-        _, ref_logits, rwall, reng = serve(rcfg, params, forced, 1, backend)
-        del reng
-        ratio = replay_ratio(logits, ref_logits)
-        agree = (ref_logits[PROMPT - 1:].argmax(-1) == chosen).float().mean()
-        emit({"phase": f"serve_replay_{label}", "backend": backend,
-              "kv_planes": rcfg.kv_compress_planes, "wall_s": rwall,
-              "max_ratio": max(ratio), "median_ratio": statistics.median(ratio),
-              "greedy_agreement": float(agree)})
-        if label == "ref":
-            check(max(ratio) < SERVE_TOL,
-                  f"cuda engine vs ref engine: ratio {max(ratio)}")
-        torch.cuda.empty_cache()
+    _, ref_logits, rwall, reng = serve(cfg, params, forced, 1, "ref")
+    del reng
+    ratio = replay_ratio(logits, ref_logits)
+    agree = (ref_logits[PROMPT - 1:].argmax(-1) == chosen).float().mean()
+    emit({"phase": "serve_replay_ref", "backend": "ref",
+          "kv_planes": cfg.kv_compress_planes, "wall_s": rwall,
+          "max_ratio": max(ratio), "median_ratio": statistics.median(ratio),
+          "greedy_agreement": float(agree)})
+    check(max(ratio) < SERVE_TOL,
+          f"cuda engine vs ref engine: ratio {max(ratio)}")
+    torch.cuda.empty_cache()
     serve_profile(cfg, params, prompts)
     del params
     torch.cuda.empty_cache()
@@ -2519,6 +2783,13 @@ def main() -> int:
                  "zfp_encode ndim1", "zfp_decode ndim1"):
         check(ckpt_counts.get(name, 0) > 0,
               f"the checkpoint phase never launched {name}")
+    torch.cuda.empty_cache()
+    shard_counts = sharded_slice(fields, sync4, bt1, live_rows)
+    emit({"phase": "launches", "path": "ooc_sharded", **shard_counts})
+    for name in ("zfp_encode", "zfp_decode", "wave_multistep", "wave_step",
+                 "zfp_encode_f64", "zfp_decode_f64", "wave_multistep_f64"):
+        check(shard_counts.get(name, 0) > 0,
+              f"the sharded phase never launched {name}")
     del fields, sync4, bt1
     torch.cuda.empty_cache()
 
@@ -2581,7 +2852,7 @@ def main() -> int:
                  "src/repro_torch/csrc/sscan.cu",
                  (SSCAN_SHAPES[0], SSCAN_CHUNK)))
     paths = {"ooc_wave": counts, "ooc_live": live_counts,
-             "ooc_ckpt": ckpt_counts,
+             "ooc_ckpt": ckpt_counts, "ooc_sharded": shard_counts,
              "ooc_f64": f64_counts, "ooc_live_f64": live64_counts,
              "precision": prec_counts, "serving": serve_counts,
              "ssm_serving": ssm_counts}
@@ -2589,10 +2860,11 @@ def main() -> int:
     # by ndim (the lossy checkpoint leaves at 1, the KV cache at 2);
     # a kernel with two rows: each row counts the paths that launch it at
     # its shape (the float64 rung on the engines' blocks, 1152^2 and
-    # 576^2 planes, and on the precision tier's; the float64 codec on the
-    # engines' units and on the precision tier's, both rates), so no
-    # launch counts twice
-    engines64, prec = ("ooc_f64", "ooc_live_f64"), ("precision",)
+    # 576^2 planes, the sharded engine's included, and on the precision
+    # tier's; the float64 codec on the engines' units and on the precision
+    # tier's, both rates), so no launch counts twice
+    engines64 = ("ooc_f64", "ooc_live_f64", "ooc_sharded")
+    prec = ("precision",)
     row_paths = {("wave_multistep_f64", BLOCK): engines64,
                  ("wave_multistep_f64", PREC_SHAPE): prec,
                  ("zfp_encode_f64", UNIT): engines64,

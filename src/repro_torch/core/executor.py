@@ -45,16 +45,27 @@ RecoveryPolicy(dir))`` rolls back to the last good checkpoint on an
 unrecoverable fault and replays, giving back every staging slot the lost
 crossings held.
 
+Sharding (``shard=``, a ``distributed.sharding.ShardSpec``): the engine
+walks one contiguous block range of the global plan, its store holding
+only that range's units, and ``core.sharded.ShardedExecutor`` routes the
+halo exchange between shards. A shard's first block imports the left
+neighbour's held slice (``deliver_held``), the raw new-time planes its
+boundary writeback concatenates, computed on the neighbour's compute
+stream: the import waits on the neighbour's event and marks the tensor
+for this engine's stream. Its last block exports its own
+(``take_held``). Its first block's committed left common leaves the card
+as a ``streams.Writeback`` after the encode's event (``take_halo``), its
+digest taken as it leaves, and lands in the left neighbour's ghost as a
+store crossing of op ``"halo"`` (``deliver_halo``).
+
 Numerics: the same ops on the same values as ``OutOfCoreWave``, and the
 round trips residency elides are byte-preserving, so the output is bit
-for bit the synchronous engine's.
-
-Not ported yet: sharding (``shard=`` and the halo methods), raising with
-its ROADMAP queue 1 item 11.
+for bit the synchronous engine's, sharded or not.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import pathlib
 import statistics
@@ -72,7 +83,6 @@ from repro_torch.core.outofcore import HostUnitStore, OOCConfig, \
 from repro_torch.core.ratecontrol import RateController, rate_label
 from repro_torch.core.streams import Fetch, Lanes, Writeback
 from repro_torch.core.taskgraph import (
-    SHARDING_TODO,
     Schedule,
     Task,
     Transfer,
@@ -81,6 +91,7 @@ from repro_torch.core.taskgraph import (
     summarize_transfers,
 )
 from repro_torch.core.unitcache import DeviceResidencyManager, Entry
+from repro_torch.distributed.sharding import ShardSpec
 from repro_torch.distributed.fault import (
     ChecksumError,
     FaultError,
@@ -238,9 +249,22 @@ class AsyncExecutor:
         ``injector`` replays a ``FaultPlan`` on every crossing and its
         crash points at sweep boundaries. ``rates`` is a
         ``RateController``.
+
+        ``shard`` (a ``ShardSpec``) restricts the engine to one
+        contiguous block range of the global plan: the store seeds only
+        the shard's units, the sweep walks its blocks, and the halo
+        methods exchange its boundaries (``ShardedExecutor`` routes
+        them). The engine runs on ``shard.device`` when the shard is
+        pinned, else on ``cfg.device``. Rate control does not compose
+        with sharding (its halo exports price at the spec's rate).
         """
-        if shard is not None:
-            raise NotImplementedError(SHARDING_TODO)
+        if rates is not None and shard is not None:
+            raise ValueError(
+                "rate control does not compose with sharding (halo "
+                "exports are spec-rate); pass rates=None"
+            )
+        if shard is not None and shard.device is not None:
+            cfg = dataclasses.replace(cfg, device=str(shard.device))
         self.device = engine_device(cfg)
         self.cfg = cfg
         self.schedule = get_schedule(schedule)
@@ -251,7 +275,17 @@ class AsyncExecutor:
         self.reissue = reissue if reissue is not None else retry
         self.retry = retry if retry is not None else reissue
         self.injector = injector
-        self.shard = None
+        self.shard = shard
+        # the local block range (global indices): the whole domain when
+        # not sharded
+        self._blocks: List[int] = (list(shard.blocks) if shard is not None
+                                   else list(range(self.plan.ndiv)))
+        # the cache-free one-round template, replayed every round; a
+        # shard's carries its boundary fetch and its halo exports
+        self._by_block: List[List[Task]] = [[] for _ in self._blocks]
+        for t in build_sweep_tasks(cfg, sweeps=1, schedule=self.schedule,
+                                   shard=shard):
+            self._by_block[t.block - self._blocks[0]].append(t)
         self.cache = DeviceResidencyManager(cache_bytes, policy=policy)
         self.rates = rates
         self.store = HostUnitStore(
@@ -265,8 +299,10 @@ class AsyncExecutor:
         if any(s is not None for s in seeds):
             if not all(s is not None for s in seeds):
                 raise ValueError("seed all three fields or none")
-            self.store.seed({"p_prev": p_prev, "p_cur": p_cur,
-                             "vel2": vel2})
+            self.store.seed(
+                {"p_prev": p_prev, "p_cur": p_cur, "vel2": vel2},
+                keys=self._local_units() if shard is not None else None,
+            )
         self.recovery_log: List[Dict[str, object]] = []
         # monotonic clock for flush straggler detection
         self._timer = time.perf_counter
@@ -274,11 +310,14 @@ class AsyncExecutor:
         self.transfers: List[Transfer] = []
         self.sweeps_done = 0
         self.max_inflight = 0  # peak block visits with pending D2H
-        # the cache-free one-round template, replayed every round
-        self._by_block: List[List[Task]] = [[] for _ in range(
-            self.plan.ndiv)]
-        for t in build_sweep_tasks(cfg, sweeps=1, schedule=self.schedule):
-            self._by_block[t.block].append(t)
+        # the halo exchange of a sharded run: the left neighbour's held
+        # slices for the coming round (each with the event it waits on),
+        # the held slices this shard exports and their event, and its
+        # encoded left commons (payload, version, the encode's event)
+        self._held_in: Dict[str, Tuple[torch.Tensor, object]] = {}
+        self._held_out: Dict[str, torch.Tensor] = {}
+        self._held_ready = None
+        self._halo_out: Dict[UnitKey, Tuple[object, int, object]] = {}
         # live state
         self._dev: Dict[UnitKey, object] = {}
         self._staged: Dict[UnitKey, object] = {}
@@ -330,27 +369,84 @@ class AsyncExecutor:
             for p in planes:
                 words = zfp_ref.payload_words(3, p, 8 * itemsize)
                 slot = max(slot, align(nb * words * 4) + align(nb * 4))
-        nrw = sum(sp.role == "rw" for sp in self.cfg.fields.values())
-        fetch = max(len(self.plan.fetch_units(i))
-                    for i in range(self.plan.ndiv)) * len(self.cfg.fields)
-        wb = max(len(self.plan.writeback_units(i))
-                 for i in range(self.plan.ndiv)) * nrw
+        # a shard's first block fetches one unit a field more; its halo
+        # exports leave at the round's end, when no fetch holds a slot
+        fetch = max(sum(t.kind == "h2d" for t in ts) for ts in self._by_block)
+        wb = max(sum(t.kind == "d2h" for t in ts) for ts in self._by_block)
         return slot, fetch + self.depth * wb + 1
 
     # ------------------------------------------------------------------
-    # the halo exchange of a sharded run (item 11)
+    # the halo exchange of a sharded run (routed by ShardedExecutor)
     # ------------------------------------------------------------------
-    def deliver_held(self, name, value):
-        raise NotImplementedError(SHARDING_TODO)
+    def _local_units(self) -> List[Tuple[str, int]]:
+        """The shard's unit footprint: everything its blocks fetch or
+        write, plus the left common its first block fetches (the carry a
+        single-device run keeps on the device)."""
+        keys = set()
+        for i in self._blocks:
+            keys.update(self.plan.fetch_units(i))
+            keys.update(self.plan.writeback_units(i))
+        if self._blocks[0] > 0:
+            keys.add(("C", self._blocks[0] - 1))
+        return sorted(keys)
 
-    def take_held(self):
-        raise NotImplementedError(SHARDING_TODO)
+    def deliver_held(self, name: str, value: torch.Tensor,
+                     ready=None) -> None:
+        """Accept the left neighbour's held slice (the new-time lower
+        half of the boundary common) for the coming round, with the
+        event on the neighbour's compute stream after which it is
+        written (``take_held`` hands both over). Must land before
+        ``sweep()``: its first writeback concatenates it."""
+        self._held_in[name] = (value, ready)
 
-    def take_halo(self):
-        raise NotImplementedError(SHARDING_TODO)
+    def take_held(self) -> Dict[str, Tuple[torch.Tensor, object]]:
+        """Pop the held slices this shard exports after a round, each
+        with the event recorded on this engine's compute stream after
+        the stencil that wrote it (empty for the last shard)."""
+        out = {n: (v, self._held_ready) for n, v in self._held_out.items()}
+        self._held_out, self._held_ready = {}, None
+        return out
 
-    def deliver_halo(self, field, kind, idx, value, version):
-        raise NotImplementedError(SHARDING_TODO)
+    def _import_held(self, value: torch.Tensor, ready) -> torch.Tensor:
+        """A held slice made usable on this engine's compute stream
+        (current): the stream waits on the exporter's event, then the
+        tensor is marked for it (the caching allocator will not hand
+        its memory out while this stream may read it), or copied here
+        when it lies on another device."""
+        self.lanes.wait("compute", ready)
+        if value.device != self.device:
+            return value.to(self.device, non_blocking=True)
+        if self.lanes.cuda:
+            value.record_stream(self.lanes.streams["compute"])
+        return value
+
+    def take_halo(self) -> Dict[UnitKey, Tuple[Writeback, int]]:
+        """Pop the encoded left commons this shard exports after a round
+        as ``{(field, unit): (writeback, version)}`` (empty for the
+        first shard): each payload, the same object this shard's parked
+        writeback commits, starts its D2H on this engine's d2h stream
+        after the encode's event, digested by its host threads as it
+        leaves (``deliver_halo`` gives its staging slot back)."""
+        out = {key: (self.lanes.writeback(value, ver, after), ver)
+               for key, (value, ver, after) in self._halo_out.items()}
+        self._halo_out = {}
+        return out
+
+    def deliver_halo(self, field: str, kind: str, idx: int, wb: Writeback,
+                     version: int) -> int:
+        """Land a neighbour's halo put in this shard's ghost: a store
+        crossing of op ``"halo"``, verified against the digest taken as
+        the bytes left the neighbour's card, retried and wire-logged
+        like any crossing. ``wb`` is a ``Writeback`` from ``take_halo``;
+        its slot goes back here. Returns the wire bytes."""
+        try:
+            host, crc = wb.result()
+            wire = self.store.put(field, kind, idx, host, version=version,
+                                  crc=crc, send=wb.send, op="halo")
+        finally:
+            wb.release()
+        self._ver[(field, (kind, idx))] = version
+        return wire
 
     # ------------------------------------------------------------------
     # window management
@@ -486,7 +582,16 @@ class AsyncExecutor:
         def zeros(n):
             return torch.zeros((n, y, x), dtype=dtype, device=self.device)
 
-        pieces = [zeros(h) if i == 0 else shared]
+        if i == 0:
+            first = zeros(h)
+        elif shared is not None:
+            first = shared
+        else:
+            # a shard's first block: the left common fetched from its
+            # own store, the decode of the unit it committed last round,
+            # bit for bit the carry a single-device run keeps
+            first = self._dev.pop((name, ("C", i - 1)))
+        pieces = [first]
         pieces += [self._dev.pop((name, u)) for u in plan.fetch_units(i)]
         if i == plan.ndiv - 1:
             pieces.append(zeros(h))
@@ -596,6 +701,20 @@ class AsyncExecutor:
             self.sweeps_done, block, flush=True, reissued=reissued,
         ))
 
+    def _capture_halo(self, btasks: List[Task], kr: int) -> None:
+        """Keep the left-common export of a shard's first block before
+        parking pops the payload: the halo ships the same encoded object
+        the writeback commits, at the version the park issues, after
+        the encode's event."""
+        after = None
+        for t in btasks:
+            if t.kind == "halo" and ".halo." in t.tid:
+                if after is None:
+                    after = self.lanes.mark("compute")
+                key = (t.field, t.unit)
+                self._halo_out[key] = (self._outvals[key],
+                                       self._ver.get(key, 0) + kr, after)
+
     def _park_writebacks(self, btasks: List[Task], kr: int = 1) -> None:
         """Bump unit versions (by ``kr``), deposit the device payloads
         into residency (dirty under write-back), start the D2H of every
@@ -645,13 +764,22 @@ class AsyncExecutor:
         kr = self.temporal if sweeps is None else sweeps
         if not 1 <= kr <= self.temporal:
             raise ValueError(f"sweeps={kr} outside 1..{self.temporal}")
+        rw = [n for n, sp in self.cfg.fields.items() if sp.role == "rw"]
         held: Dict[str, torch.Tensor] = {}
         shared: Dict[str, Optional[torch.Tensor]] = {
             n: None for n in self.cfg.fields
         }
+        last = self._blocks[-1]
         with self.lanes.on("compute"):
-            for i in range(self.plan.ndiv):
-                btasks = self._by_block[i]
+            if self.shard is not None and not self.shard.first:
+                # the left neighbour's held slices seed the boundary
+                # writeback's concat as block lo-1's visit would
+                lo = self._blocks[0]
+                for n in rw:
+                    held[n + str(lo - 1)] = self._import_held(
+                        *self._held_in.pop(n))
+            for j, i in enumerate(self._blocks):
+                btasks = self._by_block[j]
                 # window admission precedes this visit's first transfer
                 self._admit()
                 # one chunk of an overlapped snapshot drains here, the
@@ -665,10 +793,15 @@ class AsyncExecutor:
                         [t for t in btasks if t.kind == "decompress"]
                     )
                     shared = self._exec_stencil(i, shared, held, kr)
+                    if i == last and self.shard is not None:
+                        self._held_ready = self.lanes.mark("compute")
                     self._exec_compress(
                         [t for t in btasks if t.kind == "compress"]
                     )
+                self._capture_halo(btasks, kr)
                 self._park_writebacks(btasks, kr)
+        if self.shard is not None and not self.shard.last:
+            self._held_out = {n: held[n + str(last)] for n in rw}
         assert not self._dev and not self._staged and not self._outvals
         self.sweeps_done += kr
         if self.rates is not None:
@@ -905,7 +1038,10 @@ class AsyncExecutor:
                 "depth": self.depth,
                 "cache_bytes": self.cache.budget_bytes,
                 "policy": self.cache.policy,
-                "shard": None,  # sharded layouts are item 11
+                # the sharded layout (None unsharded); device pins are
+                # process state and never persist
+                "shard": (self.shard.to_dict() if self.shard is not None
+                          else None),
             },
             # the rate controller's whole state, so a resumed run
             # re-decides what this one would have
@@ -1222,8 +1358,7 @@ class AsyncExecutor:
                 f"(kind={extra.get('kind')!r})"
             )
         prog = extra["progress"]
-        if prog.get("shard"):
-            raise NotImplementedError(SHARDING_TODO)
+        shard_d = prog.get("shard")
         cfg_d = dict(extra["cfg"], device=device)
         if backend is not None:
             cfg_d["backend"] = backend
@@ -1248,6 +1383,8 @@ class AsyncExecutor:
                          else cache_bytes),
             policy=prog["policy"] if policy is None else policy,
             reissue=reissue, retry=retry, injector=injector, rates=rates,
+            shard=(ShardSpec.from_dict(shard_d, device=device)
+                   if shard_d else None),
         )
         ex.store.load_state(leaves, extra["store"])
         ex.sweeps_done = int(prog["sweeps_done"])

@@ -36,7 +36,7 @@ from __future__ import annotations
 import zlib
 from collections import Counter
 from dataclasses import dataclass
-from typing import Dict, List, Literal, Optional, Tuple
+from typing import Dict, List, Literal, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -206,6 +206,16 @@ def to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(a).to(device, copy=True)
 
 
+def device_value(value, device: torch.device):
+    """A copy of a host unit value (raw or compressed) on ``device``."""
+    if isinstance(value, Compressed):
+        return Compressed(
+            to_device(value.payload, device), to_device(value.emax, device),
+            value.shape, value.planes, value.ndim_spatial, value.dtype,
+        )
+    return to_device(value, device)
+
+
 def _host_value(value):
     """Host-materialized copy of a raw or compressed unit value."""
     if isinstance(value, Compressed):
@@ -365,7 +375,10 @@ class HostUnitStore:
         last: Optional[Exception] = None
         for attempt in range(attempts):
             if attempt:
-                self._count(f"{op}_retries")
+                # a halo put is a device-to-host crossing into this
+                # store: its retries count with the d2h ones (the
+                # reference's counter for them is missing, a KeyError)
+                self._count(f"{'d2h' if op == 'halo' else op}_retries")
                 if self.retry is not None:
                     self.backoff_s += self.retry.backoff(attempt)
             fault = None
@@ -425,6 +438,7 @@ class HostUnitStore:
         on_wire: bool = True,
         crc: Optional[int] = None,
         send=None,
+        op: str = "d2h",
     ) -> int:
         """Store; returns wire bytes (what crossed the link).
 
@@ -439,7 +453,9 @@ class HostUnitStore:
         The live engine passes a host value it already brought over,
         ``crc`` (the digest of the bytes as they left the device, taken
         on its host threads) and ``send`` (see ``_wire``), so no digest
-        runs here on the clean path.
+        runs here on the clean path. ``op`` labels the crossing in the
+        wire log and for fault injection: ``"d2h"``, or ``"halo"`` for a
+        neighbour shard's halo put landing in this store's ghost.
         """
         key = (field, kind, idx)
         if version is None:
@@ -451,7 +467,7 @@ class HostUnitStore:
         if crc is None:
             crc = unit_checksum(host, version)
         if on_wire:
-            host = self._wire("d2h", field, kind, idx, version, host, crc,
+            host = self._wire(op, field, kind, idx, version, host, crc,
                               send)
         # the payload lands before the version maps advance: a put that
         # fails mid-copy leaves host_current() false, not true over
@@ -585,12 +601,20 @@ class HostUnitStore:
             self._versions[key] = ver
             self._host_versions[key] = ver
 
-    def seed(self, full: Dict[str, np.ndarray]) -> None:
+    def seed(
+        self,
+        full: Dict[str, np.ndarray],
+        keys: Optional[Sequence[Tuple[str, int]]] = None,
+    ) -> None:
         """Initial decomposition of full host fields into host units,
         one unit at a time (compressed units are encoded on the
         device, each at its sweep-0 rate when a ``RateController`` is
-        attached; rate None stores the unit raw)."""
+        attached; rate None stores the unit raw). ``keys`` restricts it
+        to those ``(kind, idx)`` units, a shard's footprint: each unit
+        is encoded alone, so a subset holds the same bytes as the same
+        units of a full seed."""
         cfg, plan = self.cfg, self.plan
+        keep = None if keys is None else set(keys)
         for name, arr in full.items():
             spec = cfg.fields[name]
             if tuple(arr.shape) != tuple(cfg.shape):
@@ -598,6 +622,8 @@ class HostUnitStore:
                     f"field {name} has shape {arr.shape}, not {cfg.shape}"
                 )
             for kind, idx, (lo, hi) in plan.units():
+                if keep is not None and (kind, idx) not in keep:
+                    continue
                 planes = spec.planes
                 if spec.compressed and self.rates is not None:
                     planes = self.rates.rate_for(name, kind, idx, 0)
@@ -627,15 +653,7 @@ class HostUnitStore:
                             self.host_version_of(field, kind, idx), stored,
                             self._crc[key])
         raw, wire = unit_bytes(stored)
-        if isinstance(stored, Compressed):
-            dev = Compressed(
-                to_device(stored.payload, self.device),
-                to_device(stored.emax, self.device),
-                stored.shape, stored.planes, stored.ndim_spatial,
-                stored.dtype,
-            )
-            return dev, raw, wire
-        return to_device(stored, self.device), raw, wire
+        return device_value(stored, self.device), raw, wire
 
     def cross_h2d(self, field: str, kind: str, idx: int, send) -> None:
         """The live engine's H2D crossing of one unit: its transport

@@ -23,9 +23,12 @@ lose residency. ``rates=`` replays a ``RateController``'s decisions at
 exact payload sizes. The live executor's transfer log equals the
 graph's h2d and d2h tasks.
 
-The sharded and multi-tenant graphs are not ported yet:
-``build_sweep_tasks(shard=...)`` and ``build_sharded_tasks`` raise
-naming ROADMAP queue 1 item 11, ``build_tenant_tasks`` item 12.
+``build_sweep_tasks(shard=...)`` restricts the graph to one shard of a
+multi-device decomposition (``distributed.sharding.ShardSpec``) and adds
+its halo-exchange tasks; ``build_sharded_tasks`` merges every shard's
+graph with the cross-shard hazard edges. The multi-tenant graph is not
+ported yet: ``build_tenant_tasks`` raises naming ROADMAP queue 1 item
+12.
 """
 
 from __future__ import annotations
@@ -38,10 +41,6 @@ from repro_torch.core.ratecontrol import rate_label
 from repro_torch.core.unitcache import UnitCache
 from repro_torch.kernels.zfp import ref as zfp_ref
 
-SHARDING_TODO = (
-    "sharded task graphs (ShardSpec, halo exchange) are not ported yet: "
-    "ROADMAP.md queue 1 item 11"
-)
 TENANCY_TODO = (
     "multi-tenant task graphs are not ported yet: ROADMAP.md queue 1 "
     "item 12"
@@ -300,7 +299,29 @@ def build_sweep_tasks(
     gets barrier edges on the cut — the drain the overlapped cut
     exists to avoid.
 
-    ``shard`` is not ported yet and raises (item 11).
+    ``shard`` (a ``distributed.sharding.ShardSpec``) restricts the graph
+    to that shard's contiguous global block range and adds the tasks of
+    the halo exchange. The plan stays global, so tids, unit spans and
+    versions line up with the single-device graph:
+
+    * the first local block (when not the domain edge) also fetches its
+      left common ``C_{lo-1}``, the region a single-device run carries
+      on device from the previous visit; the shard owns and re-commits
+      that unit every round, so the fetch replays through residency
+      like any other;
+    * after the first local block's writeback, a kind-``halo`` task on
+      the ``halo`` resource exports the committed ``C_{lo-1}`` to the
+      left neighbour's ghost, encoded (the exact ``Compressed.nbytes()``
+      of a ZFP field), hazard-edged on the producing codec task and
+      stamped with the version the writeback produced;
+    * after the last local block's stencil (when not the domain edge), a
+      kind-``halo`` task exports the held lower half of ``C_{hi-1}``
+      (``halo`` raw planes, which the right neighbour's first writeback
+      concatenates) to the right neighbour;
+    * the right-boundary ghost ``C_{hi-1}``'s version advances ``kr`` a
+      round (the neighbour's halo put); the ghost is never written
+      locally, hence never cached, so its h2d is always emitted: the
+      anchor ``build_sharded_tasks`` hangs the cross-shard edge on.
 
     ``resource_prefix`` namespaces every task's resource (e.g.
     ``"s1:"`` makes ``s1:h2d``/``s1:compute``/...), giving each shard
@@ -316,10 +337,10 @@ def build_sweep_tasks(
     budget. Pass the live run's controller (its decision log) to model
     that run, or a ``mode="fixed"`` controller for spec rates. Without
     ``rates`` the legacy pricing (``wire_ratio`` on the wire,
-    ``unit_wire_bytes`` in the residency model) applies.
+    ``unit_wire_bytes`` in the residency model) applies. Sharded halo
+    exports price at the field spec's rate: rate control does not
+    compose with sharding.
     """
-    if shard is not None:
-        raise NotImplementedError(SHARDING_TODO)
     if ckpt_mode not in ("overlapped", "quiesced"):
         raise ValueError(
             f"unknown ckpt_mode {ckpt_mode!r}; "
@@ -450,7 +471,10 @@ def build_sweep_tasks(
         kr = min(sched.temporal, sweeps - s0)
         rounds.append((s0, kr))
         s0 += kr
-    blocks = list(range(plan.ndiv))
+    # the shard's block range; window edges count local visits, as the
+    # shard's own executor does
+    blocks = list(shard.blocks) if shard is not None else list(
+        range(plan.ndiv))
     for rnd, (s, kr) in enumerate(rounds):
         for j, i in enumerate(blocks):
             visit = rnd * len(blocks) + j
@@ -473,6 +497,10 @@ def build_sweep_tasks(
             h2d_ids, dec_ids = [], []
             fetch_flushes: List[str] = []
             funits = list(plan.fetch_units(i))
+            if shard is not None and i == shard.block_lo and i > 0:
+                # first local block: fetch the left common a
+                # single-device run carries on device
+                funits.insert(0, ("C", i - 1))
             for name, spec in cfg.fields.items():
                 for kind, idx in funits:
                     key = (name, (kind, idx))
@@ -555,6 +583,21 @@ def build_sweep_tasks(
                 f"{pre}.stencil", "compute", "stencil", cells, deps, i,
                 sweep=s,
             )
+            if (shard is not None and i == shard.block_hi - 1
+                    and not shard.last):
+                # export the held new-time lower half of C_{hi-1} to the
+                # right neighbour's first writeback, raw (its concat
+                # input stays bit for bit)
+                for name, spec in cfg.fields.items():
+                    if spec.role != "rw":
+                        continue
+                    gkey = (name, ("C", i))
+                    add(
+                        f"{pre}.held.{name}.C{i}", "halo", "halo",
+                        plan.halo * plane_bytes, (prev_compute,), i,
+                        field=name, unit=("C", i), sweep=s,
+                        ver=version.get(gkey, 0) + kr,
+                    )
             last_d2h = fetch_flushes[-1] if fetch_flushes else prev_compute
             for name, spec in cfg.fields.items():
                 if spec.role != "rw":
@@ -588,6 +631,20 @@ def build_sweep_tasks(
                             field=name, unit=(kind, idx), sweep=s,
                             ver=ver,
                         ),)
+                    if (shard is not None and kind == "C"
+                            and idx == shard.block_lo - 1):
+                        # ship the committed left common to the left
+                        # neighbour's ghost: the encoded payload (exact
+                        # ZFP nbytes), hazard-edged on the codec task,
+                        # independent of the d2h (which residency may
+                        # elide)
+                        add(
+                            f"{pre}.halo.{name}.{kind}{idx}", "halo",
+                            "halo", exact_nbytes(spec, kind, idx),
+                            dep, i,
+                            field=name, unit=(kind, idx), sweep=s,
+                            ver=ver,
+                        )
                     if cache.enabled:
                         # deposited before (independent of) the host
                         # materialization — the next sweep can hit even
@@ -626,6 +683,14 @@ def build_sweep_tasks(
                     )
                     writeback_of[key] = last_d2h
             drain_of_visit[visit] = last_d2h
+        if shard is not None and not shard.last:
+            # the right neighbour's halo put lands at the round boundary:
+            # the ghost common's version advances kr a round, so the next
+            # round's fetch reads the refreshed mirror
+            for name, spec in cfg.fields.items():
+                if spec.role == "rw":
+                    gkey = (name, ("C", shard.block_hi - 1))
+                    version[gkey] = version.get(gkey, 0) + kr
         if ckpt_every and (s + kr) % ckpt_every == 0:
             # the checkpoint cut at this sweep boundary, at the frozen
             # version vector (every version this sweep issued)
@@ -677,9 +742,80 @@ def build_sweep_tasks(
     return tasks
 
 
-def build_sharded_tasks(*args, **kwargs) -> List[Task]:
-    """The merged multi-device graph; not ported yet (item 11)."""
-    raise NotImplementedError(SHARDING_TODO)
+def build_sharded_tasks(
+    cfg,
+    nshards: int,
+    sweeps: int = 1,
+    schedule: Union[str, Schedule] = "unitgrain",
+    cache_bytes: int = 0,
+    stats: Optional[Dict[str, object]] = None,
+    policy: str = "write-back",
+) -> List[Task]:
+    """Merged multi-device task graph: one per-shard graph per device
+    (resources namespaced ``s{d}:h2d``/``s{d}:compute``/... so each
+    shard replays on its own stream set) plus the cross-shard hazard
+    edges of the halo exchange:
+
+    * **held** (shard *d*, round *r*) → the right neighbor's boundary
+      writeback chain in the *same* round — its compress task when the
+      field is compressed, else its d2h, else its own halo export.
+      Deliberately *not* into the neighbor's stencil: only the
+      boundary common's commit waits on the import, so shards pipeline
+      as a wavefront and the per-sweep makespan drops toward 1/N;
+    * **unit halo** (shard *d+1*, round *r*) → shard *d*'s ghost
+      refetch in the *next* round (the fetch-after-halo-put hazard;
+      the ghost is never resident, so that h2d task always exists).
+
+    The merge is round-major (shard-ascending within a round), keeping
+    the list in dependency order for the replay. ``stats`` (if given)
+    gains a ``"per_device"`` dict of each shard's residency counters.
+    """
+    from repro_torch.distributed.sharding import partition_domain
+
+    sched = get_schedule(schedule)
+    specs = partition_domain(cfg.ndiv, nshards)
+    rounds: List[Tuple[int, int]] = []
+    s0 = 0
+    while s0 < sweeps:
+        kr = min(sched.temporal, sweeps - s0)
+        rounds.append((s0, kr))
+        s0 += kr
+    per_shard: List[List[Task]] = []
+    for spec in specs:
+        st: Dict[str, object] = {}
+        per_shard.append(build_sweep_tasks(
+            cfg, sweeps, sched, cache_bytes, st, policy,
+            shard=spec, resource_prefix=f"s{spec.index}:",
+        ))
+        if stats is not None:
+            stats.setdefault("per_device", {})[spec.index] = st
+    merged: List[Task] = []
+    for s, _ in rounds:
+        for tl in per_shard:
+            merged.extend(t for t in tl if t.sweep == s)
+    by_tid = {t.tid: t for t in merged}
+    rw = [n for n, sp in cfg.fields.items() if sp.role == "rw"]
+    for r, (s, kr) in enumerate(rounds):
+        for spec in specs[:-1]:
+            hi = spec.block_hi
+            for name in rw:
+                held = f"s{s}b{hi - 1}.held.{name}.C{hi - 1}"
+                for cand in (f"s{s}b{hi}.comp.{name}.C{hi - 1}",
+                             f"s{s}b{hi}.d2h.{name}.C{hi - 1}",
+                             f"s{s}b{hi}.halo.{name}.C{hi - 1}"):
+                    tgt = by_tid.get(cand)
+                    if tgt is not None:
+                        tgt.deps = tgt.deps + (held,)
+                        break
+                if r + 1 < len(rounds):
+                    ns = rounds[r + 1][0]
+                    halo = f"s{s}b{hi}.halo.{name}.C{hi - 1}"
+                    tgt = by_tid.get(
+                        f"s{ns}b{hi - 1}.h2d.{name}.C{hi - 1}"
+                    )
+                    if tgt is not None and halo in by_tid:
+                        tgt.deps = tgt.deps + (halo,)
+    return merged
 
 
 def build_tenant_tasks(*args, **kwargs) -> List[Task]:

@@ -10,7 +10,13 @@ staging, against reuse of freed memory across its streams (the
 ``record_stream`` hazard) and under injected in-flight corruption; its
 overlapped checkpoint cut keeps the pre-cut device bytes, lossy
 checkpoint leaves coded by the kernels are the plain codec's byte for
-byte, and a rollback gives every pinned slot back.
+byte, and a rollback gives every pinned slot back. The sharded engine
+(``ShardedExecutor``, 2 and 4 shards on one device, each with streams of
+its own) is bit for bit the single-device engine on the card, also with
+one shard's compute stream held back and freed memory refilled with NaN
+(a held slice read before its exporter wrote it, or a payload whose
+memory went to another tensor, would show), across a sharded checkpoint
+and restore, and under a corrupted halo put that is retried.
 
 Contract: the codec and stencil kernels are bit for bit equal to their
 plain versions (``-fmad=false`` and the reference's order of
@@ -1168,3 +1174,122 @@ def test_zfp64_refuses_tables_not_of_route(cuda_device, monkeypatch, which,
             zfp_kernel.decode(payload, emax, x.shape, planes,
                               dtype="float64")
         torch.cuda.synchronize()
+
+
+# ----------------------------------------------------------------------
+# the sharded engine on the card: shards on one device, each with its
+# own streams, the held slice crossing them and the halo leaving the
+# exporter's card after its encode
+# ----------------------------------------------------------------------
+def _sharded_pair(nshards, schedule, budget, **kw):
+    """The single-device live engine and the sharded one after three
+    sweeps from the same fields, on the card."""
+    from repro_torch.core.sharded import ShardedExecutor
+
+    bt = 1 if schedule.startswith("temporal") else 2
+    cfg = OOCConfig(LIVE_SHAPE, 4, bt, paper_code_fields(4))
+    single = AsyncExecutor(cfg, *_live_fields(), schedule=schedule,
+                           cache_bytes=budget)
+    single.run(3 * bt)
+    sh = ShardedExecutor(cfg, *_live_fields(), nshards=nshards,
+                         schedule=schedule, cache_bytes=budget, **kw)
+    return single, sh
+
+
+@pytest.mark.parametrize("budget", [0, 1 << 30])
+@pytest.mark.parametrize("schedule", ["depth2", "temporal2"])
+@pytest.mark.parametrize("nshards", [2, 4])
+def test_sharded_engine_equals_single_on_card(cuda_device, nshards, schedule,
+                                              budget):
+    """Bit for bit the single-device engine on the card, every shard on
+    the same device with three streams of its own, the kernels launched
+    through the shards."""
+    single, sh = _sharded_pair(nshards, schedule, budget)
+    zfp_kernel.reset_launches()
+    stencil_kernel.reset_launches()
+    sh.run_sweeps(3)
+    computes = {ex.lanes.streams["compute"].cuda_stream for ex in sh.shards}
+    assert len(computes) == nshards
+    assert all(ex.device.type == "cuda" for ex in sh.shards)
+    assert zfp_kernel.launches["encode"] > 0
+    assert zfp_kernel.launches["decode"] > 0
+    assert stencil_kernel.launches["wave_multistep"] > 0
+    assert sh.transfer_summary()["halo_count"] > 0
+    for name in ("p_prev", "p_cur", "vel2"):
+        np.testing.assert_array_equal(sh.gather(name), single.gather(name))
+    single.close()
+    sh.close()
+
+
+@pytest.mark.parametrize("nshards", [2, 4])
+def test_sharded_engine_with_allocator_churn_on_card(cuda_device,
+                                                     monkeypatch, nshards):
+    """Shard 0's compute stream held back before each of its stencils,
+    and after every visit of every shard freed blocks handed out again
+    on its streams and overwritten with NaN: a held slice read before
+    its exporter wrote it, or a payload whose memory went to another
+    tensor, would reach the result."""
+    single, sh = _sharded_pair(nshards, "depth2", 100_000)
+    park = AsyncExecutor._park_writebacks
+
+    def churn(self, *a, **kw):
+        park(self, *a, **kw)
+        for lane in ("h2d", "compute", "d2h"):
+            with self.lanes.on(lane):
+                for n in (1 << 12, 1 << 14, 1 << 16, 1 << 18):
+                    torch.empty(n, device=cuda_device).fill_(float("nan"))
+
+    monkeypatch.setattr(AsyncExecutor, "_park_writebacks", churn)
+    first = sh.shards[0]
+    stencil = first._exec_stencil
+
+    def late(*a, **kw):
+        torch.cuda._sleep(50_000_000)  # on shard 0's compute stream
+        return stencil(*a, **kw)
+
+    first._exec_stencil = late
+    sh.run_sweeps(3)
+    for name in ("p_prev", "p_cur"):
+        np.testing.assert_array_equal(sh.gather(name), single.gather(name))
+    single.close()
+    sh.close()
+
+
+def test_sharded_checkpoint_restore_on_card(cuda_device, tmp_path):
+    from repro_torch.core.sharded import ShardedExecutor
+
+    single, sh = _sharded_pair(2, "depth2", 1 << 30)
+    single.close()
+    d = str(tmp_path)
+    sh.run_sweeps(2)
+    sh.checkpoint(d, zstd_level=0)
+    sh.run_sweeps(1)
+    want = {n: sh.gather(n) for n in ("p_prev", "p_cur")}
+    rest = ShardedExecutor.restore(d)
+    assert rest.sweeps_done == 2
+    assert all(ex.device.type == "cuda" for ex in rest.shards)
+    rest.run_sweeps(1)
+    for n, arr in want.items():
+        np.testing.assert_array_equal(rest.gather(n), arr)
+    sh.close()
+    rest.close()
+
+
+def test_sharded_halo_put_corrupted_and_retried_on_card(cuda_device):
+    """A halo put corrupted in flight: its digest, taken as the payload
+    left the exporter's card, fails, the crossing is retried and lands
+    as op ``"halo"`` at two attempts, and the run stays bit for bit."""
+    plan = FaultPlan([FaultSpec("corrupt", op="halo", field="p_prev")])
+    single, sh = _sharded_pair(2, "depth2", 0,
+                               injector=FaultInjector(plan),
+                               retry=RetryPolicy(attempts=2))
+    sh.run_sweeps(3)
+    store = sh.shards[0].store
+    halos = [e for e in store.wire_log if e[0] == "halo"]
+    assert halos and all(e[-1] == 2 for e in halos if e[1] == "p_prev")
+    assert all(e[-1] == 1 for e in halos if e[1] == "p_cur")
+    assert store.wire_stats["checksum_failures"] == 3
+    for name in ("p_prev", "p_cur"):
+        np.testing.assert_array_equal(sh.gather(name), single.gather(name))
+    single.close()
+    sh.close()

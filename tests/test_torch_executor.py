@@ -18,7 +18,9 @@ the contract of ``tests/test_executor.py`` on the port.
   flush leaving its entry dirty, a ``reissue=`` second attempt;
 * the wire under a fault injector: a corrupt crossing is retried, or
   raises before the unit it guards is decoded or committed;
-* the part not ported yet (sharding) raises naming its ROADMAP item;
+* a shard's engine: its store seeded with the shard's units only, rate
+  control refused beside it; the part not ported yet (tenancy) raises
+  naming its ROADMAP item;
 * float64 at the paper's rates: bit for bit the float64 sync engine, its
   transfers those of the task graph, every assembly of one type.
 """
@@ -403,15 +405,23 @@ def test_crash_point_at_round_boundary():
 
 
 def test_unported_parts_raise_naming_their_items(monkeypatch):
+    from repro_torch.core.pipeline import V100_PCIE, tenant_timeline
+    from repro_torch.distributed.sharding import partition_domain
+
     cfg = _cfg(1)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        AsyncExecutor(cfg, *_initial(), shard=object())
+    spec = partition_domain(4, 2)[1]
+    with pytest.raises(ValueError, match="rate control"):
+        AsyncExecutor(cfg, *_initial(), shard=spec,
+                      rates=RateController(cfg))
+    shard = AsyncExecutor(cfg, *_initial(), shard=spec)
+    assert {(k, i) for _, k, i in shard.store.unit_keys()} == {
+        ("C", 1), ("R", 2), ("C", 2), ("R", 3)}
     live = AsyncExecutor(cfg, *_initial())
-    for call in (live.take_held, live.take_halo,
-                 lambda: live.deliver_held("p_cur", None),
-                 lambda: live.deliver_halo("p_cur", "C", 0, None, 1)):
-        with pytest.raises(NotImplementedError, match="item 11"):
-            call()
+    live.run(2)
+    # an unsharded engine exports no halo
+    assert live.take_held() == {} and live.take_halo() == {}
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tenant_timeline([], V100_PCIE)
     with pytest.raises(ValueError, match="all three"):
         AsyncExecutor(cfg, *_initial()[:2], None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

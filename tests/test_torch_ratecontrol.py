@@ -138,3 +138,49 @@ def test_adaptive_sync_engine_matches_reference_log():
     assert teng.rates._maps == jeng.rates._maps
     assert teng.rates._starts == jeng.rates._starts
     assert teng.transfer_summary() == jeng.transfer_summary()
+
+
+@pytest.mark.parametrize("budget", [1e-2, 1e-4])
+@pytest.mark.parametrize("code", [2, 4])
+def test_float64_adaptive_sync_engine_matches_reference(code, budget):
+    """The paper's float64 rates under adaptive control: both packages'
+    sync engines from the same float64 fields (the reference under
+    ``jax_enable_x64``) record the same decision log and move the same
+    wire bytes, and their fields agree within the float64 engines' own
+    tolerance (``tests/test_torch_outofcore.py``'s ``_f64_tol``)."""
+    from test_torch_outofcore import _f64_tol, _initial64
+    from test_torch_stencil import _x64
+
+    fields = _initial64(SHAPE)
+    tcfg = tooc.OOCConfig(SHAPE, 4, 2, tooc.paper_code_fields(code, f32=False),
+                          backend="ref", device="cpu", dtype="float64")
+    teng = tooc.OutOfCoreWave(
+        tcfg, *fields,
+        rates=trc.RateController(tcfg, mode="adaptive", error_budget=budget))
+    teng.run(4 * tcfg.bt)
+    with _x64():
+        jcfg = jooc.OOCConfig(SHAPE, 4, 2,
+                              jooc.paper_code_fields(code, f32=False),
+                              dtype="float64")
+        jeng = jooc.OutOfCoreWave(
+            jcfg, *fields,
+            rates=jrc.RateController(jcfg, mode="adaptive",
+                                     error_budget=budget))
+        jeng.run(4 * jcfg.bt)
+        want = {n: jeng.gather(n) for n in ("p_prev", "p_cur")}
+    assert teng.rates._maps == jeng.rates._maps
+    assert teng.rates._starts == jeng.rates._starts
+    # the observed errors carry the stencils' ulps apart; no decision
+    # moved with them
+    tstate, jstate = teng.rates.state_dict(), jeng.rates.state_dict()
+    inexact = ("obs", "max_observed_rel")
+    assert ({k: v for k, v in tstate.items() if k not in inexact}
+            == {k: v for k, v in jstate.items() if k not in inexact})
+    assert tstate["max_observed_rel"] == pytest.approx(
+        jstate["max_observed_rel"], rel=1e-9)
+    assert teng.transfer_summary() == jeng.transfer_summary()
+    for name, w in want.items():
+        got = teng.gather(name)
+        assert got.dtype == np.float64
+        np.testing.assert_allclose(got, w, rtol=0,
+                                   atol=_f64_tol(code, np.abs(w).max()))

@@ -9,8 +9,12 @@ after the same observations): every task (tid, resource, kind, amount,
 deps, block, versions, flags), the residency counters of ``stats`` and
 ``wire_totals`` are equal. Also the checkpoint-aware graphs
 (``ckpt_every``, both cut modes), schedule parsing and the wire-byte
-helpers, and the sharded and multi-tenant graphs, which raise naming
-their ROADMAP items.
+helpers; the sharded graphs at the reference's own test size ((96, 12,
+10), ndiv 4): each shard's graph (``build_sweep_tasks(shard=)``, with
+``resource_prefix``) and the merged one (``build_sharded_tasks``) over
+schedules unitgrain, depth2 and temporal2 × budgets 0 and 1 << 30, task
+for task with their residency counters; and the multi-tenant graph,
+which raises naming its ROADMAP item.
 """
 
 import dataclasses
@@ -20,9 +24,11 @@ import pytest
 from repro.core import outofcore as jooc
 from repro.core import ratecontrol as jrc
 from repro.core import taskgraph as jtg
+from repro.distributed import sharding as jsh
 from repro_torch.core import outofcore as tooc
 from repro_torch.core import ratecontrol as trc
 from repro_torch.core import taskgraph as ttg
+from repro_torch.distributed import sharding as tsh
 
 SHAPE = (96, 12, 12)
 CONFIGS = [(1, 4), (2, 4), (4, 3)]  # (code, ndiv)
@@ -166,11 +172,77 @@ def test_wire_byte_helpers_equal_reference(planes, shape):
     assert ttg.wire_ratio(spec_t, 4) == jtg.wire_ratio(spec_j, 4)
 
 
+SHARD_SHAPE = (96, 12, 10)  # tests/test_sharded.py's size, ndiv 4
+SHARD_SCHEDULES = [("unitgrain", 2), ("depth2", 2), ("temporal2", 1)]
+
+
+def _shard_cfgs(code, bt):
+    return (jooc.OOCConfig(SHARD_SHAPE, 4, bt, jooc.paper_code_fields(code)),
+            tooc.OOCConfig(SHARD_SHAPE, 4, bt, tooc.paper_code_fields(code),
+                           backend="ref", device="cpu"))
+
+
+@pytest.mark.parametrize("budget", [0, 1 << 30])
+@pytest.mark.parametrize("schedule,bt", SHARD_SCHEDULES)
+@pytest.mark.parametrize("code", [1, 4])
+@pytest.mark.parametrize("nshards", [2, 3, 4])
+def test_shard_graphs_equal_reference(nshards, code, schedule, bt, budget):
+    jcfg, tcfg = _shard_cfgs(code, bt)
+    for jspec, tspec in zip(jsh.partition_domain(4, nshards),
+                            tsh.partition_domain(4, nshards)):
+        prefix = f"s{tspec.index}:"
+        js, ts = {}, {}
+        jt = jtg.build_sweep_tasks(jcfg, SWEEPS, schedule, budget, js,
+                                   shard=jspec, resource_prefix=prefix)
+        tt = ttg.build_sweep_tasks(tcfg, SWEEPS, schedule, budget, ts,
+                                   shard=tspec, resource_prefix=prefix)
+        assert _rows(tt) == _rows(jt)
+        assert ts == js
+        assert all(t.resource.startswith(prefix) for t in tt)
+        assert {t.block for t in tt} == set(tspec.blocks)
+        halos = [t for t in tt if t.kind == "halo"]
+        assert bool(halos) == (nshards > 1)
+    jstats, tstats = {}, {}
+    jm = jtg.build_sharded_tasks(jcfg, nshards, sweeps=SWEEPS,
+                                 schedule=schedule, cache_bytes=budget,
+                                 stats=jstats)
+    tm = ttg.build_sharded_tasks(tcfg, nshards, sweeps=SWEEPS,
+                                 schedule=schedule, cache_bytes=budget,
+                                 stats=tstats)
+    assert _rows(tm) == _rows(jm)
+    assert tstats == jstats and set(tstats["per_device"]) == set(
+        range(nshards))
+
+
+def test_sharded_graph_hazard_edges():
+    """The merged graph's cross-shard edges: each held export gates the
+    right neighbour's boundary commit in the same round, and each unit
+    halo gates the left neighbour's ghost refetch in the next."""
+    _, cfg = _shard_cfgs(4, 2)
+    tasks = ttg.build_sharded_tasks(cfg, 2, sweeps=3, schedule="depth2")
+    byid = {t.tid: t for t in tasks}
+    for s in range(3):
+        for name in ("p_prev", "p_cur"):
+            held = f"s{s}b1.held.{name}.C1"
+            assert held in byid
+            gated = [t for t in tasks if held in t.deps]
+            assert gated and all(t.block == 2 and t.sweep == s
+                                 for t in gated)
+            halo = f"s{s}b2.halo.{name}.C1"
+            assert byid[halo].resource == "s1:halo"
+            refetch = byid.get(f"s{s + 1}b1.h2d.{name}.C1")
+            assert (refetch is not None and halo in refetch.deps) == (s < 2)
+
+
 def test_unported_graphs_raise_naming_their_items():
     _, cfg = _cfgs(2, 4, 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttg.build_sweep_tasks(cfg, shard=object())
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ttg.build_sharded_tasks(cfg, 2)
     with pytest.raises(NotImplementedError, match="item 12"):
         ttg.build_tenant_tasks([])
+    with pytest.raises(ValueError, match="nshards"):
+        ttg.build_sharded_tasks(cfg, 5)
+    # a shard restricts the graph to its blocks, and ndiv 1 has no halo
+    spec = tsh.partition_domain(4, 2)[1]
+    assert {t.block for t in ttg.build_sweep_tasks(cfg, shard=spec)} == {
+        2, 3}
+    assert not [t for t in ttg.build_sharded_tasks(cfg, 1)
+                if t.kind == "halo"]
