@@ -107,6 +107,29 @@ non-zero:
    sync engine's two sweeps. Each prints its round walls, device compute,
    crc32 seconds, idle share, the halo count and bytes, and by shard its
    streams' busy time, pinned bytes and host threads;
+5t. multi-tenant serving, ``serving.ooc.TenantScheduler``: tenants'
+   live engines, each with its own streams, pinned pool and host
+   threads, under one shared residency budget, the launch counts zeroed
+   first (path ``ooc_tenancy``), the host's bytes reckoned first. (a)
+   the latency tenant A, the paper's cell (1152^3, ndiv 8, bt 12, code
+   4, depth2, 2 sweeps, priority 10, half its working set reserved,
+   phase 4's fields) and the batch tenant B, phase 5's bt 1 volume
+   (depth2, 2 sweeps, priority 0, no reserve, phase 5's fields), under
+   55% of their working sets: A bit for bit phase 4's two sweeps, B
+   phase 5's; each tenant's transfers (flush bytes included) those of
+   ``build_tenant_tasks`` for it and its counters the graph's; flushes
+   routed in both directions; no deposit of B's pulls A below its
+   reserve; every pool whole after ``run()``. By tenant its round
+   walls, compute-stream busy time, crc32 seconds on its host threads,
+   idle share, hits, evictions, flushes, routed flushes and their
+   bytes, pinned bytes and host threads; the card's peak allocation
+   beside the budget. (b) the launcher, ``serve.main(["--ooc",
+   "--tenants", "3", "--shape", "48", "1152", "1152", "--blocks", "2",
+   "--sweeps", "2"])``: tenants depth2, temporal2 and unitgrain, code 2,
+   bt 1, budget 1.5 x the largest working set; each tenant's transfers
+   and counters the merged graph's, the temporal2 tenant bit for bit a
+   solo ``AsyncExecutor`` of its schedule on the same fields (the other
+   two solo runs were cut for time). Prints ``tenancy_seconds``;
 5f. the paper's float64 cell: 1152^3, ndiv 8, bt 12, code 4 at 24/64
    through ``OutOfCoreWave`` (the host bytes reckoned and printed
    first; Z cut, units kept, only if they do not fit), one sweep: wire
@@ -117,10 +140,10 @@ non-zero:
    4 at 24/64, two sweeps: bit for bit the sync engine, transfers the
    task graph's and the plan's;
 5p. the precision tier to 4,320 steps (the paper's Fig. 7):
-   ``error_curve`` for codes 1-4 in float64 at the paper's rates and
-   codes 2 and 4 in float32 at 16/12, on (192, 96, 96), ndiv 2, bt 12,
-   360 sweeps sampled every 30: code 1 exactly 0, float64 codes 2-4
-   under ``assert_bounded_growth`` with the long tier's ceilings;
+   ``error_curve`` for codes 1-4 in float64 at the paper's rates, on
+   (192, 96, 96), ndiv 2, bt 12, 360 sweeps sampled every 30: code 1
+   exactly 0, codes 2-4 under ``assert_bounded_growth`` with the long
+   tier's ceilings;
 6. the fused ZFP-decode attention kernel against its plain version at
    the repo's ``decode_32k`` context (32768 tokens): 16 slots, 2 KV
    heads, 6 queries per KV head, head_dim 128, at 16 and 12 planes and
@@ -132,7 +155,7 @@ non-zero:
    same decoded tiles (three seeds, 16 and 12 planes, length 30000):
    which side carries the error, and the kernel within 2e-5 of it;
 7. the serving slice at full width: Qwen2-1.5B in bfloat16, depth cut
-   to 14 of its 28 layers, with the compressed KV cache at 16 planes, random weights from a seeded
+   to 4 of its 28 layers, with the compressed KV cache at 16 planes, random weights from a seeded
    generator on the card, 8 requests in 8 slots in lockstep (256-token
    prompts, 64 new tokens, greedy) through ``ServeEngine``; wall time,
    tokens/s, cache bytes and the launches of the encode and cdecode
@@ -183,6 +206,7 @@ non-zero:
 10. the kernels line: every kernel with its launches on the main paths
    (the out-of-core wave of phases 4 and 5, the live engine of phase
    5b, its checkpoints of phase 5c, the sharded engine of phase 5s, the
+   tenants of phase 5t, the
    float64 paper sweep, live run
    and precision tier of phases 5f, 5bf and 5p, the serving slice of
    phase 7 and the SSM slice of phase 9, each counted from zero), its
@@ -231,7 +255,8 @@ from repro_torch.core.outofcore import (  # noqa: E402
 )
 from repro_torch.core.sharded import ShardedExecutor  # noqa: E402
 from repro_torch.core.taskgraph import (  # noqa: E402
-    build_sharded_tasks, build_sweep_tasks, unit_wire_bytes, wire_totals,
+    build_sharded_tasks, build_sweep_tasks, build_tenant_tasks,
+    unit_wire_bytes, wire_totals,
 )
 from repro_torch.kernels.cdecode import kernel as cdecode_kernel  # noqa: E402
 from repro_torch.kernels.cdecode import ops as cdecode_ops  # noqa: E402
@@ -277,9 +302,10 @@ CD_LENGTHS = (30000, CTX - kvcache.CHUNK, 40)
 CD_TOL = 2e-5  # tests/test_cdecode_kernel.py's own bound
 # phase 7: the serving slice
 SERVE_ARCH, SERVE_PLANES = "qwen2-1.5b", 16
-# depth cut to 14 of Qwen2-1.5B's 28 layers (full width) since the float64
-# phases joined: the smoke keeps within its time limit on a slow host
-SERVE_LAYERS = 14
+# depth cut to 4 of Qwen2-1.5B's 28 layers (full width): 14 since the float64
+# phases joined, 4 since phase 5t did; the smoke keeps within its time limit
+# on a slow host
+SERVE_LAYERS = 4
 SERVE_SLOTS, PROMPT, MAX_NEW, SERVE_MAX_LEN = 8, 256, 64, 1024
 SERVE_TOL = 5e-2  # tests/test_kvcache.py's bound against the raw cache
 # phases 8-9: the SSM slice
@@ -1834,6 +1860,345 @@ def sharded_slice(fields, sync4, bt1, live_rows):
 
 
 # ----------------------------------------------------------------------
+# phase 5t: multi-tenant serving (TenantScheduler on the card)
+# ----------------------------------------------------------------------
+
+# 55% of the two tenants' working sets: the merged graph routes flushes
+# both ways here (at 50% A's deposits evict B's entries, and B's never
+# reach past its own slack to A's burst)
+TENANT_BUDGET = (11, 20)
+
+
+def route_counter(sched):
+    """Wrap each tenant view's router: the routed flushes counted by
+    (depositor, victim), with their bytes."""
+    counts = collections.Counter()
+    nbytes = collections.Counter()
+    route = sched._route_flush
+    current = {"who": None}
+
+    def counted(tenant, key, ent):
+        counts[(current["who"], tenant)] += 1
+        nbytes[(current["who"], tenant)] += ent.nbytes
+        route(tenant, key, ent)
+
+    for name, run in sched.tenants.items():
+        run.executor.cache.router = counted
+    return counts, nbytes, current
+
+
+def reserve_guard(sched):
+    """Wrap the shared manager's deposit: after every deposit of one
+    tenant, every other tenant holds at least min(its reserve, what it
+    held before). Returns the list of violations (empty when held)."""
+    mgr = sched.manager
+    deposit = mgr.deposit
+    broken = []
+
+    def guarded(key, *a, **kw):
+        before = dict(mgr.tenant_bytes)
+        res = deposit(key, *a, **kw)
+        for t, b in mgr.tenant_bytes.items():
+            if t != key[0]:
+                floor = min(mgr.arbiter.reserve_of(t), before.get(t, 0))
+                if b < floor:
+                    broken.append((key[0], t, b, floor))
+        return res
+
+    mgr.deposit = guarded
+    return broken
+
+
+def run_tenants(sched, label):
+    """Run every tenant to its target through ``sched.run()``, timed:
+    each round's wall by tenant (host clock around ``advance_round``),
+    the whole run's wall (with the drains), each tenant's compute-stream
+    busy seconds, crc32 seconds on its host threads, idle share (1 -
+    busy / its rounds' walls), residency counters, routed flushes and
+    bytes, pinned bytes and host threads; the card's peak allocation.
+    Returns the row and the routed-flush counts by (depositor,
+    victim)."""
+    counts, nbytes, current = route_counter(sched)
+    walls = collections.defaultdict(list)
+    for name, run in sched.tenants.items():
+        advance = run.executor.advance_round
+
+        def timed(target, _advance=advance, _name=name):
+            current["who"] = _name
+            t0 = time.perf_counter()
+            try:
+                return _advance(target)
+            finally:
+                walls[_name].append(time.perf_counter() - t0)
+                current["who"] = None
+
+        run.executor.advance_round = timed
+    crc = collections.Counter()
+    lock = threading.Lock()
+    digest = outofcore.unit_checksum
+
+    def counted_crc(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return digest(*a, **kw)
+        finally:
+            with lock:
+                crc[threading.get_ident()] += time.perf_counter() - t0
+
+    outofcore.unit_checksum = counted_crc
+    torch.cuda.reset_peak_memory_stats()
+    clock = DeviceClock()
+    try:
+        t0 = time.perf_counter()
+        sched.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        dev = clock.device_s()
+    finally:
+        clock.restore()
+        outofcore.unit_checksum = digest
+    peak = torch.cuda.max_memory_allocated()
+    st = sched.stats()
+    tenants = {}
+    for name, run in sched.tenants.items():
+        ex = run.executor
+        busy = ex.lanes.busy_s()
+        threads = {t.ident for t in ex.lanes._pool._threads}
+        ts = st["per_tenant"][name]
+        routed_in = {d: c for (d, v), c in counts.items() if v == name}
+        tenants[name] = {
+            "shape": list(ex.cfg.shape), "bt": ex.cfg.bt,
+            "schedule": run.spec.schedule, "sweeps": ex.sweeps_done,
+            "reserve": run.spec.reserve, "priority": run.spec.priority,
+            "round_wall_s": walls[name], "stream_busy_s": busy,
+            "crc32_thread_s": sum(v for k, v in crc.items()
+                                  if k in threads),
+            "idle_share": 1.0 - busy["compute"] / sum(walls[name]),
+            **{k: ts[k] for k in ("hits", "misses", "evictions",
+                                  "flushes", "flush_wire_bytes",
+                                  "d2h_elided", "peak_bytes")},
+            "routed_flushes_in": sum(routed_in.values()),
+            "routed_flush_bytes_in": sum(
+                b for (d, v), b in nbytes.items() if v == name),
+            "pinned_bytes": ex.lanes.pinned_bytes,
+            "host_threads": ex.lanes.threads,
+            "free_slots": ex.lanes.free_slots,
+            "slots": len(ex.lanes._slots),
+        }
+    row = {"phase": label, "engine": "tenants", "wall_s": wall,
+           "device_compute_s": dev,
+           "crc32_caller_s": crc.get(threading.get_ident(), 0.0),
+           "idle_share": 1.0 - dev / wall,
+           "budget_bytes": sched.budget_bytes,
+           "peak_bytes": st["peak_bytes"],
+           "cuda_max_memory_allocated": peak,
+           "routed": {f"{d}->{v}": c for (d, v), c in counts.items()},
+           "tenants": tenants}
+    for name, t in tenants.items():
+        check(t["free_slots"] == t["slots"],
+              f"{label}: tenant {name}'s pool is not whole after run()")
+    streams = {run.executor.lanes.streams["compute"].cuda_stream
+               for run in sched.tenants.values()}
+    check(len(streams) == len(sched.tenants),
+          f"{label}: the tenants share a compute stream")
+    return row, counts
+
+
+def tenant_parity(sched, budget):
+    """Each tenant's transfer log against the merged graph's tasks of
+    that tenant, and its residency counters against the graph's."""
+    stats = {}
+    tasks = build_tenant_tasks(sched.specs(), budget_bytes=budget,
+                               stats=stats)
+    per = sched.stats()["per_tenant"]
+    keys = ("hits", "misses", "evictions", "flushes", "flush_wire_bytes",
+            "d2h_elided", "peak_bytes")
+    out = {}
+    for name in sched.tenants:
+        mine = [t for t in tasks if t.tenant == name]
+        out[name] = {
+            "transfers_equal_graph":
+                model_log(mine) == live_log(sched.tenants[name].executor),
+            "counters_equal_graph": all(
+                per[name][k] == stats["per_tenant"][name][k]
+                for k in keys),
+        }
+    routed = collections.Counter(
+        (t.tid.split("/")[0], t.tenant) for t in tasks
+        if t.flush and t.tid.split("/")[0] != t.tenant)
+    return out, routed
+
+
+def tenants_contending(fields, sync4, bt1, live_rows):
+    """5t (a): the paper's cell as the latency tenant and phase 5's bt 1
+    volume as the batch tenant under 55% of their working sets."""
+    from repro_torch.core.tenancy import working_set_bytes
+    from repro_torch.serving.ooc import TenantScheduler
+
+    cfg_a = OOCConfig(PAPER, NDIV, BT, paper_code_fields(4))
+    cfg_b, _, _ = residency_cell()
+    ws_a = working_set_bytes(cfg_a, LIVE_SCHEDULE)
+    ws_b = working_set_bytes(cfg_b, LIVE_SCHEDULE)
+    num, den = TENANT_BUDGET
+    budget = (ws_a + ws_b) * num // den
+    # the host: both stores, both pools, a gathered field
+    store = sum(unit_wire_bytes(spec, (hi - lo,) + c.shape[1:], 4)
+                for c in (cfg_a, cfg_b) for spec in c.fields.values()
+                for _, _, (lo, hi) in c.plan.units())
+    pinned = (live_rows["paper"]["pinned_bytes"]
+              + live_rows["residency"]["pinned_bytes"])
+    field = math.prod(PAPER) * 4
+    need = store + pinned + field
+    avail = mem_available()
+    emit({"phase": "tenancy_host_bytes", "store_bytes": store,
+          "pinned_bytes_estimate": pinned, "gathered_bytes": field,
+          "need_bytes": need, "mem_available_bytes": avail,
+          "working_set_bytes": {"A": ws_a, "B": ws_b},
+          "budget_bytes": budget})
+    check(need <= 0.85 * avail, "5t (a) does not fit the host")
+    t0 = time.perf_counter()
+    sched = TenantScheduler(budget)
+    sched.submit("A", cfg_a, fields["p_prev"], fields["p_cur"],
+                 fields["vel2"], schedule=LIVE_SCHEDULE,
+                 sweeps=LIVE_SWEEPS, reserve=ws_a // 2, priority=10)
+    b_fields, b_want, _ = bt1
+    sched.submit("B", cfg_b, b_fields["p_prev"], b_fields["p_cur"],
+                 b_fields["vel2"], schedule=LIVE_SCHEDULE,
+                 sweeps=LIVE_SWEEPS, reserve=0, priority=0)
+    seed_s = time.perf_counter() - t0
+    broken = reserve_guard(sched)
+    row, routed = run_tenants(sched, "tenancy_contending")
+    parity, modelled = tenant_parity(sched, budget)
+    for run in sched.tenants.values():
+        run.executor.close()
+    t0 = time.perf_counter()
+    bits = {"A": gathered_tenant(sched, "A", sync4),
+            "B": gathered_tenant(sched, "B", b_want)}
+    row.update(seed_s=seed_s, gather_s=time.perf_counter() - t0,
+               parity=parity, routed_graph={
+        f"{d}->{v}": c for (d, v), c in modelled.items()},
+        reserve_held=not broken, bitwise=bits)
+    emit(row)
+    check(all(p["transfers_equal_graph"] and p["counters_equal_graph"]
+              for p in parity.values()),
+          f"5t (a): transfers or counters differ from the graph: {parity}")
+    check(routed == modelled, f"5t (a): routed flushes {dict(routed)} != "
+                              f"the graph's {dict(modelled)}")
+    check(routed.get(("A", "B"), 0) > 0 and routed.get(("B", "A"), 0) > 0,
+          f"5t (a): flushes not routed both ways: {dict(routed)}")
+    check(not broken, f"5t (a): a deposit broke a reserve: {broken[:3]}")
+    check(all(all(b.values()) for b in bits.values()),
+          f"5t (a): a tenant differs from its reference: {bits}")
+
+
+def gathered_tenant(sched, name, want):
+    """Each field of tenant ``name`` bit for bit ``want``'s."""
+    out = {}
+    for field, ref in want.items():
+        g = sched.gather(name, field)
+        out[field] = (same_bits(torch.from_numpy(g).cuda(), ref)
+                      if isinstance(ref, torch.Tensor)
+                      else bool(np.array_equal(g, ref)))
+        del g
+    return out
+
+
+# 5t (b): the launcher's volume (ndiv 2: block 24, temporal2's halo 8) and
+# the tenants held to a solo run, cut for time: at (192, 1152, 1152), ndiv
+# 4, with three solo runs, the phase took 145-179 s
+LAUNCHER_SHAPE = (48, 1152, 1152)
+LAUNCHER_SOLO = ("temporal2",)
+
+
+def tenants_launcher():
+    """5t (b): the launcher's multi-tenant run on the card, each tenant's
+    transfers and counters held to the merged graph's, and the
+    LAUNCHER_SOLO tenants bit for bit to a solo live engine of their
+    schedule on the same fields (the ones the launcher drew from its
+    seed)."""
+    from repro_torch.launch import serve
+    from repro_torch.serving.ooc import TenantScheduler
+
+    argv = ["--ooc", "--tenants", "3", "--shape", *map(str, LAUNCHER_SHAPE),
+            "--blocks", "2", "--sweeps", "2"]
+    drawn = {}
+    submit = TenantScheduler.submit
+
+    def keep(self, name, cfg, p_prev, p_cur, vel2, **kw):
+        drawn[name] = (p_prev, p_cur, vel2)
+        return submit(self, name, cfg, p_prev, p_cur, vel2, **kw)
+
+    TenantScheduler.submit = keep
+    try:
+        t0 = time.perf_counter()
+        sched = serve.main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        TenantScheduler.submit = submit
+    parity, _ = tenant_parity(sched, sched.budget_bytes)
+    st = sched.stats()
+    got = {}
+    for spec in sched.specs():
+        ex = sched.tenants[spec.name].executor
+        ex.close()
+        check(ex.device.type == "cuda" and ex.cfg.backend == "cuda",
+              f"5t (b): tenant {spec.name} not on the card's kernels")
+        if spec.schedule in LAUNCHER_SOLO:
+            got[spec.name] = {n: sched.gather(spec.name, n)
+                              for n in ("p_prev", "p_cur")}
+    # the path's launches end here: the solo references do not count
+    counts = path_counts()
+    solos = {}
+    t0 = time.perf_counter()
+    for name, fields in got.items():
+        spec = sched.tenants[name].spec
+        solo = AsyncExecutor(spec.cfg, *drawn[name], schedule=spec.schedule)
+        solo.run(spec.sweeps * spec.cfg.bt)
+        solo.close()
+        solos[name] = {n: bool(np.array_equal(v, solo.gather(n)))
+                       for n, v in fields.items()}
+        del solo
+    del drawn, got
+    row = {"phase": "tenancy_launcher", "argv": argv, "wall_s": wall,
+           "solo_s": time.perf_counter() - t0,
+           "budget_bytes": sched.budget_bytes,
+           "schedules": {s.name: s.schedule for s in sched.specs()},
+           "per_tenant": {n: {k: t[k] for k in (
+               "hits", "evictions", "flushes", "peak_bytes",
+               "sweeps_done", "reserve", "priority")}
+               for n, t in st["per_tenant"].items()},
+           "parity": parity, "bitwise_solo": solos}
+    emit(row)
+    check(len(sched.tenants) == 3,
+          "5t (b): the launcher did not run 3 tenants")
+    check(set(solos) == {s.name for s in sched.specs()
+                         if s.schedule in LAUNCHER_SOLO},
+          f"5t (b): solo runs of {sorted(solos)}")
+    check(all(p["transfers_equal_graph"] and p["counters_equal_graph"]
+              for p in parity.values()),
+          f"5t (b): transfers or counters differ from the graph: {parity}")
+    check(all(all(b.values()) for b in solos.values()),
+          f"5t (b): a tenant differs from its solo run: {solos}")
+    return counts
+
+
+def tenancy_slice(fields, sync4, bt1, live_rows):
+    """Phase 5t. Prints its seconds (host clock, references included);
+    returns its launch counts (path ``ooc_tenancy``: both runs, their
+    gathers included, the solo references of (b) not)."""
+    t0 = time.perf_counter()
+    reset_counts()
+    tenants_contending(fields, sync4, bt1, live_rows)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts = tenants_launcher()
+    gc.collect()
+    emit({"phase": "tenancy_seconds", "seconds": time.perf_counter() - t0})
+    return counts
+
+
+# ----------------------------------------------------------------------
 # phases 5f-5p: float64, the paper's configuration
 # ----------------------------------------------------------------------
 
@@ -1994,17 +2359,17 @@ def live_f64():
 
 def precision_tier():
     """Phase 5p: the paper's Fig. 7 on the card. ``error_curve`` for
-    codes 1-4 in float64 at the paper's rates, and codes 2 and 4 in
-    float32 at 16/12 for comparison, on PREC_SHAPE, ndiv 2, bt 12, 360
-    sweeps (4,320 steps), sampled every 30: code 1 exactly 0, codes 2-4
-    within PREC_TOL under ``assert_bounded_growth``. Returns the launch
-    counts of the curves."""
+    codes 1-4 in float64 at the paper's rates on PREC_SHAPE, ndiv 2, bt
+    12, 360 sweeps (4,320 steps), sampled every 30: code 1 exactly 0,
+    codes 2-4 within PREC_TOL under ``assert_bounded_growth``. (The
+    float32 curves at 16/12, held to no ceiling, were cut to make room
+    for phase 5t.) Returns the launch counts of the curves."""
     from repro_torch.core.precision import assert_bounded_growth, \
         error_curve
 
     reset_counts()
     t_all = time.perf_counter()
-    for dtype, codes in (("float64", (1, 2, 3, 4)), ("float32", (2, 4))):
+    for dtype, codes in (("float64", (1, 2, 3, 4)),):
         for code in codes:
             t0 = time.perf_counter()
             rows = error_curve(code, shape=PREC_SHAPE, ndiv=PREC_NDIV, bt=BT,
@@ -2790,6 +3155,12 @@ def main() -> int:
                  "zfp_encode_f64", "zfp_decode_f64", "wave_multistep_f64"):
         check(shard_counts.get(name, 0) > 0,
               f"the sharded phase never launched {name}")
+    torch.cuda.empty_cache()
+    tenant_counts = tenancy_slice(fields, sync4, bt1, live_rows)
+    emit({"phase": "launches", "path": "ooc_tenancy", **tenant_counts})
+    for name in ("zfp_encode", "zfp_decode", "wave_multistep", "wave_step"):
+        check(tenant_counts.get(name, 0) > 0,
+              f"the tenancy phase never launched {name}")
     del fields, sync4, bt1
     torch.cuda.empty_cache()
 
@@ -2853,6 +3224,7 @@ def main() -> int:
                  (SSCAN_SHAPES[0], SSCAN_CHUNK)))
     paths = {"ooc_wave": counts, "ooc_live": live_counts,
              "ooc_ckpt": ckpt_counts, "ooc_sharded": shard_counts,
+             "ooc_tenancy": tenant_counts,
              "ooc_f64": f64_counts, "ooc_live_f64": live64_counts,
              "precision": prec_counts, "serving": serve_counts,
              "ssm_serving": ssm_counts}

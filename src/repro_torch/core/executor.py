@@ -234,6 +234,7 @@ class AsyncExecutor:
         retry: Optional[RetryPolicy] = None,
         injector: Optional[FaultInjector] = None,
         shard=None,
+        residency=None,
         rates=None,
     ):
         """Build a live executor over ``cfg``.
@@ -257,6 +258,12 @@ class AsyncExecutor:
         them). The engine runs on ``shard.device`` when the shard is
         pinned, else on ``cfg.device``. Rate control does not compose
         with sharding (its halo exports price at the spec's rate).
+
+        ``residency`` is a residency object used as it is in place of a
+        private ``DeviceResidencyManager``: ``serving.ooc.TenantScheduler``
+        passes each tenant a ``core.tenancy.TenantView`` over one shared,
+        arbiter-managed manager. ``cache_bytes`` and ``policy`` are then
+        ignored (the view carries both).
         """
         if rates is not None and shard is not None:
             raise ValueError(
@@ -286,7 +293,8 @@ class AsyncExecutor:
         for t in build_sweep_tasks(cfg, sweeps=1, schedule=self.schedule,
                                    shard=shard):
             self._by_block[t.block - self._blocks[0]].append(t)
-        self.cache = DeviceResidencyManager(cache_bytes, policy=policy)
+        self.cache = (residency if residency is not None
+                      else DeviceResidencyManager(cache_bytes, policy=policy))
         self.rates = rates
         self.store = HostUnitStore(
             cfg, plan=self.plan, injector=injector, retry=self.retry,
@@ -683,7 +691,16 @@ class AsyncExecutor:
         flush. ``mark`` (the explicit flush) clears the dirty bit after
         the put, so a failed put leaves the entry dirty for a retry;
         evicted entries were accounted by the manager when popped.
-        ``reissued`` tags the spare-stream second attempt."""
+        ``reissued`` tags the spare-stream second attempt.
+
+        Under tenancy another tenant's deposit may evict this engine's
+        entry mid-round of that tenant (``serving.ooc.TenantScheduler``
+        routes the handback here): the D2H still waits on this engine's
+        compute stream, where the payload was encoded, runs on this
+        engine's d2h stream through a slot of its pool, and lands and
+        gives the slot back before the call returns, so a burst of such
+        flushes needs one slot; the record carries this engine's
+        ``sweeps_done``."""
         field, (kind, idx) = key
         wb = self.lanes.writeback(ent.value, ent.version,
                                   self.lanes.mark("compute"))

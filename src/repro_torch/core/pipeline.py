@@ -20,9 +20,9 @@ Resources:
 
 The one profile carried is ``V100_PCIE``, a model of the paper's testbed
 built from its datasheet. No H100 profile is carried until the port's
-chip benchmarks have measured its numbers (ROADMAP queue 1 item 10).
-The multi-tenant replay is not ported yet: ``tenant_timeline`` raises
-naming ROADMAP queue 1 item 12.
+chip benchmarks have measured its numbers (ROADMAP queue 1 item 8).
+``tenant_timeline`` replays N tenants' runs interleaved on one shared
+device (``taskgraph.build_tenant_tasks``).
 """
 
 from __future__ import annotations
@@ -36,9 +36,9 @@ from repro_torch.core.taskgraph import (  # noqa: F401  (re-exported API)
     Task,
     build_sharded_tasks,
     build_sweep_tasks,
+    build_tenant_tasks,
     get_schedule,
 )
-from repro_torch.core.taskgraph import TENANCY_TODO
 from repro_torch.distributed.fault import FaultPlan, ReissuePolicy, \
     RetryPolicy
 
@@ -424,6 +424,24 @@ def sharded_timeline(
     )
 
 
-def tenant_timeline(*args, **kwargs) -> Timeline:
-    """The multi-tenant replay; not ported yet (item 12)."""
-    raise NotImplementedError(TENANCY_TODO)
+def tenant_timeline(
+    tenants, hw: Hardware,
+    budget_bytes: int = 0,
+    stats: Optional[Dict[str, object]] = None,
+    policy: str = "write-back",
+) -> Timeline:
+    """Replay a multi-tenant run on the timeline: N independent runs (a
+    ``core.tenancy.TenantSpec`` sequence) interleaved in
+    ``tenancy.interleave_rounds`` order onto one shared three-stream
+    pipeline and one arbiter-managed residency budget, the run the live
+    ``serving.ooc.TenantScheduler`` makes. Against the sum of each
+    tenant's solo ``sweep_timeline`` it prices the overlap interleaving
+    buys (one tenant's stencils hide another's wire time).
+    ``stats["per_tenant"]`` receives each tenant's modelled residency
+    counters and peak bytes."""
+    return simulate(
+        build_tenant_tasks(
+            tenants, budget_bytes=budget_bytes, stats=stats,
+            policy=policy,
+        ), hw,
+    )

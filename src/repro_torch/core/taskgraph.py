@@ -26,9 +26,9 @@ graph's h2d and d2h tasks.
 ``build_sweep_tasks(shard=...)`` restricts the graph to one shard of a
 multi-device decomposition (``distributed.sharding.ShardSpec``) and adds
 its halo-exchange tasks; ``build_sharded_tasks`` merges every shard's
-graph with the cross-shard hazard edges. The multi-tenant graph is not
-ported yet: ``build_tenant_tasks`` raises naming ROADMAP queue 1 item
-12.
+graph with the cross-shard hazard edges. ``build_tenant_tasks`` merges
+N tenants' runs in ``core.tenancy.interleave_rounds`` order over one
+arbiter-managed residency budget, each task labelled with its tenant.
 """
 
 from __future__ import annotations
@@ -41,10 +41,6 @@ from repro_torch.core.ratecontrol import rate_label
 from repro_torch.core.unitcache import UnitCache
 from repro_torch.kernels.zfp import ref as zfp_ref
 
-TENANCY_TODO = (
-    "multi-tenant task graphs are not ported yet: ROADMAP.md queue 1 "
-    "item 12"
-)
 
 @dataclass
 class Transfer:
@@ -818,9 +814,245 @@ def build_sharded_tasks(
     return merged
 
 
-def build_tenant_tasks(*args, **kwargs) -> List[Task]:
-    """The merged multi-tenant graph; not ported yet (item 12)."""
-    raise NotImplementedError(TENANCY_TODO)
+def build_tenant_tasks(
+    tenants,
+    budget_bytes: int = 0,
+    stats: Optional[Dict[str, object]] = None,
+    policy: str = "write-back",
+) -> List[Task]:
+    """Merged multi-tenant task graph: N independent runs (each its own
+    config, schedule and sweep count) interleaved round-robin onto one
+    shared stream set and one shared, arbiter-managed residency budget.
+
+    ``tenants`` is a sequence of ``core.tenancy.TenantSpec``-like
+    objects (``name``/``cfg``/``schedule``/``sweeps``/``reserve``/
+    ``priority``). The builder walks the global round order the live
+    ``serving.ooc.TenantScheduler`` drives (``tenancy.interleave_rounds``)
+    and replays one ``ResidencyArbiter``-managed cache across all
+    tenants, keys namespaced ``(tenant, unit_key)``. A visit emits what
+    the single-run builder emits, with two differences:
+
+    * every task carries ``Task.tenant``, so each tenant's transfers can
+      be filtered out and compared with its live executor's log;
+    * a cross-tenant eviction flush belongs to the victim: its task's
+      ``tenant`` and ``sweep`` are the victim's name and the victim's
+      completed-sweeps count, which the victim's live executor records
+      when the scheduler routes the handback to it mid-round of another
+      tenant.
+
+    Resources are the unprefixed ``h2d``/``compute``/``d2h``, so
+    ``pipeline.simulate`` prices the merged list as one shared device.
+    ``stats`` (if given) gains a ``"per_tenant"`` dict of each tenant's
+    residency counters, peak bytes and task counts.
+    """
+    from repro_torch.core.tenancy import interleave_rounds
+    from repro_torch.core.unitcache import ResidencyArbiter
+
+    arb = ResidencyArbiter()
+    for t in tenants:
+        arb.grant(t.name, t.reserve, t.priority)
+    cache = UnitCache(budget_bytes, policy=policy, arbiter=arb)
+    tasks: List[Task] = []
+    # shared maps over namespaced keys (tenant, (field, (kind, idx)))
+    version: Dict[Tuple, int] = {}
+    writeback_of: Dict[Tuple, str] = {}
+    deposit_of: Dict[Tuple, str] = {}
+    st: Dict[str, Dict[str, object]] = {}
+    for t in tenants:
+        sched = get_schedule(t.schedule)
+        plan = t.cfg.temporal_plan(sched.temporal)
+        _, y, x = t.cfg.shape
+        itemsize = 4 if t.cfg.dtype == "float32" else 8
+        st[t.name] = {
+            "cfg": t.cfg, "sched": sched, "plan": plan,
+            "y": y, "x": x, "itemsize": itemsize,
+            "plane_bytes": y * x * itemsize,
+            "prev_compute": None, "drain_of_visit": {}, "visits": 0,
+            "sweeps_done": 0,
+            "h2d_tasks": 0, "h2d_elided": 0, "d2h_tasks": 0,
+        }
+
+    def add(tid, resource, kind, amount, deps, block, *, sync=False,
+            field="", unit=None, sweep=0, ver=0, flush=False,
+            tenant=""):
+        tasks.append(Task(
+            tid, resource, kind, amount, tuple(deps), block, sync=sync,
+            field=field, unit=unit, sweep=sweep, version=ver,
+            flush=flush, tenant=tenant,
+        ))
+        return tid
+
+    def flush_task(ekey, eent, pre, block):
+        """Flush-on-evict across the shared budget, attributed to the
+        victim tenant at the victim's completed-sweeps label."""
+        etenant, (ef, (ekind, eidx)) = ekey
+        fdep = deposit_of.get(ekey)
+        tid = add(
+            f"{pre}.flush.{etenant}.{ef}.{ekind}{eidx}", "d2h", "d2h",
+            eent.nbytes, (fdep,) if fdep else (), block,
+            field=ef, unit=(ekind, eidx),
+            sweep=st[etenant]["sweeps_done"], ver=eent.version,
+            flush=True, tenant=etenant,
+        )
+        writeback_of[ekey] = tid
+        return tid
+
+    for tname, s, kr in interleave_rounds(tenants):
+        ts = st[tname]
+        cfg, sched, plan = ts["cfg"], ts["sched"], ts["plan"]
+        y, x = ts["y"], ts["x"]
+        itemsize, plane_bytes = ts["itemsize"], ts["plane_bytes"]
+        # mid-round flushes of this tenant's own entries carry the
+        # round-start sweep (the live sweeps_done advances at round end)
+        ts["sweeps_done"] = s
+
+        def unit_planes(kind, idx):
+            lo, hi = (
+                plan.remainder(idx) if kind == "R" else plan.common(idx)
+            )
+            return hi - lo
+
+        def exact_nbytes(spec, kind, idx):
+            return unit_wire_bytes(
+                spec, (unit_planes(kind, idx), y, x), itemsize
+            )
+
+        for j, i in enumerate(range(plan.ndiv)):
+            visit = ts["visits"] + j
+            pre = f"{tname}/s{s}b{i}"
+            window_dep: Tuple[str, ...] = ()
+            if sched.window is not None and visit >= sched.window:
+                prior = ts["drain_of_visit"].get(visit - sched.window)
+                if prior is not None:
+                    window_dep = (prior,)
+            h2d_ids, dec_ids = [], []
+            fetch_flushes: List[str] = []
+            for name, spec in cfg.fields.items():
+                for kind, idx in plan.fetch_units(i):
+                    key = (tname, (name, (kind, idx)))
+                    ver = version.get(key, 0)
+                    raw = unit_planes(kind, idx) * plane_bytes
+                    wire = raw * wire_ratio(spec, itemsize)
+                    hit = False
+                    if cache.enabled:
+                        hit, _ = cache.lookup(key, ver)
+                    if hit:
+                        ts["h2d_elided"] += 1
+                        if spec.compressed:
+                            ddep = deposit_of.get(key)
+                            dec_ids.append(add(
+                                f"{pre}.dec.{name}.{kind}{idx}",
+                                "compute", "decompress", raw,
+                                (ddep,) if ddep else window_dep, i,
+                                sync=sched.codec_sync, field=name,
+                                unit=(kind, idx), sweep=s, ver=ver,
+                                tenant=tname,
+                            ))
+                        continue
+                    ts["h2d_tasks"] += 1
+                    deps = window_dep
+                    wb = writeback_of.get(key)
+                    if wb is not None:
+                        deps = deps + (wb,)
+                    tid = add(
+                        f"{pre}.h2d.{name}.{kind}{idx}", "h2d", "h2d",
+                        wire, deps, i,
+                        field=name, unit=(kind, idx), sweep=s, ver=ver,
+                        tenant=tname,
+                    )
+                    h2d_ids.append(tid)
+                    if spec.role != "rw" and cache.enabled:
+                        res = cache.deposit(
+                            key, ver, None, exact_nbytes(spec, kind, idx)
+                        )
+                        deposit_of[key] = tid
+                        for ekey, eent in res.flushes:
+                            fetch_flushes.append(
+                                flush_task(ekey, eent, pre, i)
+                            )
+                    if spec.compressed:
+                        dec_ids.append(add(
+                            f"{pre}.dec.{name}.{kind}{idx}", "compute",
+                            "decompress", raw, (tid,), i,
+                            sync=sched.codec_sync, field=name,
+                            unit=(kind, idx), sweep=s, ver=ver,
+                            tenant=tname,
+                        ))
+            cells = (plan.block + 2 * plan.halo) * y * x * cfg.bt * kr
+            deps = tuple(h2d_ids + dec_ids) + (
+                (ts["prev_compute"],) if ts["prev_compute"] else ()
+            )
+            for d in window_dep:
+                if d not in deps:
+                    deps = deps + (d,)
+            ts["prev_compute"] = add(
+                f"{pre}.stencil", "compute", "stencil", cells, deps, i,
+                sweep=s, tenant=tname,
+            )
+            last_d2h = (
+                fetch_flushes[-1] if fetch_flushes else ts["prev_compute"]
+            )
+            for name, spec in cfg.fields.items():
+                if spec.role != "rw":
+                    continue
+                for kind, idx in plan.writeback_units(i):
+                    key = (tname, (name, (kind, idx)))
+                    ver = version.get(key, 0) + kr
+                    version[key] = ver
+                    raw = unit_planes(kind, idx) * plane_bytes
+                    wire = raw * wire_ratio(spec, itemsize)
+                    dep: Tuple[str, ...] = (ts["prev_compute"],)
+                    if spec.compressed:
+                        dep = (add(
+                            f"{pre}.comp.{name}.{kind}{idx}", "compute",
+                            "compress", raw, dep, i,
+                            sync=sched.codec_sync, field=name,
+                            unit=(kind, idx), sweep=s, ver=ver,
+                            tenant=tname,
+                        ),)
+                    if cache.enabled:
+                        res = cache.deposit(
+                            key, ver, None,
+                            exact_nbytes(spec, kind, idx), dirty=True,
+                            bumps=kr,
+                        )
+                        deposit_of[key] = dep[0]
+                        for ekey, eent in res.flushes:
+                            last_d2h = flush_task(ekey, eent, pre, i)
+                        if res.stored and cache.write_back:
+                            cache.note_d2h_elided(
+                                exact_nbytes(spec, kind, idx),
+                                tenant=tname,
+                            )
+                            continue
+                    ts["d2h_tasks"] += 1
+                    last_d2h = add(
+                        f"{pre}.d2h.{name}.{kind}{idx}", "d2h", "d2h",
+                        wire, dep, i,
+                        field=name, unit=(kind, idx), sweep=s, ver=ver,
+                        tenant=tname,
+                    )
+                    writeback_of[key] = last_d2h
+            ts["drain_of_visit"][visit] = last_d2h
+        ts["visits"] += plan.ndiv
+        ts["sweeps_done"] = s + kr
+    if stats is not None:
+        stats.update(cache.stats.as_dict())
+        stats["cache_peak_bytes"] = cache.peak_bytes
+        per_tenant: Dict[str, Dict[str, object]] = {}
+        for t in tenants:
+            d = cache.tenant_stats_for(t.name).as_dict()
+            d.update({
+                "h2d_tasks": st[t.name]["h2d_tasks"],
+                "h2d_elided": st[t.name]["h2d_elided"],
+                "d2h_tasks": st[t.name]["d2h_tasks"],
+                "peak_bytes": cache.tenant_peak.get(t.name, 0),
+                "reserve": t.reserve,
+                "priority": t.priority,
+            })
+            per_tenant[t.name] = d
+        stats["per_tenant"] = per_tenant
+    return tasks
 
 
 def wire_totals(tasks: List[Task]) -> Dict[str, float]:

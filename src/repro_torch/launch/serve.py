@@ -1,4 +1,5 @@
-"""Serving launcher: batched decode with the continuous-batching engine.
+"""Serving launcher: batched decode with the continuous-batching engine,
+or (``--ooc``) the multi-tenant out-of-core stencil scheduler.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-1.5b \
       --requests 6 --max-new 8
@@ -8,6 +9,8 @@
       --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --no-smoke --slots 8 --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --ooc --tenants 3 \
+      --shape 192 1152 1152 --blocks 4 --sweeps 2
 
 ``--arch`` takes a config of the dense family (raw KV cache) or of the
 ssm family (falcon-mamba: per-slot ``conv`` and ``h`` states, the
@@ -15,8 +18,14 @@ selective-scan kernel on every layer and step). The flags are the
 reference launcher's (``repro.launch.serve``), plus
 ``--no-smoke`` (the full-width config) and ``--device``. It runs on the
 CUDA device unless ``--device cpu`` is given. Weights are random, from a
-seeded generator. ``--ooc`` (multi-tenant out-of-core serving) is not
-ported yet.
+seeded generator.
+
+``--ooc`` runs ``--tenants`` out-of-core stencil runs of ``--shape``
+(code 2, ndiv ``--blocks``, bt 1, ``--sweeps`` sweeps; schedules depth2,
+temporal2 and unitgrain in turn) through ``serving.ooc.TenantScheduler``
+under one residency budget of ``--budget-mult`` times the largest
+working set, with queued admission; tenant 0 is the latency tenant
+(priority 10, its working set reserved), the rest batch tenants.
 """
 
 from __future__ import annotations
@@ -33,7 +42,54 @@ from repro_torch.models import model as M
 from repro_torch.serving.engine import ServeEngine
 
 
-def main(argv=None) -> None:
+def run_ooc(args):
+    """Multi-tenant out-of-core serving: N stencil runs on one device
+    budget, arbitrated by ``serving.ooc.TenantScheduler``. Tenant 0 is
+    the latency tenant (priority 10, its working set reserved), the rest
+    batch tenants (priority 0, burst only). Returns the scheduler."""
+    from repro_torch.core.outofcore import OOCConfig, paper_code_fields
+    from repro_torch.core.tenancy import working_set_bytes
+    from repro_torch.serving.ooc import TenantScheduler
+
+    dev = device_mod.resolve(args.device)
+    shape = tuple(args.shape)
+    schedules = ["depth2", "temporal2", "unitgrain"]
+    cfgs, specs = [], []
+    for i in range(args.tenants):
+        cfg = OOCConfig(shape, args.blocks, 1, paper_code_fields(2))
+        sched_name = schedules[i % len(schedules)]
+        cfgs.append((cfg, sched_name))
+        specs.append(working_set_bytes(cfg, sched_name))
+    budget = int(args.budget_mult * max(specs))
+    eng = TenantScheduler(budget, admission="queue", device=dev)
+    rng = np.random.default_rng(args.seed)
+    t0 = time.time()
+    for i, (cfg, sched_name) in enumerate(cfgs):
+        p_prev = rng.standard_normal(shape).astype(np.float32)
+        p_cur = rng.standard_normal(shape).astype(np.float32)
+        vel2 = (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+        status = eng.submit(
+            f"t{i}", cfg, p_prev, p_cur, vel2, schedule=sched_name,
+            sweeps=args.sweeps,
+            reserve=specs[i] if i == 0 else 0,
+            priority=10 if i == 0 else 0,
+        )
+        print(f"tenant t{i}: {sched_name}, ws={specs[i]}B -> {status}")
+    eng.run()
+    dt = time.time() - t0
+    st = eng.stats()
+    print(f"{args.tenants} tenants, budget {budget}B, {dt:.2f}s wall "
+          f"({dev})")
+    for name, ts in sorted(st["per_tenant"].items()):
+        print(
+            f"  {name}: sweeps={ts['sweeps_done']} hits={ts['hits']} "
+            f"evictions={ts['evictions']} peak={ts['peak_bytes']}B "
+            f"restarts={ts['restarts']}"
+        )
+    return eng
+
+
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-1.5b")
     ap.add_argument("--ooc", action="store_true",
@@ -56,9 +112,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
 
     if args.ooc:
-        raise NotImplementedError(
-            "--ooc (multi-tenant out-of-core serving) is not ported yet: "
-            "ROADMAP.md queue 1 item 12 (tenancy and serving)")
+        return run_ooc(args)
 
     dev = device_mod.resolve(args.device)
     cfg = get_config(args.arch)

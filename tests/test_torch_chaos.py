@@ -11,10 +11,11 @@ contract of ``tests/test_chaos.py`` on the port, on the CPU.
   corruption never reaches a stencil step;
 * a rollback gives every staging slot back to the pool (parked
   writebacks, fetches not yet claimed), aborts a half-written snapshot,
-  and the replay runs on the same host threads.
-
-The two-tenant cases and the model's attempt parity go with the ports of
-tenancy and of the timeline model.
+  and the replay runs on the same host threads;
+* two tenants on one scheduler (``serving.ooc.TenantScheduler``, the
+  band of ``tests/test_chaos.py``): a crash or a generated fault in
+  tenant A rolls A back alone, B never restarts, both are bit for bit
+  their solo runs, and A's ``recovery_log`` equals ``repro``'s.
 """
 
 import os
@@ -230,3 +231,110 @@ def test_recovery_takes_a_baseline_and_bounds_restarts(tmp_path,
     with pytest.raises(Exception, match="boundary 1"):
         eng.run(SWEEPS, recovery=RecoveryPolicy(str(tmp_path / "b"),
                                                 max_restarts=0))
+
+
+# ----------------------------------------------------------------------
+# two tenants on one device (tests/test_chaos.py's two-tenant band): a
+# fault or crash in tenant A neither corrupts nor rolls back tenant B
+# ----------------------------------------------------------------------
+def _two_tenant_run(specs, directory, *, sweeps_a=4, sweeps_b=3):
+    """Tenant A under ``specs`` with a recovery policy, tenant B clean,
+    on one scheduler whose budget makes them contend for residency."""
+    from repro_torch.core.tenancy import working_set_bytes
+    from repro_torch.serving.ooc import TenantScheduler
+
+    cfg_a, cfg_b = _cfg(), _cfg()
+    ws_a = working_set_bytes(cfg_a, "depth2")
+    ws_b = working_set_bytes(cfg_b, "temporal2")
+    sched = TenantScheduler(ws_a + ws_b // 2)
+    sched.submit(
+        "A", cfg_a, *_initial(), schedule="depth2", sweeps=sweeps_a,
+        reserve=ws_a, priority=0, retry=RetryPolicy(**RETRY),
+        injector=FaultInjector(FaultPlan([FaultSpec(**s) for s in specs])),
+        recovery=RecoveryPolicy(directory, zstd_level=0),
+    )
+    sched.submit("B", cfg_b, *_initial(), schedule="temporal2",
+                 sweeps=sweeps_b, reserve=0, priority=10)
+    sched.run()
+    return sched
+
+
+def _jax_two_tenant_run(specs, directory, *, sweeps_a=4, sweeps_b=3):
+    from repro.core.tenancy import working_set_bytes
+    from repro.serving.ooc import TenantScheduler
+
+    cfg = JConfig(SHAPE, 2, 1, jfields(2))
+    ws_a = working_set_bytes(cfg, "depth2")
+    ws_b = working_set_bytes(cfg, "temporal2")
+    sched = TenantScheduler(ws_a + ws_b // 2)
+    sched.submit(
+        "A", cfg, *_initial(), schedule="depth2", sweeps=sweeps_a,
+        reserve=ws_a, priority=0, retry=jfault.RetryPolicy(**RETRY),
+        injector=jfault.FaultInjector(
+            jfault.FaultPlan([jfault.FaultSpec(**s) for s in specs])),
+        recovery=JRecoveryPolicy(directory, zstd_level=0),
+    )
+    sched.submit("B", cfg, *_initial(), schedule="temporal2",
+                 sweeps=sweeps_b, reserve=0, priority=10)
+    sched.run()
+    return sched
+
+
+def _assert_tenants_isolated(sched, jsched, *, sweeps_a=4, sweeps_b=3):
+    """Both tenants bit for bit their solo fault-free runs; B saw no
+    recovery; A's recovery log is the reference's and its pool is
+    whole."""
+    a, b = sched.tenants["A"].executor, sched.tenants["B"].executor
+    ja = jsched.tenants["A"].executor
+    assert b.recovery_log == []
+    assert _log(a) == _log(ja)
+    assert dict(a.injector.counts) == dict(ja.injector.counts)
+    assert a.store.wire_log == ja.store.wire_log
+    per = sched.stats()["per_tenant"]
+    assert per["A"]["restarts"] == jsched.stats()["per_tenant"]["A"][
+        "restarts"]
+    assert per["B"]["restarts"] == 0
+    assert per["B"]["recoveries"] == 0
+    assert per["B"]["replayed_sweeps"] == 0
+    solo_a = AsyncExecutor(_cfg(), *_initial(), schedule="depth2")
+    solo_a.run(sweeps_a)
+    solo_b = AsyncExecutor(_cfg(), *_initial(), schedule="temporal2")
+    solo_b.run(sweeps_b)
+    for name in FIELDS:
+        np.testing.assert_array_equal(sched.gather("A", name),
+                                      solo_a.gather(name))
+        np.testing.assert_array_equal(sched.gather("B", name),
+                                      solo_b.gather(name))
+    for eng in (a, b):
+        assert eng.lanes.free_slots == len(eng.lanes._slots)
+    for eng in (solo_a, solo_b):
+        eng.close()
+    sched.close()
+
+
+def test_two_tenant_crash_rolls_back_alone(tmp_path):
+    """A corrupted fetch and a crash in tenant A: A rolls back and
+    replays once, its view dropping only its own residency; B, mid-run
+    on the same device, neither rolls back nor diverges."""
+    specs = [dict(kind="corrupt", op="h2d", field="p_cur", unit="C0",
+                  attempts=1),
+             dict(kind="crash", sweep=2)]
+    sched = _two_tenant_run(specs, str(tmp_path / "t"))
+    jsched = _jax_two_tenant_run(specs, str(tmp_path / "j"))
+    per = sched.stats()["per_tenant"]
+    assert per["A"]["restarts"] == 1
+    assert per["A"]["recoveries"] == 1
+    assert sum(sched.tenants["A"].executor.injector.counts.values()) > 0
+    _assert_tenants_isolated(sched, jsched)
+
+
+@pytest.mark.parametrize("seed", GEN_SEEDS)
+def test_two_tenant_generated_fault_isolated(tmp_path, seed):
+    """The seeded band (widened by ``CHAOS_SEED``): any generated single
+    fault in tenant A leaves both tenants bit for bit their solo runs,
+    B untouched by the recovery, A's log the reference's."""
+    plan = FaultPlan.generate(seed, fields=FIELDS, units=UNITS, sweeps=4)
+    specs = _spec_dicts(plan)
+    sched = _two_tenant_run(specs, str(tmp_path / "t"))
+    jsched = _jax_two_tenant_run(specs, str(tmp_path / "j"))
+    _assert_tenants_isolated(sched, jsched)

@@ -1293,3 +1293,125 @@ def test_sharded_halo_put_corrupted_and_retried_on_card(cuda_device):
         np.testing.assert_array_equal(sh.gather(name), single.gather(name))
     single.close()
     sh.close()
+
+
+# ----------------------------------------------------------------------
+# tenancy on the card: tenants' live engines, each with its own streams,
+# pool and host threads, under one shared residency budget
+# ----------------------------------------------------------------------
+def _tenant_fields(shape, seed):
+    p_cur = stencil_ref.ricker_source(shape).numpy()
+    return (0.95 * p_cur, p_cur,
+            np.full(shape, 0.07 + 0.01 * seed, np.float32))
+
+
+def _tenants_on_card():
+    """A latency tenant (96, 16, 16), ndiv 4, bt 2, half its working set
+    reserved, priority 10, and a batch tenant (48, 16, 16), ndiv 4, bt 1,
+    both code 4, depth2, 2 sweeps, under half their working sets: the
+    merged graph routes flushes both ways at this budget."""
+    from repro_torch.core.tenancy import working_set_bytes
+    from repro_torch.serving.ooc import TenantScheduler
+
+    cfg_a = OOCConfig((96, 16, 16), 4, 2, paper_code_fields(4))
+    cfg_b = OOCConfig((48, 16, 16), 4, 1, paper_code_fields(4))
+    ws_a = working_set_bytes(cfg_a, "depth2")
+    ws_b = working_set_bytes(cfg_b, "depth2")
+    budget = (ws_a + ws_b) // 2
+    sched = TenantScheduler(budget)
+    sched.submit("A", cfg_a, *_tenant_fields(cfg_a.shape, 0), sweeps=2,
+                 reserve=ws_a // 2, priority=10)
+    sched.submit("B", cfg_b, *_tenant_fields(cfg_b.shape, 1), sweeps=2,
+                 reserve=0, priority=0)
+    return sched, budget
+
+
+@pytest.mark.parametrize("churn", [False, True])
+def test_tenants_equal_solo_runs_on_card(cuda_device, monkeypatch, churn):
+    """Two tenants contending for one budget on the card: each bit for
+    bit its solo live engine, its transfers those of the merged graph,
+    flushes routed in both directions (each on the victim's own d2h
+    stream and pool), every pool whole after the run, the kernels
+    launched through the tenants. With ``churn`` freed memory is handed
+    out again on every stream after each visit and filled with NaN: a
+    routed flush reading a payload whose memory went elsewhere would
+    show."""
+    from repro_torch.core.taskgraph import build_tenant_tasks
+
+    if churn:
+        park = AsyncExecutor._park_writebacks
+
+        def churned(self, *a, **kw):
+            park(self, *a, **kw)
+            for lane in ("h2d", "compute", "d2h"):
+                with self.lanes.on(lane):
+                    for n in (1 << 12, 1 << 14, 1 << 16):
+                        torch.empty(n, device=cuda_device).fill_(
+                            float("nan"))
+
+        monkeypatch.setattr(AsyncExecutor, "_park_writebacks", churned)
+    sched, budget = _tenants_on_card()
+    routed = []
+    route = sched._route_flush
+
+    def counting(tenant, key, ent):
+        routed.append(tenant)
+        route(tenant, key, ent)
+
+    for run in sched.tenants.values():
+        run.executor.cache.router = counting
+    zfp_kernel.reset_launches()
+    stencil_kernel.reset_launches()
+    sched.run()
+    assert set(routed) == {"A", "B"}
+    assert zfp_kernel.launches["encode"] > 0
+    assert zfp_kernel.launches["decode"] > 0
+    assert stencil_kernel.launches["wave_step"] > 0
+    tasks = build_tenant_tasks(sched.specs(), budget_bytes=budget)
+    streams = set()
+    for i, spec in enumerate(sched.specs()):
+        ex = sched.tenants[spec.name].executor
+        streams.add(ex.lanes.streams["compute"].cuda_stream)
+        assert ex.lanes.free_slots == len(ex.lanes._slots)
+        live = sorted((t.direction, t.field, t.unit, t.sweep, t.flush,
+                       t.wire_bytes if t.flush else None)
+                      for t in ex.transfers)
+        graph = sorted((t.kind, t.field, t.unit, t.sweep, t.flush,
+                        int(t.amount) if t.flush else None)
+                       for t in tasks if t.tenant == spec.name
+                       and t.kind in ("h2d", "d2h"))
+        assert live == graph, spec.name
+        solo = AsyncExecutor(spec.cfg, *_tenant_fields(spec.cfg.shape, i),
+                             schedule=spec.schedule)
+        solo.run(spec.sweeps * spec.cfg.bt)
+        for name in ("p_prev", "p_cur", "vel2"):
+            np.testing.assert_array_equal(sched.gather(spec.name, name),
+                                          solo.gather(name))
+        solo.close()
+    assert len(streams) == 2
+    sched.close()
+
+
+def test_tenant_checkpoint_restores_on_card(cuda_device, tmp_path):
+    """A per-tenant cut taken mid-run on the card (the other tenant
+    keeps its residency and runs on) restores on the card as a solo run
+    with the shared budget, and finishes bit for bit."""
+    from repro_torch.core.tenancy import interleave_rounds
+
+    sched, budget = _tenants_on_card()
+    path = None
+    for name, start, kr in interleave_rounds(sched.specs()):
+        if name == "A" and start == 1:
+            path = sched.checkpoint_tenant("A", str(tmp_path), zstd_level=0)
+        sched.tenants[name].executor.advance_round(start + kr)
+    sched.run()
+    assert path is not None
+    rest = AsyncExecutor.restore(path)
+    assert rest.device.type == "cuda" and rest.cfg.backend == "cuda"
+    assert rest.sweeps_done == 1 and rest.cache.budget_bytes == budget
+    rest.run(rest.cfg.bt)
+    for name in ("p_prev", "p_cur"):
+        np.testing.assert_array_equal(rest.gather(name),
+                                      sched.gather("A", name))
+    rest.close()
+    sched.close()

@@ -19,8 +19,8 @@ the contract of ``tests/test_executor.py`` on the port.
 * the wire under a fault injector: a corrupt crossing is retried, or
   raises before the unit it guards is decoded or committed;
 * a shard's engine: its store seeded with the shard's units only, rate
-  control refused beside it; the part not ported yet (tenancy) raises
-  naming its ROADMAP item;
+  control refused beside it; a tenant's residency view
+  (``residency=``) used as it is;
 * float64 at the paper's rates: bit for bit the float64 sync engine, its
   transfers those of the task graph, every assembly of one type.
 """
@@ -420,8 +420,22 @@ def test_unported_parts_raise_naming_their_items(monkeypatch):
     live.run(2)
     # an unsharded engine exports no halo
     assert live.take_held() == {} and live.take_halo() == {}
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tenant_timeline([], V100_PCIE)
+    # the tenancy injection point: a residency object used as it is,
+    # cache_bytes and policy ignored
+    from repro_torch.core.tenancy import TenantSpec, TenantView
+    from repro_torch.core.unitcache import DeviceResidencyManager, \
+        ResidencyArbiter
+
+    arb = ResidencyArbiter()
+    arb.grant("t", 0)
+    view = TenantView(DeviceResidencyManager(1 << 20, arbiter=arb), "t")
+    tenant = AsyncExecutor(cfg, *_initial(), residency=view,
+                           cache_bytes=0, policy="write-through")
+    assert tenant.cache is view and tenant.store.stats is view.stats
+    tenant.run(2)
+    assert view.manager.tenant_bytes["t"] > 0
+    assert tenant_timeline([TenantSpec("t", cfg, "depth2", 1)],
+                           V100_PCIE).makespan > 0
     with pytest.raises(ValueError, match="all three"):
         AsyncExecutor(cfg, *_initial()[:2], None)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -10,7 +10,7 @@ the sweep replay (schedules, residency budgets, checkpoint modes, rate
 control, stragglers) and the sharded replay (2-4 shards, halos
 included) at the reference's test sizes. The paper's Fig. 5/6 structure
 holds on the port's model as on the reference's. The multi-tenant
-replay raises naming its ROADMAP item.
+replay (two tenants, every budget) equals the reference's too.
 """
 
 import dataclasses
@@ -204,5 +204,22 @@ def test_paper_fig5_fig6_structure():
 
 
 def test_tenant_timeline_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tpl.tenant_timeline([], tpl.V100_PCIE)
+    """The multi-tenant replay of two tenants on ``V100_PCIE`` equals the
+    reference's: the makespan, every span, busy time and the per-tenant
+    stats, at every budget."""
+    from repro.core import tenancy as jten
+    from repro_torch.core import tenancy as tten
+
+    jcfg, tcfg = _cfgs(4, 1)
+    jspecs = [jten.TenantSpec("A", jcfg, "depth2", 3, 0, 10),
+              jten.TenantSpec("B", jcfg, "temporal2", 2)]
+    tspecs = [tten.TenantSpec("A", tcfg, "depth2", 3, 0, 10),
+              tten.TenantSpec("B", tcfg, "temporal2", 2)]
+    for budget in BUDGETS:
+        js, ts = {}, {}
+        jt = jpl.tenant_timeline(jspecs, jpl.V100_PCIE, budget_bytes=budget,
+                                 stats=js)
+        tt = tpl.tenant_timeline(tspecs, tpl.V100_PCIE, budget_bytes=budget,
+                                 stats=ts)
+        assert _view(tt) == _view(jt)
+        assert ts == js and set(ts["per_tenant"]) == {"A", "B"}

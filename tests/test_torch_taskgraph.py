@@ -236,8 +236,16 @@ def test_sharded_graph_hazard_edges():
 
 def test_unported_graphs_raise_naming_their_items():
     _, cfg = _cfgs(2, 4, 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ttg.build_tenant_tasks([])
+    # the multi-tenant graph: empty for no tenants, one tenant's graph
+    # its own sweep graph with every task labelled with its name
+    from repro_torch.core.tenancy import TenantSpec
+
+    assert ttg.build_tenant_tasks([]) == []
+    one = ttg.build_tenant_tasks([TenantSpec("t", cfg, "depth2", 2)])
+    assert {t.tenant for t in one} == {"t"}
+    assert [(t.kind, t.field, t.unit, t.sweep) for t in one] == [
+        (t.kind, t.field, t.unit, t.sweep)
+        for t in ttg.build_sweep_tasks(cfg, 2, "depth2")]
     with pytest.raises(ValueError, match="nshards"):
         ttg.build_sharded_tasks(cfg, 5)
     # a shard restricts the graph to its blocks, and ndiv 1 has no halo
