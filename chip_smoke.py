@@ -203,15 +203,41 @@ non-zero:
    weights in float32: the replay and the prefill through the kernel
    against the plain versions, logits within 5e-2 of their largest,
    every layer's ``h`` within the kernel's tolerance;
-10. the kernels line: every kernel with its launches on the main paths
+10. train, the trainer (the launch counts zeroed first, path ``train``):
+   (a) ``launch.train.main`` at the lm-100m preset, 20 steps, gradients
+   at 8 planes with error feedback, a checkpoint every 10 under
+   ``build/smoke_train`` (removed after), then a second ``main`` resumed
+   from step 10's checkpoint: losses and weights after step 20 within
+   1e-5 relative of the uninterrupted run's (whether bit for bit is
+   printed), the manifest's keys the reference's tree's, the codec's
+   launches (ndim 1) the quantized leaves a step times the steps. (b)
+   Qwen2-1.5B at full width, float32, 4 of its 28 layers (as phase 7),
+   compressed remat (12 planes) and 8-plane gradients with error
+   feedback, batch 8 x 512 from ``SyntheticLM(seed=0)``, 3 steps of
+   ``make_train_step`` from seeded random weights on the card: step 1's
+   loss bit for bit remat none's; every residual step 1 saved (payload
+   and emax) and every quantized gradient of step 1 bit for bit the
+   plain codec's on the same leaf, on the card; the 3 steps replayed
+   from the same weights with ``backend="ref"``, losses and gradient
+   norms within 1e-4 relative (the largest weight difference printed);
+   encode and decode launches a step the code's count (13 residuals a
+   layer, one a quantized leaf). Printed: step walls, tokens/s, the
+   device idle share of the last step (``torch.profiler``), residual
+   bytes a layer against raw, the peak allocation of one step under
+   remat none, full and compressed, step 1's gradient distance
+   (compressed against none) by leaf, and the codec's time a launch,
+   bound and plain time at the largest residual leaf and at the
+   largest gradient leaf (233M values), bit for bit;
+11. the kernels line: every kernel with its launches on the main paths
    (the out-of-core wave of phases 4 and 5, the live engine of phase
    5b, its checkpoints of phase 5c, the sharded engine of phase 5s, the
    tenants of phase 5t, the
    float64 paper sweep, live run
    and precision tier of phases 5f, 5bf and 5p, the serving slice of
-   phase 7 and the SSM slice of phase 9, each counted from zero), its
-   error and times; the float32 codec's rows give their launches by
-   ndim.
+   phase 7, the SSM slice of phase 9 and the trainer of phase 10, each
+   counted from zero), its error and times; the float32 codec's rows
+   give their launches by ndim, one row for the unit (every path but
+   train) and one for the training gradient leaf (path train).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -274,6 +300,12 @@ from repro_torch.kernels.stencil import ref as stencil_ref  # noqa: E402
 from repro_torch.kernels.zfp import kernel as zfp_kernel  # noqa: E402
 from repro_torch.kernels.zfp import ops as zfp_ops  # noqa: E402
 from repro_torch.kernels.zfp import ref as zfp_ref  # noqa: E402
+from repro_torch.core import remat  # noqa: E402
+from repro_torch.data.pipeline import PipelineConfig, SyntheticLM  # noqa: E402
+from repro_torch.distributed import collectives  # noqa: E402
+from repro_torch.launch import steps as train_steps  # noqa: E402
+from repro_torch.launch import train as train_mod  # noqa: E402
+from repro_torch.optim import adamw  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -3095,6 +3127,400 @@ def ssm_slice():
     return counts
 
 
+# ----------------------------------------------------------------------
+# phase train: the trainer, compressed remat and compressed gradients
+# ----------------------------------------------------------------------
+
+TRAIN_DIR = Path(__file__).resolve().parent / "build" / "smoke_train"
+TRAIN_ARCH = "qwen2-1.5b"
+# full width, depth cut to 4 of 28 layers as phase 7
+TRAIN_LAYERS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 8, 512, 3
+TRAIN_PLANES = 8  # the gradients' rate; the residuals take 12 (model.py)
+TRAIN_RESUME_TOL = 1e-5  # relative: losses and weights after a resume
+TRAIN_REPLAY_TOL = 1e-4  # relative: losses and gnorms, kernels vs plain
+
+
+@torch.no_grad()
+def rel_leaf(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| / max |b| (max |a - b| when b is all zero)."""
+    diff, den = float((a - b).abs().max()), float(b.abs().max())
+    return diff / den if den else diff
+
+
+def quantized_leaves(model) -> int:
+    """The leaves ``compress_grads`` quantizes a step: each stacked leaf
+    of 64 values or more."""
+    sizes = {k: p.numel() for k, p in model.named_parameters()}
+    return sum(sum(sizes[k] for k in names) >= collectives.MIN_VALUES
+               for names in lm.stacked_leaves(sizes).values())
+
+
+def residual_leaves(model) -> int:
+    """The leaves compressed remat codes a step: a layer's hidden state
+    and each of its weights of 64 values or more."""
+    return sum(1 + sum(p.numel() >= remat.MIN_VALUES for p in lp.parameters())
+               for lp in model.layers)
+
+
+def train_launcher():
+    """(a) ``launch.train.main`` at the lm-100m preset, 20 steps, 8-plane
+    gradients, a checkpoint every 10; then a second ``main`` resumed from
+    step 10's checkpoint. Returns the launches of both runs."""
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    whole_dir, cut_dir = TRAIN_DIR / "whole", TRAIN_DIR / "resumed"
+    argv = ["--preset", "lm-100m", "--steps", "20", "--grad-compress",
+            str(TRAIN_PLANES), "--ckpt-every", "10"]
+    try:
+        t0 = time.perf_counter()
+        whole = train_mod.main(argv + ["--ckpt-dir", str(whole_dir)])
+        torch.cuda.synchronize()
+        whole_s = time.perf_counter() - t0
+        cut_dir.mkdir(parents=True)
+        shutil.copytree(whole_dir / "step_0000000010",
+                        cut_dir / "step_0000000010")
+        t0 = time.perf_counter()
+        resumed = train_mod.main(argv + ["--ckpt-dir", str(cut_dir),
+                                         "--resume"])
+        torch.cuda.synchronize()
+        resumed_s = time.perf_counter() - t0
+        counts = path_counts()
+        manifest = ckpt.read_manifest(ckpt.latest(str(whole_dir)))
+        ckpt_bytes = sum(f.stat().st_size for f in
+                         (whole_dir / "step_0000000020").iterdir())
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    keys = list(lm.stacked_leaves(
+        [n for n, _ in whole.model.named_parameters()]))
+    want_keys = ({f"0/{k}" for k in keys} | {"1/step"}
+                 | {f"1/{d}/{k}" for d in ("m", "v", "ef") for k in keys})
+    tail = whole.history[10:]
+    loss_rel = max(abs(a[1] - b[1]) / abs(b[1])
+                   for a, b in zip(resumed.history, tail))
+    param_rel = max(rel_leaf(a, b) for (_, a), (_, b) in zip(
+        resumed.model.named_parameters(), whole.model.named_parameters()))
+    bitwise = resumed.history == tail and all(
+        torch.equal(a, b) for a, b in zip(resumed.model.parameters(),
+                                          whole.model.parameters()))
+    per_step = quantized_leaves(whole.model)
+    steps_run = len(whole.history) + len(resumed.history)
+    row = {"phase": "train_launcher", "preset": "lm-100m",
+           "params": sum(p.numel() for p in whole.model.parameters()),
+           "steps": [len(whole.history), len(resumed.history)],
+           "wall_s": [whole_s, resumed_s], "checkpoint_bytes": ckpt_bytes,
+           "losses": [h[1] for h in whole.history],
+           "resumed_losses": [h[1] for h in resumed.history],
+           "loss_max_rel": loss_rel, "param_max_rel": param_rel,
+           "bitwise": bitwise, "quantized_leaves_per_step": per_step,
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit(row)
+    check([h[0] for h in resumed.history] == list(range(10, 20)),
+          "train (a): the resumed run did not start at step 10")
+    check(loss_rel <= TRAIN_RESUME_TOL and param_rel <= TRAIN_RESUME_TOL,
+          f"train (a): resume off by {loss_rel} (losses), {param_rel} "
+          f"(weights)")
+    check(want_keys == set(manifest["leaves"]),
+          f"train (a): manifest keys {sorted(manifest['leaves'])[:6]}... "
+          f"are not the reference's tree's")
+    for kind in ("encode", "decode"):
+        check(counts.get(f"zfp_{kind} ndim1", 0) == per_step * steps_run
+              == counts[f"zfp_{kind}"],
+              f"train (a): {counts.get(f'zfp_{kind} ndim1')} {kind} "
+              f"launches for {per_step} leaves x {steps_run} steps")
+    return counts
+
+
+def train_config():
+    return dataclasses.replace(
+        get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS, dtype="float32",
+        remat="compressed", grad_compress_planes=TRAIN_PLANES)
+
+
+def train_batches(cfg):
+    pipe = SyntheticLM(PipelineConfig(cfg.vocab_size, TRAIN_BATCH,
+                                      TRAIN_SEQ, seed=0))
+    return [{k: torch.from_numpy(v.copy()).cuda() for k, v in
+             pipe.batch_at(s).items()} for s in range(TRAIN_STEPS)]
+
+
+def fresh_model(cfg, init):
+    model = lm.Model(cfg, device=init[0].device, dtype=lm.dtype_of(cfg))
+    with torch.no_grad():
+        for (_, p), t in zip(model.named_parameters(), init):
+            p.copy_(t)
+    return model
+
+
+class CodecWitness:
+    """Step 1's codec calls held to the plain codec on the card: every
+    residual ``compress_tree`` saves (payload and emax) and every
+    quantized gradient, on the very leaves they were given."""
+
+    def __init__(self):
+        self.residuals, self.grads = [], []
+
+    def __enter__(self):
+        real_tree, real_leaf = remat.compress_tree, collectives.quantize_leaf
+
+        def tree(args, planes, **kw):
+            out = real_tree(args, planes, **kw)
+            for a, r in zip(args, out):
+                if isinstance(r, remat.ZfpResidual):
+                    flat = a.detach().reshape(-1).float()
+                    rp, re = zfp_ref.encode_blocks(
+                        zfp_ref.blockify(flat, 1), planes, 1)
+                    self.residuals.append(
+                        (a.numel(), r.comp.nbytes(),
+                         same_bits(r.comp.payload, rp)
+                         and same_bits(r.comp.emax, re)))
+            return out
+
+        def leaf(g, planes, **kw):
+            q = real_leaf(g, planes, **kw)
+            if q is not g:
+                want = zfp_ref.quantize(g.reshape(-1).float(), planes, 1)
+                self.grads.append((g.numel(), same_bits(q.reshape(-1), want)))
+            return q
+
+        self._undo = (real_tree, real_leaf)
+        remat.compress_tree, collectives.quantize_leaf = tree, leaf
+        return self
+
+    def __exit__(self, *exc):
+        remat.compress_tree, collectives.quantize_leaf = self._undo
+
+
+def step_profile(step, model, opt, batch):
+    """One train step under ``torch.profiler``: device busy seconds
+    (kernel time summed) against the step's wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        opt, met = step(model, opt, batch)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    device = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    check(bool(device), "train (b): the profiler saw no device time")
+    busy = sum(e.self_device_time_total for e in device) / 1e6
+    top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
+    return opt, met, {"profiled_wall_s": wall, "device_busy_s": busy,
+                      "idle_share": 1 - busy / wall,
+                      "top_kernels": [
+                          {"name": e.key[:80], "count": e.count,
+                           "total_ms": e.self_device_time_total / 1e3}
+                          for e in top]}
+
+
+def run_steps(cfg, init, batches, backend, witness=None, profile_last=False):
+    """``TRAIN_STEPS`` steps of ``make_train_step`` from ``init``: the
+    model, the metrics by step, the walls of the steps not profiled, and
+    the profile of the last step (``profile_last``). ``witness`` watches
+    the first step."""
+    model = fresh_model(cfg, init)
+    opt = adamw.init(dict(model.named_parameters()), error_feedback=True)
+    step = train_steps.make_train_step(cfg, peak_lr=3e-4, warmup=0,
+                                       total_steps=TRAIN_STEPS,
+                                       backend=backend)
+    metrics, walls, prof = [], [], None
+    for i, batch in enumerate(batches):
+        if profile_last and i == len(batches) - 1:
+            opt, met, prof = step_profile(step, model, opt, batch)
+        else:
+            ctx = witness if (witness is not None and i == 0) \
+                else contextlib.nullcontext()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with ctx:
+                opt, met = step(model, opt, batch)
+                torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        metrics.append({k: float(v) for k, v in met.items()})
+    return model, opt, metrics, walls, prof
+
+
+def grads_at(cfg, init, batch, remat_kind):
+    """Gradients of ``loss_fn`` at ``init`` under a remat policy, with
+    the card's peak allocation over that one forward and backward."""
+    model = fresh_model(dataclasses.replace(cfg, remat=remat_kind), init)
+    model.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss = lm.loss_fn(dataclasses.replace(cfg, remat=remat_kind), model,
+                      batch)
+    grads = torch.autograd.grad(loss, list(model.parameters()))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    names = [n for n, _ in model.named_parameters()]
+    del model, loss
+    return dict(zip(names, grads)), peak
+
+
+def train_codec_case(results, shape_leaf, planes, label, row):
+    """Device time a launch of the codec at a training leaf (flat, ndim
+    1): encode and decode beside their plain versions and bound, bit for
+    bit. ``row`` keys the kernels line's row."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    x = torch.randn(shape_leaf, generator=gen, device="cuda") * 1e-3
+    payload, emax = zfp_kernel.encode(x, planes, 1)
+    rp, re = zfp_ref.encode_blocks(zfp_ref.blockify(x, 1), planes, 1)
+    enc_ok = same_bits(payload, rp) and same_bits(emax, re)
+    y = zfp_kernel.decode(payload, emax, shape_leaf, planes, 1)
+    ry = zfp_ref.unblockify(zfp_ref.decode_blocks(rp, re, planes, 1),
+                            shape_leaf, 1)
+    dec_ok = same_bits(y, ry)
+    del rp, re, ry
+    nbytes = x.numel() * 4 + payload.numel() * 4 + emax.numel() * 4
+    enc_fn = lambda: zfp_kernel.encode(x, planes, 1)
+    dec_fn = lambda: zfp_kernel.decode(payload, emax, shape_leaf, planes, 1)
+    out = {}
+    for name, fn, plain, ok in (
+            ("zfp_encode", enc_fn, lambda: zfp_ref.encode_blocks(
+                zfp_ref.blockify(x, 1), planes, 1), enc_ok),
+            ("zfp_decode", dec_fn, lambda: zfp_ref.unblockify(
+                zfp_ref.decode_blocks(payload, emax, planes, 1), shape_leaf,
+                1), dec_ok)):
+        r = {"max_abs_err": 0.0 if ok else float("inf"),
+             "ms": median_ms(fn, 10),
+             **kernel_device_ms(fn, name.split("_")[1] + "_kernel", 10),
+             "plain_ms": median_ms(plain, 3),
+             "bound": bound_ms(nbytes)}
+        emit({"phase": "train_codec", "leaf": label, "kernel": name,
+              "shape": list(shape_leaf), "planes": planes, "ndim": 1,
+              "bitwise": ok, "ms": r["ms"], "device_ms": r["device_ms"],
+              "device_ms_by": r["device_ms_by"], "plain_ms": r["plain_ms"],
+              "bound_ms": r["bound"][0], "bound_by": r["bound"][1]})
+        check(ok, f"train: {name} differs from the plain codec at {label}")
+        if row:
+            results[(name, shape_leaf, planes)] = r
+        out[name] = r
+    del x, payload, emax, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_qwen(results):
+    """(b) Qwen2-1.5B at full width, 4 of 28 layers, float32, compressed
+    remat, 8-plane gradients with error feedback, batch 8 x 512 from
+    ``SyntheticLM(seed=0)``, ``TRAIN_STEPS`` steps of ``make_train_step``
+    from seeded random weights. Returns the steps' launches."""
+    cfg = train_config()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    model = lm.init_params(cfg, gen, device="cuda")
+    names = [n for n, _ in model.named_parameters()]
+    init = [p.detach().clone() for p in model.parameters()]
+    batches = train_batches(cfg)
+    with torch.no_grad():
+        loss_none = float(lm.loss_fn(dataclasses.replace(cfg, remat="none"),
+                                     model, batches[0]))
+    res_leaves, q_leaves = residual_leaves(model), quantized_leaves(model)
+    del model
+    torch.cuda.empty_cache()
+
+    # the path: the steps on the kernels, counted from zero
+    witness = CodecWitness()
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    kmodel, kopt, kmet, walls, prof = run_steps(
+        cfg, init, batches, "cuda", witness=witness, profile_last=True)
+    counts = path_counts()
+    peak = torch.cuda.max_memory_allocated()
+    del kopt
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    pmodel, popt, pmet, pwalls, _ = run_steps(cfg, init, batches, "ref")
+    replay_s = time.perf_counter() - t0
+    param_diff = max(rel_leaf(a, b) for a, b in zip(kmodel.parameters(),
+                                                    pmodel.parameters()))
+    del kmodel, pmodel, popt
+    torch.cuda.empty_cache()
+
+    grads, peaks = {}, {}
+    for kind in ("none", "full", "compressed"):
+        g, peaks[kind] = grads_at(cfg, init, batches[0], kind)
+        if kind != "full":
+            grads[kind] = g
+        del g
+    dist = {k: float((grads["compressed"][k] - grads["none"][k]).norm()
+                     / grads["none"][k].norm())
+            for k in grads["none"]}
+    del grads
+    torch.cuda.empty_cache()
+
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    layer_raw = sum(n * 4 for n, _, _ in witness.residuals) / cfg.num_layers
+    layer_packed = sum(b for _, b, _ in witness.residuals) / cfg.num_layers
+    row = {"phase": "train_qwen", "arch": TRAIN_ARCH,
+           "layers": cfg.num_layers, "d_model": cfg.d_model,
+           "vocab": cfg.vocab_size, "params": sum(p.numel() for p in init),
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "remat": cfg.remat,
+           "grad_planes": TRAIN_PLANES, "loss_none_step1": loss_none,
+           "losses": [m["loss"] for m in kmet],
+           "gnorms": [m["gnorm"] for m in kmet],
+           "lrs": [m["lr"] for m in kmet],
+           "plain_losses": [m["loss"] for m in pmet],
+           "plain_gnorms": [m["gnorm"] for m in pmet],
+           "step_wall_s": walls, "tokens_per_s": [tokens / w for w in walls],
+           f"step{TRAIN_STEPS}_profile": prof,
+           "plain_step_wall_s": pwalls, "plain_replay_s": replay_s,
+           "largest_param_rel_diff": param_diff,
+           "residuals_step1": len(witness.residuals),
+           "residual_bytes_per_layer": layer_packed,
+           "residual_raw_bytes_per_layer": layer_raw,
+           "quantized_grads_step1": len(witness.grads),
+           "peak_allocated_bytes": peak, "peak_by_remat": peaks,
+           "grad_rel_dist_compressed_vs_none": dist,
+           "launches": {k: v for k, v in counts.items() if v}}
+    emit(row)
+    check(kmet[0]["loss"] == loss_none,
+          f"train (b): step 1's loss {kmet[0]['loss']} is not remat none's "
+          f"{loss_none}")
+    check(len(witness.residuals) == res_leaves and all(
+        ok for _, _, ok in witness.residuals),
+          "train (b): a residual's payload differs from the plain codec's")
+    check(len(witness.grads) == q_leaves and all(
+        ok for _, ok in witness.grads),
+          "train (b): a quantized gradient differs from ref.quantize")
+    for a, b in zip(kmet, pmet):
+        for k in ("loss", "gnorm"):
+            check(abs(a[k] - b[k]) <= TRAIN_REPLAY_TOL * abs(b[k]),
+                  f"train (b): {k} {a[k]} against the plain replay's {b[k]}")
+    per_step = res_leaves + q_leaves
+    for kind in ("encode", "decode"):
+        check(counts.get(f"zfp_{kind} ndim1", 0) == per_step * TRAIN_STEPS
+              == counts[f"zfp_{kind}"],
+              f"train (b): {counts.get(f'zfp_{kind} ndim1')} {kind} "
+              f"launches, not {per_step} a step")
+    # the codec at the largest residual leaf (a layer's largest weight)
+    # and at the largest gradient leaf (embed and lm_head)
+    sizes = dict(zip(names, (p.numel() for p in init)))
+    del init
+    torch.cuda.empty_cache()
+    largest_w = max(v for k, v in sizes.items() if k.startswith("layers."))
+    train_codec_case(results, (largest_w,), lm.COMPRESSED_REMAT_PLANES,
+                     "residual (largest weight)", row=False)
+    train_codec_case(results, (max(sizes.values()),), TRAIN_PLANES,
+                     "gradient (embed, lm_head)", row=True)
+    return counts
+
+
+def train_slice(results):
+    """Phase train: (a) the launcher, (b) Qwen2-1.5B; the launches of
+    both, counted from zero."""
+    t0 = time.perf_counter()
+    reset_counts()
+    counts_a = train_launcher()
+    torch.cuda.empty_cache()
+    counts_b = train_qwen(results)
+    counts = collections.Counter(counts_a)
+    counts.update(counts_b)
+    emit({"phase": "train_seconds", "seconds": time.perf_counter() - t0})
+    return dict(counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -3181,6 +3607,16 @@ def main() -> int:
     sscan_cases(gen, results)
     ssm_counts = ssm_slice()
     emit({"phase": "launches", "path": "ssm_serving", **ssm_counts})
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    train_counts = train_slice(results)
+    emit({"phase": "launches", "path": "train", **train_counts})
+    for name in ("zfp_encode ndim1", "zfp_decode ndim1"):
+        check(train_counts.get(name, 0) > 0,
+              f"the train phase never launched {name}")
+    cfg = train_config()
+    grad_leaf = (cfg.vocab_size * cfg.d_model,)
 
     rows = [
         ("zfp_encode", "zfp_encode", "src/repro/kernels/zfp/kernel.py:90",
@@ -3216,6 +3652,12 @@ def main() -> int:
          "src/repro/kernels/stencil/kernel.py:149",
          "src/repro_torch/csrc/stencil64.cu", (PREC_SHAPE, 1)),
     ]
+    rows += [
+        ("zfp_encode", "zfp_encode", "src/repro/kernels/zfp/kernel.py:90",
+         "src/repro_torch/csrc/zfp.cu", (grad_leaf, TRAIN_PLANES)),
+        ("zfp_decode", "zfp_decode", "src/repro/kernels/zfp/kernel.py:133",
+         "src/repro_torch/csrc/zfp.cu", (grad_leaf, TRAIN_PLANES)),
+    ]
     rows.append(("cdecode", "cdecode", "src/repro/kernels/cdecode/kernel.py:90",
                  "src/repro_torch/csrc/cdecode.cu",
                  ((CD_SLOTS, CD_KVH, CTX), (16, CD_LENGTHS[0]))))
@@ -3227,9 +3669,10 @@ def main() -> int:
              "ooc_tenancy": tenant_counts,
              "ooc_f64": f64_counts, "ooc_live_f64": live64_counts,
              "precision": prec_counts, "serving": serve_counts,
-             "ssm_serving": ssm_counts}
+             "ssm_serving": ssm_counts, "train": train_counts}
     # the float32 codec's rows time the ndim-3 unit and give their launches
-    # by ndim (the lossy checkpoint leaves at 1, the KV cache at 2);
+    # by ndim (the lossy checkpoint leaves at 1, the KV cache at 2), and
+    # the training path's gradient leaf at ndim 1;
     # a kernel with two rows: each row counts the paths that launch it at
     # its shape (the float64 rung on the engines' blocks, 1152^2 and
     # 576^2 planes, the sharded engine's included, and on the precision
@@ -3237,7 +3680,14 @@ def main() -> int:
     # tier's, both rates), so no launch counts twice
     engines64 = ("ooc_f64", "ooc_live_f64", "ooc_sharded")
     prec = ("precision",)
-    row_paths = {("wave_multistep_f64", BLOCK): engines64,
+    # the float32 codec: the training leaf's row counts path train, the
+    # unit's row every other path
+    untrained = tuple(p for p in paths if p != "train")
+    row_paths = {("zfp_encode", UNIT): untrained,
+                 ("zfp_decode", UNIT): untrained,
+                 ("zfp_encode", grad_leaf): ("train",),
+                 ("zfp_decode", grad_leaf): ("train",),
+                 ("wave_multistep_f64", BLOCK): engines64,
                  ("wave_multistep_f64", PREC_SHAPE): prec,
                  ("zfp_encode_f64", UNIT): engines64,
                  ("zfp_encode_f64", PREC_UNIT): prec,

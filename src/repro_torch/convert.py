@@ -10,7 +10,12 @@ store holds the same units, every digest verified unchanged.
 For the decoder, ``params_from_reference`` takes the reference's
 parameter tree and ``cache_from_reference`` its decode cache, both as
 numpy leaves (the caller does the ``np.asarray``), so a reference run
-can be resumed in the port mid-sequence. Nothing here imports JAX.
+can be resumed in the port mid-sequence. For training,
+``params_to_reference`` and ``opt_state_to_reference`` give the
+reference's trees back (per-layer leaves stacked ``(L, ...)``) and
+``opt_state_from_reference`` takes its ``AdamWState``: a checkpoint of
+``(params, opt_state)`` in those trees resumes in either package.
+Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.outofcore import OOCConfig, OutOfCoreWave
 from repro_torch.models import model as M
+from repro_torch.optim.adamw import AdamWState
 
 
 def wave_from_reference(
@@ -54,7 +60,9 @@ def wave_from_reference(
 def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
     """A copy of a numpy leaf on ``device``, bits unchanged (the port
     writes caches in place): uint32 crosses as an int32 view, bfloat16
-    (numpy's ``ml_dtypes`` type) as a uint16 view."""
+    (numpy's ``ml_dtypes`` type) as a uint16 view; a tensor is copied."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(device).clone()
     a = np.array(a, order="C")
     if a.dtype == np.uint32:
         return torch.from_numpy(a.view(np.int32)).to(device).view(torch.uint32)
@@ -62,6 +70,11 @@ def _tensor(a: np.ndarray, device: torch.device) -> torch.Tensor:
         return torch.from_numpy(a.view(np.uint16)).to(device).view(
             torch.bfloat16)
     return torch.from_numpy(a).to(device)
+
+
+def _array(a):
+    """A leaf as numpy, or as it is when it is a tensor (bfloat16)."""
+    return a if isinstance(a, torch.Tensor) else np.asarray(a)
 
 
 def params_from_reference(cfg: ModelConfig, leaves: Mapping[str, object],
@@ -86,10 +99,11 @@ def params_from_reference(cfg: ModelConfig, leaves: Mapping[str, object],
             f"the port's {sorted(want_layer)} + {sorted(want_top)}")
     with torch.no_grad():
         for name, stack in layers.items():
+            stack = _array(stack)
             for i, lp in enumerate(model.layers):
-                getattr(lp, name).copy_(_tensor(np.asarray(stack)[i], dev))
+                getattr(lp, name).copy_(_tensor(stack[i], dev))
         for name, leaf in top.items():
-            getattr(model, name).copy_(_tensor(np.asarray(leaf), dev))
+            getattr(model, name).copy_(_tensor(_array(leaf), dev))
     return model
 
 
@@ -109,3 +123,70 @@ def cache_from_reference(cache_leaves: Mapping[str, object],
         for name, a in cache_leaves.items() if name != "length"
     }
     return kind(**fields, length=int(np.asarray(cache_leaves["length"])))
+
+
+def _host(t: torch.Tensor):
+    """A host copy of ``t``: numpy, or a CPU tensor for bfloat16 (numpy
+    has no bfloat16; the checkpoint writes its bits as the reference's)."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+
+def _to_reference_tree(tensors: Mapping[str, torch.Tensor]):
+    """A name -> tensor mapping in ``Model.named_parameters()`` naming as
+    the reference's tree: ``layers`` holds each per-layer leaf stacked
+    ``(L, ...)``."""
+    tree: Dict[str, object] = {}
+    for key, names in M.stacked_leaves(tensors).items():
+        parts = [tensors[n].detach() for n in names]
+        if key.startswith("layers/"):
+            tree.setdefault("layers", {})[key.split("/", 1)[1]] = _host(
+                torch.stack(parts))
+        else:
+            tree[key] = _host(parts[0])
+    return tree
+
+
+def _from_reference_tree(tree: Mapping[str, object], names,
+                         device: torch.device) -> Dict[str, torch.Tensor]:
+    """Inverse of ``_to_reference_tree`` for the parameter names
+    ``names``: every name's piece of its reference leaf on ``device``."""
+    out: Dict[str, torch.Tensor] = {}
+    for key, group in M.stacked_leaves(names).items():
+        if key.startswith("layers/"):
+            stack = tree["layers"][key.split("/", 1)[1]]
+            for i, name in enumerate(group):
+                out[name] = _tensor(stack[i], device)
+        else:
+            out[key] = _tensor(tree[key], device)
+    return {n: out[n] for n in names}
+
+
+def params_to_reference(model: M.Model):
+    """The reference's parameter tree of ``model`` (the inverse of
+    ``params_from_reference``): host arrays, per-layer leaves stacked
+    ``(L, ...)`` under ``layers``."""
+    return _to_reference_tree(dict(model.named_parameters()))
+
+
+def opt_state_to_reference(state: AdamWState) -> AdamWState:
+    """The reference's ``AdamWState`` of a port state: ``step`` a 0-d
+    int32 array, ``m``, ``v`` (and ``ef``, or None) parameter trees."""
+    conv = lambda d: None if d is None else _to_reference_tree(d)
+    return AdamWState(np.asarray(state.step.cpu().numpy(), np.int32),
+                      conv(state.m), conv(state.v), conv(state.ef))
+
+
+def opt_state_from_reference(model: M.Model, state,
+                             device: device_mod.DeviceLike = None
+                             ) -> AdamWState:
+    """A port ``AdamWState`` for ``model``'s parameters from the
+    reference's (numpy leaves, e.g. from ``checkpoint.restore``), on
+    ``device`` (default the model's)."""
+    dev = model.device if device is None else device_mod.resolve(device)
+    names = [n for n, _ in model.named_parameters()]
+    conv = lambda t: None if t is None else _from_reference_tree(
+        t, names, dev)
+    step = torch.as_tensor(np.array(state.step), dtype=torch.int32,
+                           device=dev)
+    return AdamWState(step, conv(state.m), conv(state.v), conv(state.ef))

@@ -673,9 +673,10 @@ class AsyncExecutor:
                 vals, planes=planes, ndim=3, backend=self.cfg.backend,
             )
             if self.rates is not None:
-                for t, v in zip(ts, vals):
+                for t, v, c in zip(ts, vals, encoded):
                     kind, idx = t.unit
-                    q = zfp_ops.quantize(v, planes=planes, ndim=3)
+                    # the round trip's error, from the payload just encoded
+                    q = zfp_ops.decompress(c, backend=self.cfg.backend)
                     self.rates.observe(
                         t.field, kind, idx, planes,
                         float((q - v).abs().max()), float(v.abs().max()),

@@ -783,14 +783,16 @@ class OutOfCoreWave:
         if self.rates is not None:
             planes = self.rates.rate_for(name, kind, idx, sweep)
         if planes is not None:
-            if self.rates is not None and spec.compressed:
-                q = zfp_ops.quantize(value, planes=planes, ndim=3)
-                self.rates.observe(name, kind, idx, planes,
-                                   float((q - value).abs().max()),
-                                   float(value.abs().max()))
+            raw_value = value
             value = zfp_ops.compress(
                 value, planes=planes, ndim=3, backend=self.cfg.backend
             )
+            if self.rates is not None and spec.compressed:
+                # the round trip's error, from the payload just encoded
+                q = zfp_ops.decompress(value, backend=self.cfg.backend)
+                self.rates.observe(name, kind, idx, planes,
+                                   float((q - raw_value).abs().max()),
+                                   float(raw_value.abs().max()))
         elif self.rates is not None and spec.compressed:
             # lossless commit: zero error at the unit's amplitude
             self.rates.observe(name, kind, idx, None, 0.0,

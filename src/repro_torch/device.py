@@ -54,6 +54,17 @@ def card_line() -> str:
     return out.strip().splitlines()[0].strip()
 
 
+def backend_for(where: Union[torch.Tensor, torch.device],
+                backend: Optional[str] = None) -> str:
+    """``backend`` if given, else the default for a tensor's (or a
+    device's) place: ``"cuda"`` (the kernels) on a CUDA device, ``"ref"``
+    (the plain versions) on the CPU."""
+    if backend is not None:
+        return backend
+    dev = where.device if isinstance(where, torch.Tensor) else where
+    return "cuda" if dev.type == "cuda" else "ref"
+
+
 def check_backend(backend: str, *tensors: torch.Tensor) -> None:
     """Validate ``backend`` and, for ``"cuda"``, that every tensor is a
     CUDA tensor (no quiet switch to the plain version)."""

@@ -15,7 +15,7 @@ Shards are pinned round-robin onto an explicit list of ``torch.device``s
 argument. The reference module's first half, the logical-axis rules of
 the LM's sharding hints (``DEFAULT_RULES``, ``resolve_spec``,
 ``logical``, ``named_sharding_tree``), is not ported here: it goes with
-the LM substrate (ROADMAP queue 1 item 14).
+the logical-axis half of sharding (ROADMAP queue 1 item 21).
 """
 
 from __future__ import annotations

@@ -84,8 +84,18 @@ def decompress_units(cs: Sequence[Compressed], *,
     return [decompress(c, backend=backend) for c in cs]
 
 
-def quantize(x: torch.Tensor, *, planes: int, ndim: int = 3) -> torch.Tensor:
-    """Numerics of compress->decompress without materialising payload."""
+def quantize(x: torch.Tensor, *, planes: int, ndim: int = 3,
+             backend: Backend = "ref") -> torch.Tensor:
+    """Numerics of compress->decompress: ``decode(encode(x))`` bit for
+    bit. ``"ref"`` runs the plain codec's fused form (no bit packing);
+    ``"cuda"`` launches the encode kernel, then the decode kernel on its
+    payload."""
+    check_backend(backend, x)
+    if backend == "cuda":
+        x = x.contiguous()
+        payload, emax = kernel.encode(x, planes, ndim)
+        return kernel.decode(payload, emax, x.shape, planes, ndim,
+                             ref.dtype_name(x.dtype))
     return ref.quantize(x, planes, ndim)
 
 

@@ -1,13 +1,15 @@
-"""Shared neural layers of the decode path: norms, RoPE/M-RoPE, the
-per-slot cache write, decode attention over a raw KV cache, GLU.
+"""Shared neural layers: norms, RoPE/M-RoPE, blocked attention
+(training and prefill), the per-slot cache write, decode attention over
+a raw KV cache, GLU.
 
-Port of the decode half of ``repro.models.layers``. The reference's
-promotions are kept: norms and RoPE angles, sin and cos are computed in
-float32 and cast back to the input's type; where the reference asks an
-einsum for float32 output on bfloat16 operands
-(``preferred_element_type=f32``), the operands are cast to float32
-first (exact for bfloat16), so scores are not rounded to bfloat16.
-``blocked_attention`` (prefill and training) is not ported yet.
+Port of ``repro.models.layers``. The reference's promotions are kept:
+norms and RoPE angles, sin and cos are computed in float32 and cast back
+to the input's type; where the reference asks an einsum for float32
+output on bfloat16 operands (``preferred_element_type=f32``), the
+operands are cast to float32 first (a bfloat16 product is exact in
+float32), so scores are not rounded to bfloat16. ``blocked_attention``
+is the reference's online softmax over KV chunks, in plain PyTorch (it
+is XLA in the reference, not a Pallas kernel), differentiable.
 """
 
 from __future__ import annotations
@@ -78,6 +80,63 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     x1, x2 = x[..., : d // 2], x[..., d // 2:]
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Blocked causal attention (training / prefill)
+# ---------------------------------------------------------------------------
+
+
+def _gqa_logits(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """q: (B, S, KVH, QPK, D), k: (B, T, KVH, D) -> (B, KVH, QPK, S, T),
+    float32 (products of the inputs' type, accumulated in float32)."""
+    return torch.einsum("bsgqd,btgd->bgqst", q.float(), k.float())
+
+
+def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      kv_chunk: int, causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention over KV chunks; O(S * chunk) memory.
+    q: (B, S, H, D); k, v: (B, S, KVH, D). Returns (B, S, H, D) float32.
+    Masked scores are -inf; a row with nothing visible yet keeps zero
+    weight and a zero correction, as in the reference."""
+    b, s, h, d = q.shape
+    kvh = k.shape[2]
+    qpk = h // kvh
+    qr = q.reshape(b, s, kvh, qpk, d) * scale_in(d, q.dtype)
+    nchunk = -(-s // kv_chunk)
+    pad = nchunk * kv_chunk - s
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad))
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad))
+    qpos = torch.arange(s, device=q.device)
+    m = torch.full((b, kvh, qpk, s), float("-inf"), device=q.device)
+    l = torch.zeros((b, kvh, qpk, s), device=q.device)
+    acc = torch.zeros((b, kvh, qpk, s, d), device=q.device)
+    for ci in range(nchunk):
+        kblk = kp[:, ci * kv_chunk:(ci + 1) * kv_chunk]
+        vblk = vp[:, ci * kv_chunk:(ci + 1) * kv_chunk]
+        logits = _gqa_logits(qr, kblk)
+        kpos = ci * kv_chunk + torch.arange(kv_chunk, device=q.device)
+        if causal:
+            mask = kpos[None, :] <= qpos[:, None]
+        else:
+            mask = (kpos[None, :] < s).expand(s, kv_chunk)
+        mask = mask & (kpos[None, :] < s)
+        logits = torch.where(mask, logits, float("-inf"))
+        m_new = torch.maximum(m, logits.amax(dim=-1))
+        # guard fully-masked rows (m_new == -inf)
+        m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)
+        p = torch.exp(logits - m_safe[..., None])
+        p = torch.where(mask, p, 0.0)
+        finite = torch.isfinite(m)
+        corr = torch.exp(torch.where(finite, m - m_safe, float("-inf")))
+        corr = torch.where(finite, corr, 0.0)
+        l = l * corr + p.sum(dim=-1)
+        pv = torch.einsum("bgqst,btgd->bgqsd", p.to(vblk.dtype).float(),
+                          vblk.float())
+        acc = acc * corr[..., None] + pv
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-37)[..., None]
+    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""Decoder LM for serving: parameters, caches, the one-token decode
-step and, for the SSM family, the full-sequence forward and prefill.
+"""Decoder LM: parameters, caches, the full-sequence forward, the
+training loss, prefill and the one-token decode step.
 
 Port of the dense and Mamba-1 (``ssm``) paths of ``repro.models.model``.
 Each layer is an ``nn.Module`` whose parameters carry the reference's
@@ -7,9 +7,17 @@ leaf names (dense: ``ln1``, ``wq``, ``bq``, ..., ``wg``, ``wu``, ``wd``;
 Mamba-1: ``ln1``, ``in_proj``, ``conv_w``, ..., ``A_log``, ``D``,
 ``out_proj``) in its layout, ``(d_in, d_out)``, so ``h @ wq`` computes
 what the reference computes; the layers sit in an ``nn.ModuleList``
-where the reference scans a stacked tree. As in the reference, the model
-has its own ``lm_head`` even when the config ties embeddings, and a
-Mamba-1 layer keeps ``A_log`` and ``D`` in float32.
+where the reference scans a stacked tree (``stacked_leaves`` maps the
+port's names onto the reference's ``(L, ...)`` leaves). As in the
+reference, the model has its own ``lm_head`` even when the config ties
+embeddings, and a Mamba-1 layer keeps ``A_log`` and ``D`` in float32.
+Parameters are made with ``requires_grad=False``; training turns it on
+for the model it trains (``launch.steps.make_train_step``).
+
+The dense family's ``forward`` is differentiable: blocked attention
+(``layers.blocked_attention``) and each layer under the config's remat
+policy (``_remat``: none, full, dots, or compressed residuals through
+``core.remat``); ``loss_fn`` adds the chunked cross-entropy.
 
 Caches keep the reference's shapes, are updated **in place**, and carry
 ``length`` as a host ``int``. Over a ``CompressedCache``,
@@ -23,16 +31,19 @@ on the card when ``backend="cuda"``, which is the default for a model on
 a CUDA device. The compressed cache is slot-synchronous, as in the
 reference.
 
-Not ported yet (ROADMAP queue 1 item 14): the dense ``forward``,
-``prefill`` and ``loss_fn`` (they need ``blocked_attention``), the MoE
-and hybrid families, and the audio and vision-language front ends.
-Inference needs no remat policy, so ``forward`` ignores ``cfg.remat``.
+Not ported yet (ROADMAP.md queue 1): the MoE family (item 17), Mamba-2
+and the hybrid family (item 18), the ssm family's training, a gradient
+through the scan (item 19: its ``forward`` is inference-only and
+ignores ``cfg.remat``), the audio and vision-language front ends (item
+20) and the logical sharding axes (item 21).
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+from types import SimpleNamespace
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -44,10 +55,15 @@ from repro_torch.models import layers as L
 from repro_torch.models import ssm as SSM
 
 NOT_PORTED = (
-    "the {what} is not ported yet: ROADMAP.md queue 1 item 14 (the LM "
-    "substrate; this port serves the dense and ssm families)"
+    "the {what} is not ported yet: ROADMAP.md queue 1 item {item} (this "
+    "port trains the dense family and serves the dense and ssm families)"
 )
 PORTED_FAMILIES = ("dense", "ssm")
+# the ROADMAP item that ports each family still missing
+FAMILY_ITEM = {"moe": 17, "hybrid": 18, "audio": 20, "vlm": 20}
+SSM_TRAINING_ITEM = 19
+REMATS = ("none", "full", "dots", "compressed")
+COMPRESSED_REMAT_PLANES = 12  # the reference's model.py:344
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -56,8 +72,24 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            NOT_PORTED.format(what=f"{cfg.family!r} family ({cfg.name})"))
+        raise NotImplementedError(NOT_PORTED.format(
+            what=f"{cfg.family!r} family ({cfg.name})",
+            item=FAMILY_ITEM.get(cfg.family, 17)))
+
+
+def stacked_leaves(names) -> Dict[str, List[str]]:
+    """The reference's leaf of each parameter name, in first-seen order:
+    ``layers.<i>.<leaf>`` joins ``layers/<leaf>`` (its pieces in layer
+    order, the reference's ``(L, ...)`` stack), any other name is a leaf
+    of its own. Keys are the checkpoint's flat keys of the reference's
+    parameter tree."""
+    out: Dict[str, List[str]] = {}
+    for name in names:
+        parts = name.split(".")
+        key = "/".join((parts[0], parts[2])) if parts[0] == "layers" \
+            else name
+        out.setdefault(key, []).append(name)
+    return out
 
 
 def _param(shape, device, dtype) -> nn.Parameter:
@@ -196,7 +228,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 # ---------------------------------------------------------------------------
-# Layer bodies (decode)
+# Layer bodies
 # ---------------------------------------------------------------------------
 
 
@@ -214,21 +246,26 @@ def _qkv(cfg, p, h, positions):
 
 
 def _attn_block(cfg, p, x, positions, kv_cache=None, cache_len=None):
-    """Decode branch: returns (x_out, (k_cache, v_cache)), the caches
-    written in place at each slot's position ``cache_len - 1``."""
-    if kv_cache is None:
-        raise NotImplementedError(NOT_PORTED.format(
-            what="full-sequence attention (blocked_attention)"))
+    """Returns (x_out, (k, v)). Full sequence (no cache): blocked
+    attention over ``cfg.attn_chunk`` chunks, the new K and V returned.
+    Decode: the caches written in place at each slot's position
+    ``cache_len - 1`` and returned."""
     h = L.norm(x, p.ln1, cfg.norm_eps, cfg.norm)
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, h, positions)
-    k_cache, v_cache = kv_cache
-    idx = cache_len - 1
-    k_cache = L.batched_cache_update(k_cache, k, idx)
-    v_cache = L.batched_cache_update(v_cache, v, idx)
-    attn = L.decode_attention(q, k_cache, v_cache, cache_len)
+    if kv_cache is None:
+        attn = L.blocked_attention(
+            q, k, v, kv_chunk=min(cfg.attn_chunk, s)).to(x.dtype)
+        new_kv = (k, v)
+    else:
+        k_cache, v_cache = kv_cache
+        idx = cache_len - 1
+        k_cache = L.batched_cache_update(k_cache, k, idx)
+        v_cache = L.batched_cache_update(v_cache, v, idx)
+        attn = L.decode_attention(q, k_cache, v_cache, cache_len)
+        new_kv = (k_cache, v_cache)
     out = attn.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p.wo
-    return out, (k_cache, v_cache)
+    return out, new_kv
 
 
 def _ffn_block(cfg, p, h):
@@ -324,54 +361,166 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     return DecodeCache(k, torch.zeros_like(k), None, None, 0)
 
 
+def _on(a, dev: torch.device) -> torch.Tensor:
+    """A tensor, or a copy of a numpy array (the pipelines' positions are
+    read-only broadcasts), on ``dev``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(dev)
+    return torch.from_numpy(np.array(a)).to(dev)
+
+
 # ---------------------------------------------------------------------------
-# Serving: prefill (ssm family) and decode
+# Full forward (train / prefill)
 # ---------------------------------------------------------------------------
 
 
-def _backend(dev: torch.device, backend: Optional[str]) -> str:
-    if backend is None:
-        return "cuda" if dev.type == "cuda" else "ref"
-    return backend
+def _save_dots(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat="dots"`` (the reference's
+    ``checkpoint_dots``): keep the outputs of matrix products, recompute
+    everything else."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.bmm.default, aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
-def _require_ssm(cfg: ModelConfig) -> None:
-    _require_ported(cfg)
-    if cfg.family != "ssm":
-        raise NotImplementedError(NOT_PORTED.format(
-            what=f"full-sequence forward of the {cfg.family!r} family "
-                 f"(blocked_attention)"))
+def _remat(cfg: ModelConfig, fn, backend: str):
+    """``fn`` under the config's remat policy. Without autograd (prefill,
+    evaluation) every policy runs ``fn`` as it is, as the reference's do
+    outside a gradient."""
+    if cfg.remat not in REMATS:
+        raise ValueError(cfg.remat)
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    from torch.utils import checkpoint as ckpt
+
+    if cfg.remat == "full":
+        return lambda *a: ckpt.checkpoint(fn, *a, use_reentrant=False)
+    if cfg.remat == "dots":
+        return lambda *a: ckpt.checkpoint(
+            fn, *a, use_reentrant=False,
+            context_fn=lambda: ckpt.create_selective_checkpoint_contexts(
+                _save_dots))
+    from repro_torch.core.remat import compressed_checkpoint
+
+    return compressed_checkpoint(fn, planes=COMPRESSED_REMAT_PLANES,
+                                 backend=backend)
+
+
+def _dense_body(cfg, names, positions, collect_cache: bool):
+    """One decoder layer as a function of tensors only, ``(h, aux,
+    *weights) -> (h, aux[, k, v])``: the remat policies see every weight
+    as an argument (``core.remat`` saves and differentiates them)."""
+    def body(h, aux, *weights):
+        lp = SimpleNamespace(**dict(zip(names, weights)))
+        h, (k, v) = _decoder_layer(cfg, lp, h, positions)
+        aux = aux + 0.0  # the dense FFN adds no auxiliary loss
+        return (h, aux, k, v) if collect_cache else (h, aux)
+
+    return body
 
 
 @torch.inference_mode()
-def forward(cfg: ModelConfig, params: Model, tokens: torch.Tensor,
-            positions: torch.Tensor, collect_cache: bool = False, *,
-            backend: Optional[str] = None):
-    """Full-sequence forward of the ssm family. Returns (hidden (B, S, d),
-    aux loss 0, and with ``collect_cache`` the per-layer states as one
-    ``MambaState`` of ``(L, ...)`` stacks, else None). ``positions`` is
-    unused, as in the reference's ssm branch."""
-    _require_ssm(cfg)
-    dev = params.device
-    backend = _backend(dev, backend)
-    x = _embed_in(cfg, params, torch.as_tensor(tokens, device=dev))
+def _ssm_forward(cfg, params, x, collect_cache, backend):
     states = []
     for lp in params.layers:
         x, st = lp(x, backend=backend)
         if collect_cache:
             states.append(st)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not collect_cache:
         return x, aux, None
     return x, aux, SSM.MambaState(torch.stack([s.conv for s in states]),
                                   torch.stack([s.h for s in states]))
 
 
+def forward(cfg: ModelConfig, params: Model, tokens: torch.Tensor,
+            positions: torch.Tensor, collect_cache: bool = False, *,
+            backend: Optional[str] = None):
+    """Full-sequence forward. Returns (hidden (B, S, d), aux loss, cache).
+
+    Dense: differentiable (each layer under ``_remat``); with
+    ``collect_cache`` the per-layer K and V as ``(L, B, S, KV, hd)``
+    stacks ``(k, v)``. ssm: inference only (``cfg.remat`` ignored;
+    training it is ROADMAP.md item 19); with ``collect_cache`` one
+    ``MambaState`` of ``(L, ...)`` stacks; ``positions`` unused, as in
+    the reference's ssm branch. ``backend`` picks the kernels (the
+    compressed remat's codec, the selective scan): ``"cuda"``, the
+    default on a CUDA device, or ``"ref"``."""
+    _require_ported(cfg)
+    dev = params.device
+    backend = device_mod.backend_for(dev, backend)
+    x = _embed_in(cfg, params, _on(tokens, dev))
+    if cfg.family == "ssm":
+        return _ssm_forward(cfg, params, x, collect_cache, backend)
+    positions = _on(positions, dev)
+    names = [n for n, _ in params.layers[0].named_parameters()]
+    body = _remat(cfg, _dense_body(cfg, names, positions, collect_cache),
+                  backend)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    ks, vs = [], []
+    for lp in params.layers:
+        outs = body(x, aux, *(getattr(lp, n) for n in names))
+        x, aux = outs[0], outs[1]
+        if collect_cache:
+            ks.append(outs[2])
+            vs.append(outs[3])
+    cache = (torch.stack(ks), torch.stack(vs)) if collect_cache else None
+    return x, aux, cache
+
+
+def chunked_xent(cfg: ModelConfig, params: Model, hidden: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = 512) -> torch.Tensor:
+    """Mean cross-entropy over labels >= 0, the (B, S, V) logits made
+    ``chunk`` positions at a time. The gold logit is gathered (the
+    reference's one-hot sum picks the same value exactly)."""
+    b, s, _ = hidden.shape
+    nchunk = -(-s // chunk)
+    pad = nchunk * chunk - s
+    labels = _on(labels, hidden.device)
+    hp = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+    lp = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(nchunk):
+        h = hp[:, c * chunk:(c + 1) * chunk]
+        y = lp[:, c * chunk:(c + 1) * chunk]
+        logits = _final_hidden_to_logits(cfg, params, h).to(torch.float32)
+        lse = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
+        valid = (y >= 0).to(torch.float32)
+        tot = tot + torch.sum((lse - gold) * valid)
+        cnt = cnt + torch.sum(valid)
+    return tot / torch.clamp(cnt, min=1.0)
+
+
+def loss_fn(cfg: ModelConfig, params: Model, batch, *,
+            backend: Optional[str] = None) -> torch.Tensor:
+    """The training loss: batch ``tokens`` (or embeddings), ``labels``,
+    ``positions`` (tensors or numpy arrays)."""
+    if cfg.family == "ssm":
+        raise NotImplementedError(NOT_PORTED.format(
+            what="training of the 'ssm' family (a gradient through the "
+                 "selective scan)", item=SSM_TRAINING_ITEM))
+    hidden, aux, _ = forward(cfg, params, batch["tokens"],
+                             batch["positions"], backend=backend)
+    loss = chunked_xent(cfg, params, hidden, batch["labels"])
+    return loss + 0.01 * aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill and decode
+# ---------------------------------------------------------------------------
+
+
 @torch.inference_mode()
 def prefill(cfg: ModelConfig, params: Model, tokens: torch.Tensor,
             positions: torch.Tensor, *, backend: Optional[str] = None):
-    """Full-sequence forward (ssm family); returns (last-token logits
-    (B, V), the per-layer ``MambaState`` stacks)."""
+    """Full-sequence forward; returns (last-token logits (B, V), the
+    cache parts: the dense family's ``(k, v)`` stacks of shape
+    (L, B, S, KV, hd), the ssm family's ``MambaState`` stacks)."""
     hidden, _, cache = forward(cfg, params, tokens, positions,
                                collect_cache=True, backend=backend)
     logits = _final_hidden_to_logits(cfg, params, hidden[:, -1:])[:, 0]
@@ -397,9 +546,9 @@ def decode_step(
     versions). Returns (logits (B, V), the cache with ``length + 1``)."""
     _require_ported(cfg)
     dev = params.device
-    backend = _backend(dev, backend)
-    token = torch.as_tensor(token, device=dev)
-    positions = torch.as_tensor(positions, device=dev)
+    backend = device_mod.backend_for(dev, backend)
+    token = _on(token, dev)
+    positions = _on(positions, dev)
     x = _embed_in(cfg, params, token)
     if cfg.family == "ssm":
         for i, lp in enumerate(params.layers):

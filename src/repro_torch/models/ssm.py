@@ -12,7 +12,7 @@ The layer parameters are read as attributes (``p.in_proj``,
 ``p.conv_w``, ...) with the reference's names and layouts, and
 ``A_log`` and ``D`` are float32 whatever the model's type.
 
-Not ported yet (ROADMAP queue 1 item 14): the Mamba-2/SSD half
+Not ported yet (ROADMAP queue 1 item 18): the Mamba-2/SSD half
 (``ssd_chunked``, ``mamba2_seq``, ``chunked_linear_scan``).
 """
 

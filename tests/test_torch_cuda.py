@@ -31,6 +31,7 @@ for bit too, alone, through the float64 engines, and through the
 precision curve, whose lossless code must be exactly 0 on the card.
 """
 
+import dataclasses
 import pathlib
 
 import numpy as np
@@ -1415,3 +1416,178 @@ def test_tenant_checkpoint_restores_on_card(cuda_device, tmp_path):
                                       sched.gather("A", name))
     rest.close()
     sched.close()
+
+
+# ----------------------------------------------------------------------
+# training: quantize on the card, compressed remat, a train step
+# ----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("ndim", [1, 2, 3])
+@pytest.mark.parametrize("planes", [32, 16, 12, 8, 4])
+def test_quantize_kernels_bitwise(cuda_device, ndim, planes):
+    """``quantize(backend="cuda")`` (encode then decode kernels) is bit
+    for bit the plain codec's fused ``ref.quantize``."""
+    from repro_torch.kernels.zfp import ref as zfp_ref
+
+    for i, shape in enumerate(SHAPES[ndim]):
+        x = _normal(shape, 40 * ndim + i).to(cuda_device)
+        before = dict(zfp_kernel.launches)
+        got = zfp_ops.quantize(x, planes=planes, ndim=ndim, backend="cuda")
+        assert zfp_kernel.launches["encode"] == before["encode"] + 1
+        assert zfp_kernel.launches["decode"] == before["decode"] + 1
+        want = zfp_ref.quantize(x, planes, ndim)
+        assert got.shape == x.shape and got.device == x.device
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _no_plain_codec(monkeypatch):
+    """Make every plain codec entry raise on a CUDA tensor."""
+    from repro_torch.kernels.zfp import ref as zfp_ref
+
+    for name in ("encode_blocks", "decode_blocks", "quantize_blocks",
+                 "quantize"):
+        real = getattr(zfp_ref, name)
+
+        def guard(x, *a, _real=real, _name=name, **kw):
+            assert x.device.type != "cuda", f"plain {_name} on the card"
+            return _real(x, *a, **kw)
+
+        monkeypatch.setattr(zfp_ref, name, guard)
+
+
+def test_rate_controlled_engines_observe_through_kernels(cuda_device,
+                                                         monkeypatch):
+    """With a ``RateController`` attached, both engines' observations
+    decode the payload the encode kernel just made: no plain codec call
+    on the card, the same decisions as the plain codec on the CPU."""
+    from repro_torch.core.ratecontrol import RateController
+
+    cfg = OOCConfig(LIVE_SHAPE, 4, 2, paper_code_fields(4))
+    cpu = OOCConfig(LIVE_SHAPE, 4, 2, paper_code_fields(4), backend="ref",
+                    device="cpu")
+    want = RateController(cpu, mode="adaptive", error_budget=1e-2)
+    OutOfCoreWave(cpu, *_live_fields(), rates=want).run(8)
+    _no_plain_codec(monkeypatch)
+    zfp_kernel.reset_launches()
+    sync = OutOfCoreWave(cfg, *_live_fields(), rates=RateController(
+        cfg, mode="adaptive", error_budget=1e-2))
+    sync.run(8)
+    live = AsyncExecutor(cfg, *_live_fields(), cache_bytes=100_000,
+                         rates=RateController(cfg, mode="adaptive",
+                                              error_budget=1e-2))
+    live.run(8)
+    assert zfp_kernel.launches["encode"] > 0
+    assert zfp_kernel.launches["decode"] > 0
+    assert sync.rates.state_dict() == want.state_dict()
+    assert live.rates.state_dict() == want.state_dict()
+    live.close()
+
+
+def test_compressed_checkpoint_on_card(cuda_device, monkeypatch):
+    """The residuals are coded by the kernels at ndim 1, their payloads
+    bit for bit the plain codec's on the same leaves, and the gradients
+    equal those the plain codec's residuals give."""
+    from repro_torch.core import remat
+    from repro_torch.kernels.zfp import ref as zfp_ref
+
+    saved = []
+    real = remat.compress_tree
+
+    def record(tree, planes, **kw):
+        out = real(tree, planes, **kw)
+        saved.append((tree, out, planes))
+        return out
+
+    monkeypatch.setattr(remat, "compress_tree", record)
+    x = _normal((257, 96), 1, scale=1.0).to(cuda_device)
+    w = (_normal((96, 80), 2, scale=0.1)).to(cuda_device)
+
+    def f(x, w):
+        return torch.sum(torch.sin(torch.tanh(x @ w)) ** 2)
+
+    grads = {}
+    for backend in ("cuda", "ref"):
+        zfp_kernel.reset_launches()
+        tx, tw = x.clone().requires_grad_(), w.clone().requires_grad_()
+        out = remat.compressed_checkpoint(f, planes=12, backend=backend)(
+            tx, tw)
+        grads[backend] = torch.autograd.grad(out, (tx, tw))
+        n = 2 if backend == "cuda" else 0
+        assert zfp_kernel.f32_ndims["encode ndim1"] == n
+        assert zfp_kernel.f32_ndims["decode ndim1"] == n
+    args, res, planes = saved[0]
+    for a, r in zip(args, res):
+        pay, emax = zfp_ref.encode_blocks(
+            zfp_ref.blockify(a.detach().reshape(-1), 1), planes, 1)
+        assert torch.equal(r.comp.payload.view(torch.int32),
+                           pay.view(torch.int32))
+        assert torch.equal(r.comp.emax, emax)
+    for a, b in zip(grads["cuda"], grads["ref"]):
+        assert torch.equal(a, b)
+
+
+def test_train_step_on_card_against_plain(cuda_device):
+    """One lm-tiny step with compressed remat and 8-plane gradients on
+    the card: the kernels' step against the plain codec's from the same
+    weights, the loss bit for bit (the forward runs the same operations),
+    the gradient norm within 1e-5 relative and the weights within 1e-6
+    (a residual or gradient a few ulps apart, from the backward's
+    atomics, may flip one kept bit plane of a block)."""
+    from repro_torch.data.pipeline import PipelineConfig, SyntheticLM
+    from repro_torch.launch import steps, train
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(train.PRESETS["lm-tiny"], remat="compressed",
+                              grad_compress_planes=8)
+    batch = {k: torch.from_numpy(v.copy()).to(cuda_device) for k, v in
+             SyntheticLM(PipelineConfig(cfg.vocab_size, 4, 64)).batch_at(
+                 0).items()}
+    out = {}
+    for backend in ("cuda", "ref"):
+        zfp_kernel.reset_launches()
+        m = model.init_params(cfg, torch.Generator(
+            device=cuda_device).manual_seed(0), device=cuda_device)
+        opt = adamw.init(dict(m.named_parameters()), error_feedback=True)
+        step = steps.make_train_step(cfg, peak_lr=3e-4, warmup=0,
+                                     total_steps=2, backend=backend)
+        opt, met = step(m, opt, batch)
+        torch.cuda.synchronize()
+        out[backend] = (m, met, dict(zfp_kernel.f32_ndims))
+    km, kmet, kl = out["cuda"]
+    pm, pmet, pl = out["ref"]
+    # residuals: h and each weight of 64 values or more, a layer; the
+    # gradients: each stacked leaf of 64 values or more
+    n = sum(1 + sum(p.numel() >= 64 for p in lp.parameters())
+            for lp in km.layers)
+    sizes = dict((k, p.numel()) for k, p in km.named_parameters())
+    n += sum(sum(sizes[k] for k in names) >= 64 for names in
+             model.stacked_leaves(sizes).values())
+    assert kl["encode ndim1"] == kl["decode ndim1"] == n and not pl
+    assert torch.equal(kmet["loss"], pmet["loss"])
+    assert float(kmet["gnorm"]) == pytest.approx(float(pmet["gnorm"]),
+                                                 rel=1e-5)
+    for (name, a), (_, b) in zip(km.named_parameters(),
+                                 pm.named_parameters()):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6, msg=name)
+
+
+def test_zfp_ndim1_flat_leaf_over_2_27_values(cuda_device):
+    """The training path's launch sizes: one flat leaf of 2^27 + 5
+    values (an embedding's gradient is 233M at Qwen2-1.5B width) at ndim
+    1, encode and decode bit for bit the plain codec."""
+    from repro_torch.kernels.zfp import ref as zfp_ref
+
+    n = (1 << 27) + 5
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    x = torch.randn(n, generator=gen, device=cuda_device) * 3e-3
+    for planes in (8, 12):
+        payload, emax = zfp_kernel.encode(x, planes, 1)
+        rp, re = zfp_ref.encode_blocks(zfp_ref.blockify(x, 1), planes, 1)
+        assert torch.equal(payload.view(torch.int32), rp.view(torch.int32))
+        assert torch.equal(emax, re)
+        del rp, re
+        y = zfp_kernel.decode(payload, emax, (n,), planes, 1)
+        assert torch.equal(y, zfp_ref.quantize(x, planes, 1))
+        del payload, emax, y
+        torch.cuda.empty_cache()

@@ -1,10 +1,12 @@
-"""The port's decode layers against ``repro.models.layers`` in float32,
-on the same numpy inputs.
+"""The port's layers against ``repro.models.layers`` in float32, on the
+same numpy inputs.
 
 Tolerances: elementwise float32 code (norms, RoPE) is held to 2e-6
 relative (XLA and PyTorch may differ by an ulp in rsqrt, sin and cos);
 code with sums (attention, GLU) to 1e-5 (the order of the float32 sums
-differs).
+differs); blocked attention (ragged S = 37 over chunks of 8) to rtol =
+atol = 2e-5 against the reference and against a float64 softmax over the
+whole score matrix, its gradients to rtol 1e-4 / atol 1e-5.
 """
 
 import jax.numpy as jnp
@@ -107,3 +109,82 @@ def test_bfloat16_promotions_match():
     np.testing.assert_allclose(t.float().numpy(),
                                np.asarray(j.astype(jnp.float32)),
                                rtol=2 ** -7, atol=2 ** -7)
+
+
+# ----------------------------------------------------------------------
+# blocked attention (training / prefill)
+# ----------------------------------------------------------------------
+
+ATT_S, ATT_CHUNK = 37, 8  # ragged: the last chunk holds 5 keys
+ATT_TOL = dict(rtol=2e-5, atol=2e-5)
+
+
+def _naive_attention(q, k, v, causal):
+    """Softmax attention in float64, the whole score matrix at once."""
+    b, s, h, d = q.shape
+    g = h // k.shape[2]
+    k, v = np.repeat(k, g, axis=2), np.repeat(v, g, axis=2)
+    logits = np.einsum("bshd,bthd->bhst", q, k) / np.sqrt(d)
+    if causal:
+        logits = np.where(np.tril(np.ones((s, s), bool)), logits, -np.inf)
+    p = np.exp(logits - logits.max(-1, keepdims=True))
+    p /= p.sum(-1, keepdims=True)
+    return np.einsum("bhst,bthd->bshd", p, v)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_blocked_attention_matches_reference_and_naive(causal):
+    rng = _rng(6)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for shape in
+               ((B, ATT_S, H, D), (B, ATT_S, KVH, D), (B, ATT_S, KVH, D)))
+    out_j = JL.blocked_attention(jnp.asarray(q), jnp.asarray(k),
+                                 jnp.asarray(v), kv_chunk=ATT_CHUNK,
+                                 causal=causal)
+    out_t = TL.blocked_attention(torch.from_numpy(q), torch.from_numpy(k),
+                                 torch.from_numpy(v), kv_chunk=ATT_CHUNK,
+                                 causal=causal)
+    assert out_t.shape == (B, ATT_S, H, D) and out_t.dtype == torch.float32
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **ATT_TOL)
+    np.testing.assert_allclose(
+        out_t.numpy(),
+        _naive_attention(*(a.astype(np.float64) for a in (q, k, v)), causal),
+        **ATT_TOL)
+
+
+def test_blocked_attention_gradient_matches_reference():
+    """The online softmax is differentiable with its guards: gradients of
+    a causal ragged case against ``jax.grad`` of the reference."""
+    import jax
+
+    rng = _rng(7)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for shape in
+               ((B, ATT_S, H, D), (B, ATT_S, KVH, D), (B, ATT_S, KVH, D)))
+    w = rng.standard_normal((B, ATT_S, H, D)).astype(np.float32)
+    jg = jax.grad(lambda a, b, c: jnp.sum(JL.blocked_attention(
+        a, b, c, kv_chunk=ATT_CHUNK) * w), argnums=(0, 1, 2))(
+        *(jnp.asarray(a) for a in (q, k, v)))
+    tq, tk, tv = (torch.from_numpy(a).requires_grad_() for a in (q, k, v))
+    out = TL.blocked_attention(tq, tk, tv, kv_chunk=ATT_CHUNK)
+    tg = torch.autograd.grad((out * torch.from_numpy(w)).sum(), (tq, tk, tv))
+    for t, j in zip(tg, jg):
+        assert bool(torch.isfinite(t).all())
+        np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=1e-4,
+                                   atol=1e-5)
+
+
+def test_blocked_attention_bfloat16_upcasts_products():
+    """bf16 operands: scores and the weighted sum accumulate in float32
+    (the reference's ``preferred_element_type``), within two bf16 ulps of
+    the reference after the caller's cast back to bf16."""
+    rng = _rng(8)
+    q, k, v = (rng.standard_normal(shape).astype(np.float32) for shape in
+               ((B, ATT_S, H, D), (B, ATT_S, KVH, D), (B, ATT_S, KVH, D)))
+    out_j = JL.blocked_attention(*(jnp.asarray(a, jnp.bfloat16)
+                                   for a in (q, k, v)), kv_chunk=ATT_CHUNK)
+    out_t = TL.blocked_attention(*(torch.from_numpy(a).to(torch.bfloat16)
+                                   for a in (q, k, v)), kv_chunk=ATT_CHUNK)
+    assert out_t.dtype == torch.float32
+    np.testing.assert_allclose(
+        out_t.to(torch.bfloat16).float().numpy(),
+        np.asarray(out_j.astype(jnp.bfloat16).astype(jnp.float32)),
+        rtol=2 ** -6, atol=2 ** -6)

@@ -16,6 +16,14 @@ over the raw cache, the ``conv`` and ``h`` states within rtol 1e-4 /
 atol 1e-5 (the selective scan's bound); the port's decode against its
 own prefill within rtol = atol = 2e-3, the bound of
 ``tests/test_models_smoke.py::test_decode_matches_prefill``.
+
+The dense full-sequence path (smoke configs, S = 37, ragged against the
+32-token attention chunk): hidden states, prefill logits and the stacked
+K/V within rtol = atol = 1e-4 as over the raw cache; ``loss_fn`` within
+1e-5 relative, and its gradients under remat none, full and dots within
+rtol 1e-4 / atol 1e-5, leaf by leaf in the reference's stacked layout
+(float32 sums in another order, through blocked attention's online
+softmax and its backward).
 """
 
 import dataclasses
@@ -271,8 +279,124 @@ def test_ssm_a_log_and_d_stay_float32_under_bfloat16():
 
 
 def test_dense_forward_is_not_ported():
+    """The dense full-sequence forward is ported now (blocked attention,
+    below); what is not: training the ssm family (a gradient through
+    the scan) and every other family, each naming its ROADMAP item."""
     cfg = smoke(get_config("qwen2-1.5b"))
     params = TM.init_params(cfg, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="blocked_attention"):
-        TM.prefill(cfg, params, toks, toks)
+    logits, (k, v) = TM.prefill(cfg, params, toks, toks)
+    assert logits.shape == (1, cfg.vocab_size) and k.shape == v.shape
+    scfg = smoke(get_config("falcon-mamba-7b"))
+    sparams = TM.init_params(scfg, device="cpu")
+    batch = {"tokens": toks, "labels": toks, "positions": toks}
+    with pytest.raises(NotImplementedError, match="item 19"):
+        TM.loss_fn(scfg, sparams, batch)
+    with pytest.raises(NotImplementedError, match="item 17"):
+        TM.init_params(smoke(get_config("qwen3-moe-235b-a22b")),
+                       device="cpu")
+
+
+# ----------------------------------------------------------------------
+# the dense full-sequence forward, prefill and loss (training)
+# ----------------------------------------------------------------------
+
+SEQ = 37  # ragged against the smoke config's 32-token attention chunk
+FWD_TOL = dict(rtol=1e-4, atol=1e-4)
+LOSS_RTOL = 1e-5
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _dense_setup(arch, seed, remat="none"):
+    jcfg, tcfg = (dataclasses.replace(c, remat=remat)
+                  for c in _cfgs(arch, 0))
+    jp, tp = _params(jcfg, tcfg, seed)
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, tcfg.vocab_size, size=(B, SEQ)).astype(np.int32)
+    labels = rng.integers(0, tcfg.vocab_size, size=(B, SEQ)).astype(np.int32)
+    labels[0, -5:] = -1  # masked positions
+    pos = np.tile(np.arange(SEQ, dtype=np.int32), (B, 1))
+    batch = {"tokens": toks, "labels": labels, "positions": pos}
+    return jcfg, tcfg, jp, tp, batch
+
+
+def _ref_layout(model, tensors):
+    """Port gradients (in ``named_parameters`` order) as the reference's
+    tree."""
+    return convert._to_reference_tree(
+        dict(zip((n for n, _ in model.named_parameters()), tensors)))
+
+
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "command-r-35b"])
+def test_dense_forward_and_prefill_match_reference(arch):
+    jcfg, tcfg, jp, tp, batch = _dense_setup(arch, seed=11)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jh, jaux, jkv = JM.forward(jcfg, jp, jb["tokens"], jb["positions"],
+                               collect_cache=True)
+    th, taux, tkv = TM.forward(tcfg, tp, batch["tokens"],
+                               batch["positions"], collect_cache=True)
+    np.testing.assert_allclose(th.detach().numpy(), np.asarray(jh),
+                               **FWD_TOL)
+    assert float(taux) == float(jaux) == 0.0
+    for t, j in zip(tkv, jkv):
+        assert t.shape == j.shape == (tcfg.num_layers, B, SEQ,
+                                      tcfg.num_kv_heads, tcfg.head_dim)
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
+                                   **FWD_TOL)
+    jl, (jk, jv) = JM.prefill(jcfg, jp, jb["tokens"], jb["positions"])
+    tl, (tk, tv) = TM.prefill(tcfg, tp, batch["tokens"], batch["positions"])
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **FWD_TOL)
+    np.testing.assert_allclose(tk.numpy(), np.asarray(jk), **FWD_TOL)
+    np.testing.assert_allclose(tv.numpy(), np.asarray(jv), **FWD_TOL)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots"])
+@pytest.mark.parametrize("arch", ["qwen2-1.5b", "command-r-35b"])
+def test_dense_loss_and_gradients_match_reference(arch, remat):
+    jcfg, tcfg, jp, tp, batch = _dense_setup(arch, seed=12, remat=remat)
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, p, batch)))(jp)
+    tp.requires_grad_(True)
+    tl = TM.loss_fn(tcfg, tp, batch)
+    tg = torch.autograd.grad(tl, list(tp.parameters()))
+    assert float(tl.detach()) == pytest.approx(float(jl), rel=LOSS_RTOL)
+    got = _ref_layout(tp, tg)
+    want = jax.tree.map(np.asarray, jg)
+    assert set(got) == set(want) and set(got["layers"]) == set(
+        want["layers"])
+    for key in want:
+        pairs = want[key].items() if key == "layers" else [(key, want[key])]
+        for name, w in pairs:
+            g = got["layers"][name] if key == "layers" else got[name]
+            np.testing.assert_allclose(g, w, err_msg=name, **GRAD_TOL)
+
+
+def test_dense_remat_policies_agree_in_the_port():
+    """none, full and dots recompute the same operations: the same loss
+    and gradients, bit for bit, on the CPU."""
+    out = {}
+    for remat in ("none", "full", "dots"):
+        _, tcfg, _, tp, batch = _dense_setup("qwen2-1.5b", 13, remat)
+        tp.requires_grad_(True)
+        loss = TM.loss_fn(tcfg, tp, batch)
+        out[remat] = (loss, torch.autograd.grad(loss, list(tp.parameters())))
+    for remat in ("full", "dots"):
+        assert torch.equal(out[remat][0], out["none"][0])
+        for a, b in zip(out[remat][1], out["none"][1]):
+            assert torch.equal(a, b)
+
+
+def test_chunked_xent_masks_and_pads():
+    """Chunks of 16 over 37 positions (the last padded with label -1)
+    give the one-shot mean over unmasked positions."""
+    _, tcfg, _, tp, batch = _dense_setup("qwen2-1.5b", 14)
+    h = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (B, SEQ, tcfg.d_model)).astype(np.float32))
+    labels = torch.from_numpy(batch["labels"])
+    got = TM.chunked_xent(tcfg, tp, h, labels, chunk=16)
+    logits = TM._final_hidden_to_logits(tcfg, tp, h).double()
+    nll = torch.logsumexp(logits, -1) - logits.gather(
+        -1, labels.clamp(min=0).long()[..., None])[..., 0]
+    valid = labels >= 0
+    want = float(nll[valid].mean())
+    assert float(got) == pytest.approx(want, rel=1e-6)
