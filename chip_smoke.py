@@ -187,22 +187,52 @@ non-zero:
    (profiler), its ``ptxas`` line, and the bound (bytes, float32
    operations, and exponentials at the SFU rate). No single PyTorch call
    computes this function;
-9. the SSM slice at full width: falcon-mamba-7b in bfloat16, random
+9. the SSM slice at full width: falcon-mamba-7b in bfloat16, depth cut
+   to 16 of its 64 layers, random
    weights from a seeded generator on the card, 8 requests in 8 slots
    (128-token prompts, 32 new tokens, greedy) through ``ServeEngine``;
-   wall time, tokens/s, max |logits| and the sscan launches (64 a step).
+   wall time, tokens/s, max |logits| and the sscan launches (one a layer
+   a step).
    Then ``prefill`` (``backend="cuda"``) on the same prompts, with every
    layer's scan held to its plain version on the inputs the prefill gave
    it (rtol 1e-4 / atol 1e-5), and against the decode-fed engine's
    states after the prompt (printed). In bfloat16 the streams are
    replayed, teacher-forced, through the plain versions
    (``backend="ref"``) on the card, and the prefill likewise (printed:
-   over 64 random bf16 layers the two drift apart by bf16 rounding as
+   over random bf16 layers the two drift apart by bf16 rounding as
    far as the prefill and the decode-fed engine do); the device time by
    kernel over 32 decode steps from ``torch.profiler``. Last, the same
    weights in float32: the replay and the prefill through the kernel
    against the plain versions, logits within 5e-2 of their largest,
    every layer's ``h`` within the kernel's tolerance;
+9m. moe, the MoE family at full width (the launch counts zeroed first,
+   path ``moe_serving``): Qwen3-MoE in bfloat16 (d 4096, 128 experts of
+   1536, top-8, capacity factor 1.25), depth cut to 4 of its 94 layers,
+   the compressed KV cache at 16 planes, random weights from a seeded
+   generator on the card (the earlier phases' memory freed first): (a) 8
+   requests in 8 slots in lockstep (128-token prompts, 64 new tokens,
+   greedy, ``max_len`` 256) through ``ServeEngine`` with the kernels:
+   wall, tokens/s, cache bytes, the encode and cdecode launches, and on
+   the engine's cache cdecode within 2e-5 of its plain version and the
+   flush encode bit for bit, as phase 7; (b) the streams replayed,
+   teacher-forced, through the plain versions on the card: per step and
+   layer whether the two engines routed each token to the same experts,
+   every flip with its score gap (8th against 9th) in each engine and
+   the token's largest score difference between them (a flip whose gap
+   that difference cannot explain fails the phase; printed: whether the
+   flip is clean, no earlier layer of its slot having flipped, and
+   within bf16 rounding of the scores, and each layer's score
+   differences), and the logits within 5e-2 of their largest on every
+   step whose routings all agree; (c) ``moe_ffn`` in float32 on
+   layer 0's weights against a float64 oracle (the kept set by a host
+   loop over the port's own routing) on the last decode step's 8 tokens
+   (no drop) and on the prefill's 1,024 (capacity 80, assignments
+   dropped): the kept set exactly, ``y`` within 1e-4 of its largest, two
+   calls bit for bit (and two bf16 calls on the prefill's tokens); (d)
+   ``prefill`` on the same prompts against the decode-fed engine after
+   the prompt (printed); (e) the device time by kernel over 32 steady
+   decode steps, the idle share and the expert ``bmm``s' share
+   (``torch.profiler`` with input shapes), and the peak allocation;
 10. train, the trainer (the launch counts zeroed first, path ``train``):
    (a) ``launch.train.main`` at the lm-100m preset, 20 steps, gradients
    at 8 planes with error feedback, a checkpoint every 10 under
@@ -234,7 +264,8 @@ non-zero:
    tenants of phase 5t, the
    float64 paper sweep, live run
    and precision tier of phases 5f, 5bf and 5p, the serving slice of
-   phase 7, the SSM slice of phase 9 and the trainer of phase 10, each
+   phase 7, the SSM slice of phase 9, the MoE slice of phase 9m and the
+   trainer of phase 10, each
    counted from zero), its error and times; the float32 codec's rows
    give their launches by ndim, one row for the unit (every path but
    train) and one for the training gradient leaf (path train).
@@ -257,6 +288,7 @@ import subprocess
 import sys
 import threading
 import time
+import types
 from pathlib import Path
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
@@ -292,6 +324,7 @@ from repro_torch.kernels.sscan import ops as sscan_ops  # noqa: E402
 from repro_torch.kernels.sscan import ref as sscan_ref  # noqa: E402
 from repro_torch.models import kvcache  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models.layers import scale_in  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.kernels.stencil import kernel as stencil_kernel  # noqa: E402
@@ -342,6 +375,8 @@ SERVE_SLOTS, PROMPT, MAX_NEW, SERVE_MAX_LEN = 8, 256, 64, 1024
 SERVE_TOL = 5e-2  # tests/test_kvcache.py's bound against the raw cache
 # phases 8-9: the SSM slice
 SSM_ARCH = "falcon-mamba-7b"
+# depth cut to 16 of its 64 layers (full width) to pay for phase moe
+SSM_LAYERS = 16
 SSM_SLOTS, SSM_PROMPT, SSM_NEW = 8, 128, 32
 SSM_MAX_LEN = SSM_PROMPT + SSM_NEW
 SSCAN_SHAPES = ((8, 1, 8192, 16), (8, 128, 8192, 16), (8, 4096, 8192, 16),
@@ -349,6 +384,13 @@ SSCAN_SHAPES = ((8, 1, 8192, 16), (8, 128, 8192, 16), (8, 4096, 8192, 16),
 SSCAN_TOL = dict(rtol=1e-4, atol=1e-5)  # tests/test_sscan_kernel.py's bound
 SSCAN_CHUNK = 64  # the plain version's chunk (the configs' ssm_chunk)
 SSM_WINDOW = (16, 32)  # profiled decode steps: warm-up, then the window
+# phase moe: Qwen3-MoE at full width, its depth cut to 4 of 94 layers (as the
+# Qwen2 slice's 4 of 28): 11.2B parameters, 22.4 GB in bf16
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 4
+MOE_SLOTS, MOE_PROMPT, MOE_NEW, MOE_MAX_LEN = 8, 128, 64, 256
+MOE_WINDOW = (64, 32)  # profiled decode steps: warm-up, then the window
+MOE_ORACLE_TOL = 1e-4  # max |y - oracle| / max |oracle|, float32 moe_ffn
+BF16_SCORE_ROUNDING = 2.0 ** -8  # a router score's relative bf16 rounding
 # the float64 phases: the paper's own type and rates (32/64, 24/64)
 F64_PLANES = (24, 32)
 F64_RAGGED = (50, 1150, 1149)
@@ -2627,25 +2669,41 @@ def last_attention_inputs(layers):
         cdecode_ops.fused_compressed_decode_attention = inner
 
 
-def serve_kernels_on_cache(cfg, eng, seen):
-    """The serving path's kernels against their plain versions at the
-    shapes it gives them, on the engine's own cache after the run:
-    cdecode on every layer's compressed history with that layer's q of
-    the last step (within CD_TOL), and the chunk-flush encode of every
-    layer's K and V tail window (bit for bit). ``ms`` times the launch
-    as the path makes it (unmerged splits), ``merged_ms`` with the
-    splits merged (the reference's contract). Not counted as launches
-    of the path: the counts were read before."""
+def cache_kernel_checks(cfg, eng, seen):
+    """On a compressed-cache engine's own cache after its run: cdecode
+    against its plain version on every layer's compressed history with
+    that layer's q of the last step (within CD_TOL), and the chunk-flush
+    encode of every layer's K and V tail window against the plain codec
+    (bit for bit). Returns (cdecode within tol, its max |d|, encodes
+    bitwise)."""
     check(len(seen) == cfg.num_layers, f"recorded {len(seen)} layers")
+    planes = cfg.kv_compress_planes
     ok, err = True, 0.0
     for q, ckv in seen:
         args, kw = cdecode_ops.history_inputs(q, ckv)
-        kw["planes"] = SERVE_PLANES
+        kw["planes"] = planes
         got = cdecode_kernel.fused_cdecode_attention(*args, **kw)
         want = cdecode_ref.fused_cdecode_attention_ref(*args, **kw)
         ok &= all(bool(torch.allclose(g, w, rtol=CD_TOL, atol=CD_TOL))
                   for g, w in zip(got, want))
         err = max(err, max(max_abs(g, w) for g, w in zip(got, want)))
+    same = True
+    for i in range(cfg.num_layers):
+        for tail in (eng.cache.tail_k[i], eng.cache.tail_v[i]):
+            a = kvcache._encode_chunk(tail, planes, "cuda")
+            b = kvcache._encode_chunk(tail, planes, "ref")
+            same &= same_bits(a[0], b[0]) and same_bits(a[1], b[1])
+    return ok, err, same
+
+
+def serve_kernels_on_cache(cfg, eng, seen):
+    """The serving path's kernels against their plain versions at the
+    shapes it gives them, on the engine's own cache after the run
+    (``cache_kernel_checks``). ``ms`` times the launch as the path makes
+    it (unmerged splits), ``merged_ms`` with the splits merged (the
+    reference's contract). Not counted as launches of the path: the
+    counts were read before."""
+    ok, err, same = cache_kernel_checks(cfg, eng, seen)
     args, kw = cdecode_ops.history_inputs(*seen[0])
     kw["planes"] = SERVE_PLANES
     nbytes, bound = cdecode_bound(args)
@@ -2663,12 +2721,6 @@ def serve_kernels_on_cache(cfg, eng, seen):
                  SERVE_PLANES, 2), (rows, kvcache.CHUNK, cfg.head_dim), 2)
              for p, e in ((args[0], args[1]), (args[2], args[3]))]
     tiles_ok = all(same_bits(a, b) for a, b in zip(tiles, codec))
-    same = True
-    for i in range(cfg.num_layers):
-        for tail in (eng.cache.tail_k[i], eng.cache.tail_v[i]):
-            a = kvcache._encode_chunk(tail, SERVE_PLANES, "cuda")
-            b = kvcache._encode_chunk(tail, SERVE_PLANES, "ref")
-            same &= same_bits(a[0], b[0]) and same_bits(a[1], b[1])
     # the chunk-flush encode as the path launches it: one (B, KVH, CHUNK,
     # D) window, 2-D blocks
     xt = eng.cache.tail_k[0].movedim(2, 1).float().contiguous()
@@ -2780,12 +2832,14 @@ def serve_profile(cfg, params, prompts):
     profile_window(eng, kvcache.CHUNK, kvcache.CHUNK, "serve_profile")
 
 
-def profile_window(eng, warm, steps, label):
+def profile_window(eng, warm, steps, label, extra=None):
     """Device time by kernel over ``steps`` decode steps after ``warm``
     steps, from ``torch.profiler`` (CUPTI), against the wall time of the
     same steps run first without the profiler on the same engine, whose
     cache and positions are then restored. Every slot must still be
-    reading its prompt at the window's end."""
+    reading its prompt at the window's end. ``extra(prof, busy_us)``,
+    when given, profiles with input shapes and adds its dict to the
+    row."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warm):
@@ -2805,17 +2859,19 @@ def profile_window(eng, warm, steps, label):
 
     step_s = window()
     eng.pos, eng.cache = pos, snap
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=extra is not None) as prof:
         profiled_s = window()
     check(all(r is not None and not r.out for r in eng.active.values()),
           "a request left its prompt inside the profiled window")
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     check(bool(device), "the profiler saw no device time")
-    busy_step = sum(e.self_device_time_total for e in device) / 1e6 / steps
+    busy_us = sum(e.self_device_time_total for e in device)
+    busy_step = busy_us / 1e6 / steps
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
     emit({"phase": label, "steps": steps, "first_position": warm,
+          **(extra(prof, busy_us) if extra is not None else {}),
           "device_busy_per_step_s": busy_step,
           "unprofiled_wall_per_step_s": step_s,
           "profiled_wall_per_step_s": profiled_s,
@@ -3010,7 +3066,8 @@ def prefill_vs_ref(cfg, params, toks, pos, k_logits, k_states):
 
 
 def ssm_slice():
-    cfg = get_config(SSM_ARCH)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(SSM_ARCH), num_layers=SSM_LAYERS)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     params = lm.init_params(cfg, gen, device="cuda")
     rng = np.random.default_rng(SEED + 1)
@@ -3074,7 +3131,7 @@ def ssm_slice():
     del fed
     torch.cuda.empty_cache()
 
-    # the plain versions on the card, bf16: printed. Over 64 random bf16
+    # the plain versions on the card, bf16: printed. Over random bf16
     # layers the two sides drift apart by bf16 rounding as far as the
     # prefill and the decode-fed engine (both through the kernel) do.
     forced = [p + o[:-1] for p, o in zip(prompts, outs)]
@@ -3124,6 +3181,337 @@ def ssm_slice():
           f"{info32['h_within_tol_layers']} of {cfg.num_layers} layers")
     del params, k_states
     torch.cuda.empty_cache()
+    emit({"phase": "ssm_seconds", "layers": cfg.num_layers,
+          "seconds": time.perf_counter() - t0})
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase moe: the MoE family at full width (Qwen3-MoE, compressed KV cache)
+# ----------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def routing_log():
+    """Keep every routing of the duration: per ``moe.route`` call (one a
+    layer a decode step) its top-k experts (T, k) and its scores (T, E),
+    by wrapping ``moe.top_k`` (the routing is the one the path makes)."""
+    log = []
+    inner = moe_mod.top_k
+
+    def record(scores, k):
+        vals, idx = inner(scores, k)
+        log.append((idx, scores))
+        return vals, idx
+
+    moe_mod.top_k = record
+    try:
+        yield log
+    finally:
+        moe_mod.top_k = inner
+
+
+@contextlib.contextmanager
+def ffn_inputs(calls):
+    """Keep the input ``x`` of the last ``calls`` calls of
+    ``moe.moe_ffn`` for the duration."""
+    seen = collections.deque(maxlen=calls)
+    inner = moe_mod.moe_ffn
+
+    def record(x, *args, **kw):
+        seen.append(x)
+        return inner(x, *args, **kw)
+
+    moe_mod.moe_ffn = record
+    try:
+        yield seen
+    finally:
+        moe_mod.moe_ffn = inner
+
+
+def routing_flips(cfg, kernel_log, plain_log):
+    """The two engines' routings compared by (step, layer, slot): whether
+    each token went to the same experts, and every flip with its score
+    gap (k-th against (k+1)-th) in each engine and the token's largest
+    score difference between the engines, all relative to the k-th
+    score. A top-k that is right can flip a choice only where both gaps
+    are within twice that difference (``flip_explained``): a flip past
+    it is a fault. A flip is clean when no earlier layer of its slot
+    flipped at this step or before (through the KV cache); printed, with
+    whether its gaps are within bf16 rounding of the scores. Returns
+    (agree (steps, layers, slots), flips, faults, by-layer summary)."""
+    k, nl = cfg.experts_per_token, cfg.num_layers
+    check(len(kernel_log) == len(plain_log) and len(kernel_log) % nl == 0,
+          f"routings logged: {len(kernel_log)} and {len(plain_log)}")
+    steps = len(kernel_log) // nl
+    shape = (steps, nl, -1)
+    sets = [torch.stack([i for i, _ in log]).sort(-1).values.cpu()
+            for log in (kernel_log, plain_log)]
+    agree = (sets[0] == sets[1]).all(-1).reshape(shape)
+    scores = [torch.stack([s for _, s in log]).double().cpu()
+              for log in (kernel_log, plain_log)]
+    diff = (scores[0] - scores[1]).abs().amax(-1).reshape(shape)
+    gaps, kth = [], None
+    for sc in scores:
+        v = sc.topk(k + 1, dim=-1).values
+        gaps.append((v[..., k - 1] - v[..., k]).reshape(shape))
+        kth = v[..., k - 1].reshape(shape) if kth is None else kth
+    del scores
+    flipped = ~agree
+    upto = flipped.cumsum(0) > 0  # a flip at this step or before
+    dirty = torch.zeros_like(flipped)
+    for layer in range(1, nl):
+        dirty[:, layer] = upto[:, :layer].any(1)
+    flips = []
+    for t, layer, b in torch.nonzero(flipped).tolist():
+        at, ref = (t, layer, b), float(kth[t, layer, b])
+        g = [float(gaps[0][at]), float(gaps[1][at])]
+        flips.append({"step": t, "layer": layer, "slot": b,
+                      "gap_kernel": g[0] / ref, "gap_plain": g[1] / ref,
+                      "score_diff": float(diff[at]) / ref,
+                      "flip_explained": max(g) <= 2 * float(diff[at]),
+                      "within_bf16": max(g) / ref <= BF16_SCORE_ROUNDING,
+                      "clean": not bool(dirty[at])})
+    faults = [f for f in flips if not f["flip_explained"]]
+    rel_diff = diff / kth
+    by_layer = [{"layer": layer,
+                 "flips": int(flipped[:, layer].sum()),
+                 "clean_flips": int((flipped & ~dirty)[:, layer].sum()),
+                 "score_diff_max": float(rel_diff[:, layer].max()),
+                 "score_diff_median": float(rel_diff[:, layer].median())}
+                for layer in range(nl)]
+    return agree, flips, faults, by_layer
+
+
+def moe_oracle(x, top_w, top_i, lp, capacity):
+    """Σ over kept assignments of weight · the expert's GLU of the
+    token, in float64, independent of ``moe.dispatch``: the kept set by a
+    host loop (each expert's first ``capacity`` assignments in flat
+    (t, k) order), one expert at a time. Returns (y, kept (T, k))."""
+    t, k = top_i.shape
+    ids = top_i.reshape(-1).tolist()
+    seen = collections.Counter()
+    kept, by_expert = [], collections.defaultdict(list)
+    for n, ex in enumerate(ids):
+        kept.append(seen[ex] < capacity)
+        seen[ex] += 1
+        if kept[-1]:
+            by_expert[ex].append(n)
+    x64, w64 = x.double(), top_w.double()
+    y = torch.zeros(x.shape, dtype=F64, device=x.device)
+    for ex, ns in by_expert.items():
+        n = torch.tensor(ns, device=x.device)
+        tok, j = n // k, n % k  # a token picks an expert once
+        xe = x64[tok]
+        h = torch.nn.functional.silu(xe @ lp.wg_e[ex].double()) * (
+            xe @ lp.wu_e[ex].double())
+        y.index_add_(0, tok, (h @ lp.wd_e[ex].double()) * w64[tok, j][:, None])
+    return y, torch.tensor(kept).reshape(t, k)
+
+
+def moe_ffn_case(cfg, lp, x, label):
+    """``moe_ffn`` in float32 on layer 0's weights against ``moe_oracle``
+    on the port's own routing: the kept set exactly, ``y`` within
+    MOE_ORACLE_TOL of max |y|, and two calls bit for bit."""
+    t, k, e = x.shape[0], cfg.experts_per_token, cfg.num_experts
+    cap = moe_mod._capacity(t, k, e, cfg.capacity_factor)
+    kw = dict(k=k, capacity_factor=cfg.capacity_factor)
+    args = (x[None], lp.router, lp.wg_e, lp.wu_e, lp.wd_e)
+    with torch.inference_mode():
+        y, _ = moe_mod.moe_ffn(*args, **kw)
+        y2, _ = moe_mod.moe_ffn(*args, **kw)
+        top_w, top_i, _ = moe_mod.route(x, lp.router, k)
+        keep = moe_mod.dispatch(top_i, e, cap).keep.reshape(t, k).cpu()
+        want, want_keep = moe_oracle(x, top_w, top_i, lp, cap)
+    row = {"case": label, "tokens": t, "assignments": t * k,
+           "capacity": cap, "dropped": int((~keep).sum()),
+           "oracle_dropped": int((~want_keep).sum()),
+           "kept_set_equal": bool(torch.equal(keep, want_keep)),
+           "rel_err": float((y[0].double() - want).abs().max()
+                            / want.abs().max()),
+           "tol": MOE_ORACLE_TOL, "bitwise_twice": same_bits(y, y2)}
+    check(row["kept_set_equal"], f"moe {label}: kept set differs from the "
+                                 f"oracle's")
+    check(row["rel_err"] < MOE_ORACLE_TOL,
+          f"moe {label}: y off the float64 oracle by {row['rel_err']}")
+    check(row["bitwise_twice"], f"moe {label}: two calls differ")
+    return row
+
+
+def expert_bmm_share(cfg):
+    """A ``profile_window`` reader: the device time of the experts'
+    products (``aten::bmm`` over the (E, C, d) buffer, by input shape)
+    and its share of the window's device time."""
+    def read(prof, busy_us):
+        rows = [e for e in prof.key_averages(group_by_input_shape=True)
+                if e.key == "aten::bmm" and e.input_shapes
+                and e.input_shapes[0][:1] == [cfg.num_experts]]
+        check(bool(rows), "moe: the profiler saw no expert product")
+        dev = sum(e.device_time_total for e in rows)
+        return {"expert_bmm_device_ms": dev / 1e3,
+                "expert_bmm_calls": sum(e.count for e in rows),
+                "expert_bmm_share": dev / busy_us,
+                "expert_bmm_shapes": [e.input_shapes for e in rows]}
+    return read
+
+
+def moe_slice():
+    """Phase moe: Qwen3-MoE at full width, bf16, MOE_LAYERS of its 94
+    layers, the compressed KV cache at 16 planes: (a) served through the
+    kernels, (b) replayed through the plain versions with the routings
+    compared, (c) ``moe_ffn`` against the float64 oracle, (d) prefill,
+    (e) the device time by kernel. Returns the launches of (a)."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(MOE_ARCH), num_layers=MOE_LAYERS,
+                              kv_compress_planes=SERVE_PLANES)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+    params = lm.init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(SEED + 7)
+    prompts = rng.integers(1, cfg.vocab_size,
+                           size=(MOE_SLOTS, MOE_PROMPT)).tolist()
+    serve_kw = dict(slots=MOE_SLOTS, max_len=MOE_MAX_LEN)
+
+    # (a) the path, counted from zero
+    reset_counts()
+    cdecode_kernel.reset_launches()
+    with last_attention_inputs(cfg.num_layers) as seen, \
+            routing_log() as kernel_routes, \
+            ffn_inputs(cfg.num_layers) as decode_x:
+        outs, logits, wall, eng = serve(cfg, params, prompts, MOE_NEW,
+                                        "cuda", **serve_kw)
+    counts = {"zfp_encode": zfp_kernel.launches["encode"],
+              "zfp_decode": zfp_kernel.launches["decode"],
+              **{f"zfp_{k}": v for k, v in zfp_kernel.f32_ndims.items()},
+              "cdecode": cdecode_kernel.launches["cdecode"]}
+    steps = MOE_PROMPT + MOE_NEW - 1
+    check(all(len(o) == MOE_NEW for o in outs), "moe: a request fell short")
+    check(bool(torch.isfinite(logits).all()), "moe: non-finite logits")
+    check(tuple(logits.shape) == (steps, MOE_SLOTS, cfg.vocab_size),
+          f"moe: logits {tuple(logits.shape)}")
+    check(counts["zfp_encode"] > 0 and counts["cdecode"] > 0,
+          f"the moe serving path missed a kernel: {counts}")
+    ok, err, same = cache_kernel_checks(cfg, eng, seen)
+    raw_bytes = (2 * cfg.num_layers * MOE_SLOTS * MOE_MAX_LEN
+                 * cfg.num_kv_heads * cfg.head_dim
+                 * torch.finfo(lm.dtype_of(cfg)).bits // 8)
+    comp_bytes = kvcache.compressed_bytes(eng.cache)
+    gen_tokens = sum(len(o) for o in outs)
+    emit({"phase": "moe_serve_cuda", "arch": MOE_ARCH, "dtype": cfg.dtype,
+          "card": device_mod.card_line(), "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "experts": cfg.num_experts,
+          "top_k": cfg.experts_per_token, "d_ff": cfg.d_ff,
+          "kv_planes": cfg.kv_compress_planes, "slots": MOE_SLOTS,
+          "prompt": MOE_PROMPT, "max_new": MOE_NEW, "max_len": MOE_MAX_LEN,
+          "steps": steps, "wall_s": wall, "new_tokens": gen_tokens,
+          "new_tokens_per_s": gen_tokens / wall,
+          "fed_tokens_per_s": MOE_SLOTS * steps / wall,
+          "params": sum(p.numel() for p in params.parameters()),
+          "params_bytes": sum(p.numel() * p.element_size()
+                              for p in params.parameters()),
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated(),
+          "compressed_cache_bytes": comp_bytes, "raw_cache_bytes": raw_bytes,
+          "raw_over_compressed": raw_bytes / comp_bytes, "launches": counts,
+          "cdecode_within_tol": ok, "cdecode_max_abs_err": err,
+          "tol": CD_TOL, "encode_bitwise": same})
+    check(ok, f"moe: cdecode differs from its plain version on the cache "
+              f"(max |d| {err})")
+    check(same, "moe: the chunk-flush encode differs from the plain codec")
+    x_decode = decode_x[0].reshape(-1, cfg.d_model).float()
+    del eng, seen, decode_x
+    torch.cuda.empty_cache()
+
+    # (b) the same streams, teacher-forced, through the plain versions
+    forced = [p + o[:-1] for p, o in zip(prompts, outs)]
+    with routing_log() as plain_routes:
+        _, ref_logits, rwall, reng = serve(cfg, params, forced, 1, "ref",
+                                           **serve_kw)
+    del reng
+    agree, flips, faults, by_layer = routing_flips(cfg, kernel_routes,
+                                                   plain_routes)
+    del kernel_routes, plain_routes
+    ratio = replay_ratio(logits, ref_logits)
+    agreeing = [t for t in range(steps) if bool(agree[t].all())]
+    checked = [ratio[t] for t in agreeing]
+    emit({"phase": "moe_serve_replay_ref", "wall_s": rwall,
+          "steps": steps, "steps_routings_agree": len(agreeing),
+          "routings": agree.numel(), "routings_agree": int(agree.sum()),
+          "flip_count": len(flips), "by_layer": by_layer,
+          "clean_flips": sum(f["clean"] for f in flips),
+          "clean_flips_past_bf16": sum(f["clean"] and not f["within_bf16"]
+                                       for f in flips),
+          "unexplained_flips": len(faults),
+          "bf16_score_rounding": BF16_SCORE_ROUNDING, "flips": flips,
+          "max_ratio_agreeing": max(checked) if checked else None,
+          "max_ratio_all": max(ratio), "median_ratio": statistics.median(ratio),
+          "tol": SERVE_TOL})
+    check(not faults, f"moe: routings flipped past the score difference "
+                      f"that explains a flip: {faults[:4]}")
+    check(bool(checked) and max(checked) < SERVE_TOL,
+          f"moe: cuda engine vs ref engine on agreeing steps: "
+          f"{max(checked) if checked else 'no step agrees'}")
+    del ref_logits
+    torch.cuda.empty_cache()
+
+    # (d) prefill on the same prompts
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    pos = torch.arange(MOE_PROMPT, dtype=torch.int32,
+                       device="cuda").expand(MOE_SLOTS, -1)
+    torch.cuda.synchronize()
+    tp = time.perf_counter()
+    with ffn_inputs(cfg.num_layers) as prefill_x:
+        p_logits, _ = lm.prefill(cfg, params, toks, pos, backend="cuda")
+    torch.cuda.synchronize()
+    p_wall = time.perf_counter() - tp
+    x_prefill = prefill_x[0].reshape(-1, cfg.d_model).float()
+    del prefill_x
+    last = logits[MOE_PROMPT - 1].to(p_logits.device)
+    emit({"phase": "moe_prefill_cuda", "tokens": [MOE_SLOTS, MOE_PROMPT],
+          "wall_s": p_wall, "finite": bool(torch.isfinite(p_logits).all()),
+          "vs_decode_fed_engine": {
+              "logits_rel": rel(p_logits, last),
+              "greedy_agreement": float((p_logits.argmax(-1)
+                                         == last.argmax(-1)).float().mean())}})
+    check(bool(torch.isfinite(p_logits).all()), "moe: non-finite prefill")
+    del logits, p_logits, last
+    torch.cuda.empty_cache()
+
+    # (c) moe_ffn against the float64 oracle, layer 0 in float32
+    lp = params.layers[0]
+    lp32 = types.SimpleNamespace(**{n: getattr(lp, n).float() for n in (
+        "router", "wg_e", "wu_e", "wd_e")})
+    cases = [moe_ffn_case(cfg, lp32, x_decode, "decode"),
+             moe_ffn_case(cfg, lp32, x_prefill, "prefill")]
+    del lp32
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        xb = x_prefill.to(lm.dtype_of(cfg))[None]
+        kw = dict(k=cfg.experts_per_token,
+                  capacity_factor=cfg.capacity_factor)
+        yb = [moe_mod.moe_ffn(xb, lp.router, lp.wg_e, lp.wu_e, lp.wd_e,
+                              **kw)[0] for _ in range(2)]
+    bf16_twice = bool(torch.equal(yb[0].view(torch.int16),
+                                  yb[1].view(torch.int16)))
+    emit({"phase": "moe_ffn_oracle", "dtype": "float32", "cases": cases,
+          "bf16_prefill_bitwise_twice": bf16_twice})
+    check(cases[0]["dropped"] == 0, "moe: the decode step dropped")
+    check(cases[1]["dropped"] > 0, "moe: the prefill case dropped nothing")
+    check(bf16_twice, "moe: two bf16 calls differ")
+    del yb, xb, x_decode, x_prefill
+
+    # (e) device time by kernel over a steady window
+    eng = ServeEngine(cfg, params, device="cuda", **serve_kw)
+    for p in prompts:
+        eng.submit(p, max_new=1)
+    profile_window(eng, *MOE_WINDOW, "moe_profile",
+                   extra=expert_bmm_share(cfg))
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "moe_seconds", "seconds": time.perf_counter() - t0,
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
     return counts
 
 
@@ -3610,6 +3998,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    moe_counts = moe_slice()
+    emit({"phase": "launches", "path": "moe_serving", **moe_counts})
+
     train_counts = train_slice(results)
     emit({"phase": "launches", "path": "train", **train_counts})
     for name in ("zfp_encode ndim1", "zfp_decode ndim1"):
@@ -3669,7 +4060,8 @@ def main() -> int:
              "ooc_tenancy": tenant_counts,
              "ooc_f64": f64_counts, "ooc_live_f64": live64_counts,
              "precision": prec_counts, "serving": serve_counts,
-             "ssm_serving": ssm_counts, "train": train_counts}
+             "ssm_serving": ssm_counts, "moe_serving": moe_counts,
+             "train": train_counts}
     # the float32 codec's rows time the ndim-3 unit and give their launches
     # by ndim (the lossy checkpoint leaves at 1, the KV cache at 2), and
     # the training path's gradient leaf at ndim 1;

@@ -7,12 +7,16 @@ or (``--ooc``) the multi-tenant out-of-core stencil scheduler.
       --no-smoke --slots 8 --requests 8 --max-len 1024
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \
+      --arch qwen3-moe-235b-a22b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --no-smoke --slots 8 --requests 8
   PYTHONPATH=src python -m repro_torch.launch.serve --ooc --tenants 3 \
       --shape 192 1152 1152 --blocks 4 --sweeps 2
 
-``--arch`` takes a config of the dense family (raw KV cache) or of the
+``--arch`` takes a config of the dense family (raw KV cache), of the
+MoE family (qwen3-moe-235b-a22b, llama4-scout-17b-a16e: each step's
+tokens routed to their top-k experts, with no drop at decode) or of the
 ssm family (falcon-mamba: per-slot ``conv`` and ``h`` states, the
 selective-scan kernel on every layer and step). The flags are the
 reference launcher's (``repro.launch.serve``), plus

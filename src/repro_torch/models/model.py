@@ -1,9 +1,11 @@
 """Decoder LM: parameters, caches, the full-sequence forward, the
 training loss, prefill and the one-token decode step.
 
-Port of the dense and Mamba-1 (``ssm``) paths of ``repro.models.model``.
-Each layer is an ``nn.Module`` whose parameters carry the reference's
-leaf names (dense: ``ln1``, ``wq``, ``bq``, ..., ``wg``, ``wu``, ``wd``;
+Port of the dense, MoE and Mamba-1 (``ssm``) paths of
+``repro.models.model``. Each layer is an ``nn.Module`` whose parameters
+carry the reference's leaf names (dense: ``ln1``, ``wq``, ``bq``, ...,
+``wg``, ``wu``, ``wd``; MoE: the FFN's ``router``, ``wg_e``, ``wu_e``,
+``wd_e`` and the shared expert's ``wg_s``, ``wu_s``, ``wd_s`` instead;
 Mamba-1: ``ln1``, ``in_proj``, ``conv_w``, ..., ``A_log``, ``D``,
 ``out_proj``) in its layout, ``(d_in, d_out)``, so ``h @ wq`` computes
 what the reference computes; the layers sit in an ``nn.ModuleList``
@@ -14,10 +16,13 @@ embeddings, and a Mamba-1 layer keeps ``A_log`` and ``D`` in float32.
 Parameters are made with ``requires_grad=False``; training turns it on
 for the model it trains (``launch.steps.make_train_step``).
 
-The dense family's ``forward`` is differentiable: blocked attention
-(``layers.blocked_attention``) and each layer under the config's remat
-policy (``_remat``: none, full, dots, or compressed residuals through
-``core.remat``); ``loss_fn`` adds the chunked cross-entropy.
+The dense and MoE families' ``forward`` is differentiable: blocked
+attention (``layers.blocked_attention``) and each layer under the
+config's remat policy (``_remat``: none, full, dots, or compressed
+residuals through ``core.remat``); an MoE layer's FFN is
+``models.moe.moe_ffn`` (top-k routing, capacity dispatch, its
+load-balance loss summed over the layers into ``aux``); ``loss_fn``
+adds the chunked cross-entropy and ``0.01 * aux``.
 
 Caches keep the reference's shapes, are updated **in place**, and carry
 ``length`` as a host ``int``. Over a ``CompressedCache``,
@@ -31,11 +36,12 @@ on the card when ``backend="cuda"``, which is the default for a model on
 a CUDA device. The compressed cache is slot-synchronous, as in the
 reference.
 
-Not ported yet (ROADMAP.md queue 1): the MoE family (item 17), Mamba-2
-and the hybrid family (item 18), the ssm family's training, a gradient
-through the scan (item 19: its ``forward`` is inference-only and
-ignores ``cfg.remat``), the audio and vision-language front ends (item
-20) and the logical sharding axes (item 21).
+Not ported yet (ROADMAP.md queue 1): Mamba-2 and the hybrid family
+(item 18), the ssm family's training, a gradient through the scan (item
+19: its ``forward`` is inference-only and ignores ``cfg.remat``), the
+audio and vision-language front ends (item 20), the logical sharding
+axes (item 21) and with them MoE's expert-parallel branch; training an
+MoE model at full width waits for a multi-card trainer (item 24).
 """
 
 from __future__ import annotations
@@ -52,15 +58,17 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.cdecode import ops as cdecode_ops
 from repro_torch.models import kvcache as KVC
 from repro_torch.models import layers as L
+from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
 NOT_PORTED = (
     "the {what} is not ported yet: ROADMAP.md queue 1 item {item} (this "
-    "port trains the dense family and serves the dense and ssm families)"
+    "port trains the dense and moe families and serves the dense, moe and "
+    "ssm families)"
 )
-PORTED_FAMILIES = ("dense", "ssm")
+PORTED_FAMILIES = ("dense", "moe", "ssm")
 # the ROADMAP item that ports each family still missing
-FAMILY_ITEM = {"moe": 17, "hybrid": 18, "audio": 20, "vlm": 20}
+FAMILY_ITEM = {"hybrid": 18, "audio": 20, "vlm": 20}
 SSM_TRAINING_ITEM = 19
 REMATS = ("none", "full", "dots", "compressed")
 COMPRESSED_REMAT_PLANES = 12  # the reference's model.py:344
@@ -74,7 +82,7 @@ def _require_ported(cfg: ModelConfig) -> None:
     if cfg.family not in PORTED_FAMILIES:
         raise NotImplementedError(NOT_PORTED.format(
             what=f"{cfg.family!r} family ({cfg.name})",
-            item=FAMILY_ITEM.get(cfg.family, 17)))
+            item=FAMILY_ITEM[cfg.family]))
 
 
 def stacked_leaves(names) -> Dict[str, List[str]]:
@@ -103,7 +111,10 @@ def _param(shape, device, dtype) -> nn.Parameter:
 
 
 class DenseLayer(nn.Module):
-    """One attention + GLU layer, with the reference's leaves."""
+    """One attention + FFN layer, with the reference's leaves: a GLU
+    (``wg``, ``wu``, ``wd``), or for the MoE family the router, the
+    experts' stacked GLUs ``(E, d, f)`` / ``(E, f, d)`` and, when the
+    config has one, the shared expert's GLU."""
 
     ONES = ("ln1", "ln2")
     ZEROS = ("bq", "bk", "bv")
@@ -121,7 +132,14 @@ class DenseLayer(nn.Module):
             self.bq, self.bk, self.bv = p(h * hd), p(kv * hd), p(kv * hd)
         if not cfg.parallel_block:
             self.ln2 = p(d)
-        self.wg, self.wu, self.wd = p(d, f), p(d, f), p(f, d)
+        if cfg.family != "moe":
+            self.wg, self.wu, self.wd = p(d, f), p(d, f), p(f, d)
+            return
+        e, fs = cfg.num_experts, cfg.shared_expert_ff
+        self.router = p(d, e)
+        self.wg_e, self.wu_e, self.wd_e = p(e, d, f), p(e, d, f), p(e, f, d)
+        if fs:
+            self.wg_s, self.wu_s, self.wd_s = p(d, fs), p(d, fs), p(fs, d)
 
     def forward(self, x, positions, kv_cache, cache_len):
         return _decoder_layer(self.cfg, self, x, positions, kv_cache,
@@ -130,14 +148,15 @@ class DenseLayer(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, normal) -> None:
         """The reference's initial values: norms one, biases zero, the
-        rest ``normal(t, fan_in ** -0.5)`` with ``fan_in = t.shape[0]``."""
+        rest ``normal(t, fan_in ** -0.5)`` with ``fan_in = t.shape[-2]``
+        (a matrix's rows; an expert stack's ``d`` or ``f``)."""
         for name, t in self.named_parameters():
             if name in self.ONES:
                 t.fill_(1.0)
             elif name in self.ZEROS:
                 t.zero_()
             else:
-                normal(t, t.shape[0] ** -0.5)
+                normal(t, t.shape[-2] ** -0.5)
 
 
 class Mamba1Layer(nn.Module):
@@ -269,23 +288,36 @@ def _attn_block(cfg, p, x, positions, kv_cache=None, cache_len=None):
 
 
 def _ffn_block(cfg, p, h):
-    return L.glu_mlp(h, p.wg, p.wu, p.wd)
+    """The FFN. Returns (y, aux): the MoE family's load-balance loss, 0.0
+    for the dense GLU."""
+    if cfg.family != "moe":
+        return L.glu_mlp(h, p.wg, p.wu, p.wd), 0.0
+    y, aux = MOE.moe_ffn(h, p.router, p.wg_e, p.wu_e, p.wd_e,
+                         k=cfg.experts_per_token,
+                         capacity_factor=cfg.capacity_factor)
+    if cfg.shared_expert_ff:
+        y = y + L.glu_mlp(h, p.wg_s, p.wu_s, p.wd_s)
+    return y, aux
 
 
 def _residual(cfg, p, x, h, attn_out):
     """The two residual forms: Cohere's parallel block (attention and
-    FFN both read ``h = norm(x)``) or the sequential one."""
+    FFN both read ``h = norm(x)``) or the sequential one. Returns (x,
+    the FFN's aux)."""
     if cfg.parallel_block:
-        return x + attn_out + _ffn_block(cfg, p, h)
+        y, aux = _ffn_block(cfg, p, h)
+        return x + attn_out + y, aux
     x = x + attn_out
-    return x + _ffn_block(cfg, p, L.norm(x, p.ln2, cfg.norm_eps, cfg.norm))
+    y, aux = _ffn_block(cfg, p, L.norm(x, p.ln2, cfg.norm_eps, cfg.norm))
+    return x + y, aux
 
 
 def _decoder_layer(cfg, p, x, positions, kv_cache=None, cache_len=None):
-    """One attention + FFN layer. Returns (x, new_kv)."""
+    """One attention + FFN layer. Returns (x, new_kv, aux)."""
     attn_out, new_kv = _attn_block(cfg, p, x, positions, kv_cache, cache_len)
     h = L.norm(x, p.ln1, cfg.norm_eps, cfg.norm) if cfg.parallel_block else None
-    return _residual(cfg, p, x, h, attn_out), new_kv
+    x, aux = _residual(cfg, p, x, h, attn_out)
+    return x, new_kv, aux
 
 
 def _mamba_layer(cfg, p, x, state=None, *, backend="ref", h_out=None):
@@ -415,8 +447,8 @@ def _dense_body(cfg, names, positions, collect_cache: bool):
     as an argument (``core.remat`` saves and differentiates them)."""
     def body(h, aux, *weights):
         lp = SimpleNamespace(**dict(zip(names, weights)))
-        h, (k, v) = _decoder_layer(cfg, lp, h, positions)
-        aux = aux + 0.0  # the dense FFN adds no auxiliary loss
+        h, (k, v), a = _decoder_layer(cfg, lp, h, positions)
+        aux = aux + a
         return (h, aux, k, v) if collect_cache else (h, aux)
 
     return body
@@ -441,7 +473,7 @@ def forward(cfg: ModelConfig, params: Model, tokens: torch.Tensor,
             backend: Optional[str] = None):
     """Full-sequence forward. Returns (hidden (B, S, d), aux loss, cache).
 
-    Dense: differentiable (each layer under ``_remat``); with
+    Dense and MoE: differentiable (each layer under ``_remat``); with
     ``collect_cache`` the per-layer K and V as ``(L, B, S, KV, hd)``
     stacks ``(k, v)``. ssm: inference only (``cfg.remat`` ignored;
     training it is ROADMAP.md item 19); with ``collect_cache`` one
@@ -543,7 +575,9 @@ def decode_step(
     advances each slot's ``conv`` and ``h`` in place. ``backend`` picks
     the kernels of the compressed path and of the selective scan:
     ``"cuda"`` (the default on a CUDA device) or ``"ref"`` (their plain
-    versions). Returns (logits (B, V), the cache with ``length + 1``)."""
+    versions). An MoE layer routes the step's B tokens with no drop
+    (``moe._capacity``) and its load-balance loss is dropped, as in the
+    reference. Returns (logits (B, V), the cache with ``length + 1``)."""
     _require_ported(cfg)
     dev = params.device
     backend = device_mod.backend_for(dev, backend)
@@ -563,7 +597,7 @@ def decode_step(
     pos_b = positions[0, :, 0] if cfg.mrope_sections else positions[:, 0]
     new_len = pos_b.to(torch.int32) + 1  # (B,) per-slot fill
     for i, lp in enumerate(params.layers):
-        x, _ = lp(x, positions, (cache.k[i], cache.v[i]), new_len)
+        x, _, _ = lp(x, positions, (cache.k[i], cache.v[i]), new_len)
     logits = _final_hidden_to_logits(cfg, params, x)[:, 0]
     return logits, cache._replace(length=cache.length + 1)
 
@@ -585,6 +619,6 @@ def _decode_step_compressed(cfg, params, cache: CompressedCache, x,
         attn = cdecode_ops.fused_compressed_decode_attention(
             q, ckv, planes=planes, max_len=max_len, backend=backend)
         out = attn.reshape(b, s, cfg.num_heads * cfg.head_dim) @ lp.wo
-        x = _residual(cfg, lp, x, hh, out)
+        x, _ = _residual(cfg, lp, x, hh, out)
     logits = _final_hidden_to_logits(cfg, params, x)[:, 0]
     return logits, cache._replace(length=cache.length + 1)

@@ -29,6 +29,10 @@ held within rtol 1e-4 / atol 1e-5 (the bound of
 stencil kernels (``csrc/zfp64.cu``, ``csrc/stencil64.cu``) are held bit
 for bit too, alone, through the float64 engines, and through the
 precision curve, whose lossless code must be exactly 0 on the card.
+The MoE FFN (``models/moe.py``, plain PyTorch) at full width:
+llama4-scout's layer against a float64 oracle and its decode over the
+compressed cache with the kernels against the plain versions, and the
+combine bit for bit across two calls at Qwen3-MoE's expert shapes.
 """
 
 import dataclasses
@@ -1591,3 +1595,134 @@ def test_zfp_ndim1_flat_leaf_over_2_27_values(cuda_device):
         assert torch.equal(y, zfp_ref.quantize(x, planes, 1))
         del payload, emax, y
         torch.cuda.empty_cache()
+
+
+# ----------------------------------------------------------------------
+# the MoE family (models/moe.py) at full width
+# ----------------------------------------------------------------------
+
+SERVE_TOL = 5e-2  # the serving slice's bound against the plain engine
+BF16_SCORE_ROUNDING = 2.0 ** -8
+
+
+def _moe_oracle(x, top_w, top_i, wg, wu, wd, capacity):
+    """Σ over kept assignments of weight · the expert's GLU, in float64;
+    the kept set by a host loop (each expert's first ``capacity``
+    assignments in flat (t, k) order). Returns (y, kept (T, k))."""
+    t, k = top_i.shape
+    seen, kept = {}, []
+    for ex in top_i.reshape(-1).tolist():
+        kept.append(seen.get(ex, 0) < capacity)
+        seen[ex] = seen.get(ex, 0) + 1
+    kept = torch.tensor(kept).reshape(t, k)
+    y = torch.zeros(x.shape, dtype=torch.float64, device=x.device)
+    for ex in range(wg.shape[0]):
+        tok, j = torch.nonzero((top_i.cpu() == ex) & kept, as_tuple=True)
+        if not len(tok):
+            continue
+        tok, j = tok.to(x.device), j.to(x.device)
+        xe = x[tok].double()
+        h = torch.nn.functional.silu(xe @ wg[ex].double()) * (
+            xe @ wu[ex].double())
+        y.index_add_(0, tok, (h @ wd[ex].double())
+                     * top_w[tok, j].double()[:, None])
+    return y, kept
+
+
+def test_llama4_scout_full_width_one_layer_on_card(cuda_device,
+                                                   monkeypatch):
+    """llama4-scout at full width (d 5120, 16 experts of 8192, top-1 and
+    the shared expert), 1 of its 48 layers, bf16: ``moe_ffn`` in float32
+    on the layer's weights against the float64 oracle (kept set exact,
+    ``y`` within 1e-4 of its largest) at 8 and 1024 tokens; then 72
+    lockstep decode steps over the compressed cache (the last 8 over 64
+    tokens of compressed history) with the kernels against the plain
+    versions: logits within 5e-2 of their largest on every step whose
+    routings agree, and no routing flip whose score gap exceeds bf16
+    rounding."""
+    from repro_torch.models import moe
+
+    cfg = dataclasses.replace(get_config("llama4-scout-17b-a16e"),
+                              num_layers=1, kv_compress_planes=16)
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    params = model.init_params(cfg, gen, device=cuda_device)
+    lp = params.layers[0]
+    w32 = [getattr(lp, n).float() for n in ("wg_e", "wu_e", "wd_e")]
+    for t in (8, 1024):
+        x = torch.randn(t, cfg.d_model, generator=gen, device=cuda_device)
+        cap = moe._capacity(t, 1, cfg.num_experts, cfg.capacity_factor)
+        with torch.inference_mode():
+            y, _ = moe.moe_ffn(x[None], lp.router.float(), *w32, k=1,
+                               capacity_factor=cfg.capacity_factor)
+            top_w, top_i, _ = moe.route(x, lp.router.float(), 1)
+            keep = moe.dispatch(top_i, cfg.num_experts, cap).keep
+            want, kept = _moe_oracle(x, top_w, top_i, *w32, cap)
+        assert torch.equal(keep.reshape(t, 1).cpu(), kept)
+        err = (y[0].double() - want).abs().max() / want.abs().max()
+        assert float(err) < 1e-4, (t, float(err))
+    del w32
+    torch.cuda.empty_cache()
+
+    routes = {}
+    inner = moe.top_k
+
+    def record(scores, k):
+        vals, idx = inner(scores, k + 1)
+        routes.setdefault(backend, []).append((idx[:, :k], vals))
+        return vals[:, :k], idx[:, :k]
+
+    monkeypatch.setattr(moe, "top_k", record)
+    toks = torch.from_numpy(np.random.default_rng(11).integers(
+        1, cfg.vocab_size, size=(8, 72)).astype(np.int32))
+    logs = {}
+    for backend in ("cuda", "ref"):
+        cdecode_kernel.reset_launches()
+        cache = model.init_cache(cfg, 8, 128, cuda_device)
+        out = []
+        for i in range(72):
+            pos = torch.full((8, 1), i, dtype=torch.int32)
+            logits, cache = model.decode_step(cfg, params, cache,
+                                              toks[:, i:i + 1], pos,
+                                              backend=backend)
+            out.append(logits.float())
+        logs[backend] = torch.stack(out)
+        launched = cdecode_kernel.launches["cdecode"]
+        assert (launched > 0) == (backend == "cuda")
+    sets = {b: torch.stack([i for i, _ in r]).sort(-1).values
+            for b, r in routes.items()}
+    agree = (sets["cuda"] == sets["ref"]).all(-1)  # (steps, slots)
+    for b, r in routes.items():
+        v = torch.stack([v for _, v in r]).double()
+        gap = ((v[..., 0] - v[..., 1]) / v[..., 0])[~agree]
+        assert not len(gap) or float(gap.max()) <= BF16_SCORE_ROUNDING, b
+    ratio = ((logs["cuda"] - logs["ref"]).abs().amax(dim=(1, 2))
+             / logs["ref"].abs().amax(dim=(1, 2)))
+    steady = agree.all(-1)
+    assert int(steady[64:].sum()) > 0
+    assert float(ratio[steady].max()) < SERVE_TOL
+
+
+def test_moe_combine_is_deterministic_on_card(cuda_device):
+    """``moe_ffn`` at Qwen3-MoE's expert shapes (128 experts of 1536 over
+    d 4096, top-8), bf16, 1024 tokens (t·k 8192 > 4096: capacity 80, a
+    skewed router so assignments drop): two calls bit for bit equal,
+    the same routing and kept set."""
+    from repro_torch.models import moe
+
+    gen = torch.Generator(device=cuda_device).manual_seed(13)
+    e, d, f, t, k = 128, 4096, 1536, 1024, 8
+    rnd = lambda *shape, scale: (torch.randn(
+        *shape, generator=gen, device=cuda_device) * scale).bfloat16()
+    x = rnd(1, t, d, scale=1.0)
+    router = rnd(d, e, scale=d ** -0.5)
+    router[:, :4] += 0.02
+    wg, wu = rnd(e, d, f, scale=d ** -0.5), rnd(e, d, f, scale=d ** -0.5)
+    wd = rnd(e, f, d, scale=f ** -0.5)
+    with torch.inference_mode():
+        ys = [moe.moe_ffn(x, router, wg, wu, wd, k=k, capacity_factor=1.25)
+              for _ in range(2)]
+        top_w, top_i, _ = moe.route(x[0], router, k)
+        keep = moe.dispatch(top_i, e, moe._capacity(t, k, e, 1.25)).keep
+    assert int((~keep).sum()) > 0
+    assert torch.equal(ys[0][0].view(torch.int16), ys[1][0].view(torch.int16))
+    assert torch.equal(ys[0][1], ys[1][1])

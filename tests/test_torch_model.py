@@ -24,6 +24,12 @@ K/V within rtol = atol = 1e-4 as over the raw cache; ``loss_fn`` within
 rtol 1e-4 / atol 1e-5, leaf by leaf in the reference's stacked layout
 (float32 sums in another order, through blocked attention's online
 softmax and its backward).
+
+The MoE family (qwen3-moe and llama4-scout smoke, float32) with the
+same tolerances: forward (hidden, the summed load-balance loss within
+1e-6 relative, K/V), prefill, ``loss_fn`` and every gradient under
+remat none and compressed, 70 decode steps over the raw and the
+compressed cache, and the port's decode against its own prefill.
 """
 
 import dataclasses
@@ -280,8 +286,9 @@ def test_ssm_a_log_and_d_stay_float32_under_bfloat16():
 
 def test_dense_forward_is_not_ported():
     """The dense full-sequence forward is ported now (blocked attention,
-    below); what is not: training the ssm family (a gradient through
-    the scan) and every other family, each naming its ROADMAP item."""
+    below), and the MoE family with it; what is not: training the ssm
+    family (a gradient through the scan) and the hybrid, audio and
+    vision-language families, each naming its ROADMAP item."""
     cfg = smoke(get_config("qwen2-1.5b"))
     params = TM.init_params(cfg, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
@@ -292,9 +299,8 @@ def test_dense_forward_is_not_ported():
     batch = {"tokens": toks, "labels": toks, "positions": toks}
     with pytest.raises(NotImplementedError, match="item 19"):
         TM.loss_fn(scfg, sparams, batch)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TM.init_params(smoke(get_config("qwen3-moe-235b-a22b")),
-                       device="cpu")
+    with pytest.raises(NotImplementedError, match="item 18"):
+        TM.init_params(smoke(get_config("zamba2-2.7b")), device="cpu")
 
 
 # ----------------------------------------------------------------------
@@ -400,3 +406,92 @@ def test_chunked_xent_masks_and_pads():
     valid = labels >= 0
     want = float(nll[valid].mean())
     assert float(got) == pytest.approx(want, rel=1e-6)
+
+
+# ----------------------------------------------------------------------
+# the MoE family (qwen3-moe: top-2 of 4 experts; llama4-scout: top-1 of 4
+# plus the shared expert), through the dense forward, loss and decode
+# ----------------------------------------------------------------------
+
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"]
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_forward_and_prefill_match_reference(arch):
+    """Hidden states, the summed load-balance loss, the stacked K/V and
+    the prefill logits (S = 37 ragged against the attention chunk; t·k
+    under 4096, so no assignment drops)."""
+    jcfg, tcfg, jp, tp, batch = _dense_setup(arch, seed=21)
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    jh, jaux, jkv = JM.forward(jcfg, jp, jb["tokens"], jb["positions"],
+                               collect_cache=True)
+    th, taux, tkv = TM.forward(tcfg, tp, batch["tokens"],
+                               batch["positions"], collect_cache=True)
+    np.testing.assert_allclose(th.detach().numpy(), np.asarray(jh),
+                               **FWD_TOL)
+    assert float(jaux) > 0.0
+    assert float(taux) == pytest.approx(float(jaux), rel=1e-6)
+    for t, j in zip(tkv, jkv):
+        np.testing.assert_allclose(t.detach().numpy(), np.asarray(j),
+                                   **FWD_TOL)
+    jl, _ = JM.prefill(jcfg, jp, jb["tokens"], jb["positions"])
+    tl, _ = TM.prefill(tcfg, tp, batch["tokens"], batch["positions"])
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **FWD_TOL)
+
+
+@pytest.mark.parametrize("remat", ["none", "compressed"])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_loss_and_gradients_match_reference(arch, remat):
+    """``loss_fn`` (cross-entropy + 0.01 aux) and every gradient, the
+    router's through both the combine weights and the aux loss; under
+    compressed remat the reference's step runs un-jitted (ROADMAP §3)."""
+    jcfg, tcfg, jp, tp, batch = _dense_setup(arch, seed=22, remat=remat)
+    vg = jax.value_and_grad(lambda p: JM.loss_fn(jcfg, p, batch))
+    jl, jg = (vg if remat == "compressed" else jax.jit(vg))(jp)
+    tp.requires_grad_(True)
+    tl = TM.loss_fn(tcfg, tp, batch)
+    tg = torch.autograd.grad(tl, list(tp.parameters()))
+    assert float(tl.detach()) == pytest.approx(float(jl), rel=LOSS_RTOL)
+    got = _ref_layout(tp, tg)
+    want = jax.tree.map(np.asarray, jg)
+    assert set(got["layers"]) == set(want["layers"])
+    assert np.abs(want["layers"]["router"]).max() > 0
+    for key in want:
+        pairs = want[key].items() if key == "layers" else [(key, want[key])]
+        for name, w in pairs:
+            g = got["layers"][name] if key == "layers" else got[name]
+            np.testing.assert_allclose(g, w, err_msg=name, **GRAD_TOL)
+
+
+@pytest.mark.parametrize("planes", [0, 16])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_step_matches_reference(arch, planes):
+    """70 teacher-forced decode steps over the raw and the compressed
+    cache, step by step (B tokens a step: never a drop)."""
+    jcfg, tcfg = _cfgs(arch, planes)
+    jp, tp = _params(jcfg, tcfg, seed=len(arch) + planes)
+    toks = np.random.default_rng(3).integers(
+        0, tcfg.vocab_size, size=(B, STEPS)).astype(np.int32)
+    jcache = JM.init_cache(jcfg, B, MAX_LEN)
+    tcache = TM.init_cache(tcfg, B, MAX_LEN, device="cpu")
+    assert type(tcache).__name__ == type(jcache).__name__
+    _run(jcfg, tcfg, jp, tp, jcache, tcache, toks, 0, STEPS)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_decode_matches_own_prefill(arch):
+    """The port's decode, token by token, reproduces its own prefill's
+    last logits (``tests/test_models_smoke.py::test_decode_matches_prefill``
+    and its bound, rtol = atol = 2e-3)."""
+    _, tcfg = _cfgs(arch, 0)
+    tp = TM.init_params(tcfg, torch.Generator().manual_seed(7), device="cpu")
+    seq = 16
+    toks = np.random.default_rng(7).integers(
+        0, tcfg.vocab_size, size=(B, seq)).astype(np.int32)
+    pos = np.tile(np.arange(seq, dtype=np.int32), (B, 1))
+    want, _ = TM.prefill(tcfg, tp, toks, pos)
+    cache = TM.init_cache(tcfg, B, seq, device="cpu")
+    for i in range(seq):
+        logits, cache = TM.decode_step(tcfg, tp, cache, toks[:, i:i + 1],
+                                       pos[:, i:i + 1])
+    torch.testing.assert_close(logits, want, rtol=2e-3, atol=2e-3)

@@ -11,6 +11,11 @@ seeds (4e-4, from one flipped bit plane in the codec; see
 ``tests/test_torch_model.py``). Every sampled step's top-2 logit margin
 must exceed twice the tolerance, so that equal streams are not luck and
 a flip would be explained.
+
+The MoE family (qwen3-moe and llama4-scout smoke) over both caches: the
+streams and tolerances as above; there every sampled step's top-2
+margin must exceed twice the largest logit distance seen (smallest
+margin seen 1.5e-3, largest distance 6.6e-5).
 """
 
 import dataclasses
@@ -251,6 +256,53 @@ def test_launcher_serves_falcon_mamba_on_cpu(capsys):
 
     serve.main(["--arch", "falcon-mamba-7b", "--device", "cpu",
                 "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert [line.startswith(f"request {i}:")
+            for i, line in enumerate(out.splitlines()[:6], 1)] == [True] * 6
+    assert "18 tokens in" in out
+
+
+# ----------------------------------------------------------------------
+# the MoE family (smoke qwen3-moe: top-2 of 4; llama4-scout: top-1 of 4
+# plus the shared expert)
+# ----------------------------------------------------------------------
+
+MOE_ARCHS = ["qwen3-moe-235b-a22b", "llama4-scout-17b-a16e"]
+
+
+@pytest.mark.parametrize("planes", [16, 0])
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_engine_matches_reference_lockstep(arch, planes):
+    """Greedy streams equal to the reference engine's on lockstep
+    traffic (every step routes the slots' tokens with no drop), the
+    logits within the dense family's tolerances."""
+    jcfg = dataclasses.replace(jsmoke(jget_config(arch)),
+                               kv_compress_planes=planes)
+    tcfg = dataclasses.replace(smoke(get_config(arch)),
+                               kv_compress_planes=planes)
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(31))
+    tp = convert.params_from_reference(tcfg, jax.tree.map(np.asarray, jp),
+                                       "cpu")
+    prompts = np.random.default_rng(8).integers(
+        1, tcfg.vocab_size, size=(2, 70)).tolist()
+    out_j, log_j = _serve(JEngine(jcfg, jp, slots=2, max_len=128), prompts, 6)
+    out_t, log_t = _serve(TEngine(tcfg, tp, slots=2, max_len=128,
+                                  device="cpu"), prompts, 6)
+    assert out_t == out_j
+    assert log_t.shape == log_j.shape == (75, 2, tcfg.vocab_size)
+    np.testing.assert_allclose(log_t, log_j, rtol=0, atol=TOL[planes])
+    # every sampled step's top-2 margin is over twice the logits' largest
+    # distance: equal streams are not luck
+    assert _margins(log_j[69:]).min() > 2 * np.abs(log_t - log_j).max()
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_launcher_serves_moe_on_cpu(capsys, arch):
+    """``--arch`` of the MoE family at smoke size: 6 requests through 4
+    slots (two enter freed slots) are all answered."""
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", arch, "--device", "cpu", "--max-new", "3"])
     out = capsys.readouterr().out
     assert [line.startswith(f"request {i}:")
             for i, line in enumerate(out.splitlines()[:6], 1)] == [True] * 6

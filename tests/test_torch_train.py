@@ -12,7 +12,12 @@ The residuals and gradients reach the codec a few ulps apart, and no
 kept bit plane flips on these inputs; where one did, AdamW's normalised
 step would move that element by up to the learning rate, 3e-4.
 The launcher's resume is bit for bit on the CPU; a checkpoint crosses
-between the packages bit for bit.
+between the packages bit for bit. The MoE family (smoke qwen3-moe): the
+same three steps, losses and gradient norms within 1e-5; there one
+codec block of ``wg_e`` flips a kept plane at the second step (8 values
+moved by up to 9.1e-5, under the learning rate), so a share of 1e-3 of
+a leaf's values is held to the learning rate, the rest to 1e-7; its
+launcher trains and resumes bit for bit.
 """
 
 import dataclasses
@@ -44,9 +49,9 @@ STEPS, BATCH, SEQ = 3, 2, 40
 SCHED = dict(peak_lr=3e-4, warmup=1, total_steps=STEPS)
 
 
-def _cfgs(**kw):
-    j = dataclasses.replace(jsmoke(jget_config("qwen2-1.5b")), **kw)
-    t = dataclasses.replace(smoke(get_config("qwen2-1.5b")), **kw)
+def _cfgs(arch="qwen2-1.5b", **kw):
+    j = dataclasses.replace(jsmoke(jget_config(arch)), **kw)
+    t = dataclasses.replace(smoke(get_config(arch)), **kw)
     assert dataclasses.asdict(j) == dataclasses.asdict(t)
     return j, t
 
@@ -66,8 +71,14 @@ def _flat_ref(tree, prefix=""):
     return out
 
 
-def test_train_steps_match_reference():
-    jcfg, tcfg = _cfgs(remat="compressed", grad_compress_planes=8)
+def _steps_match_reference(arch, flips=0.0):
+    """``STEPS`` steps of both packages' train steps from the reference's
+    weights (compressed remat, 8-plane gradients with error feedback).
+    Parameters within 1e-7, except a share ``flips`` of each leaf's
+    elements, held within the learning rate: where a gradient a few ulps
+    apart flips a kept bit plane of its 4-value codec block, AdamW's
+    normalised step moves those elements by up to the rate."""
+    jcfg, tcfg = _cfgs(arch, remat="compressed", grad_compress_planes=8)
     jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
     start = jax.tree.map(np.asarray, jp)
     tp = convert.params_from_reference(tcfg, start, "cpu")
@@ -88,12 +99,28 @@ def test_train_steps_match_reference():
     got = _flat_ref(convert.params_to_reference(tp))
     want = _flat_ref(jax.tree.map(np.asarray, jp))
     for k in want:
-        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-7,
+        off = np.abs(got[k] - want[k]) > 1e-7
+        assert off.sum() <= flips * off.size, (k, int(off.sum()))
+        np.testing.assert_allclose(got[k], want[k], rtol=0,
+                                   atol=SCHED["peak_lr"] if flips else 1e-7,
                                    err_msg=k)
         # compressed remat's backward reached every weight
         assert not np.array_equal(got[k], _flat_ref(start)[k]), k
     ef_got = _flat_ref(convert.opt_state_to_reference(topt).ef)
     assert set(ef_got) == set(_flat_ref(jax.tree.map(np.asarray, jopt.ef)))
+
+
+def test_train_steps_match_reference():
+    _steps_match_reference("qwen2-1.5b")
+
+
+def test_moe_train_steps_match_reference():
+    """The same for the MoE family (smoke qwen3-moe: top-2 of 4 experts,
+    the load-balance loss in the loss, the expert stacks coded as the
+    remat's arguments and quantized as stacked leaves). Seen: one or
+    two codec blocks of a leaf flipped (8 of 65536 values of ``wg_e``,
+    moved by up to 9.1e-5)."""
+    _steps_match_reference("qwen3-moe-235b-a22b", flips=1e-3)
 
 
 def test_reference_train_step_with_compressed_remat_fails_under_jit():
@@ -244,3 +271,27 @@ def test_prefill_and_decode_steps_drive_the_model():
                                         "positions": pos[:, i:i + 1]})
     torch.testing.assert_close(out, logits, rtol=1e-4, atol=1e-4)
     assert TST.step_for(tcfg, SMOKE_SHAPES["train"]).__name__ == "train_step"
+
+
+def test_launcher_trains_and_resumes_moe(tmp_path):
+    """``--arch qwen3-moe-235b-a22b --smoke`` trains on the CPU, and a
+    resume from its step-2 checkpoint ends where the whole run ends, bit
+    for bit."""
+    argv = ["--arch", "qwen3-moe-235b-a22b", "--smoke", "--steps", "4",
+            "--batch", "2", "--seq", "32", "--ckpt-every", "2",
+            "--device", "cpu"]
+    whole = TT.main(argv + ["--ckpt-dir", str(tmp_path / "a")])
+    assert whole.cfg.family == "moe" and len(whole.history) == 4
+    cut = tmp_path / "b"
+    cut.mkdir()
+    shutil.copytree(tmp_path / "a" / "step_0000000002",
+                    cut / "step_0000000002")
+    resumed = TT.main(argv + ["--ckpt-dir", str(cut), "--resume"])
+    assert [h[0] for h in resumed.history] == [2, 3]
+    assert resumed.history == whole.history[2:]
+    for (n, a), (_, b) in zip(whole.model.named_parameters(),
+                              resumed.model.named_parameters()):
+        assert torch.equal(a, b), n
+    manifest = TCK.read_manifest(TCK.latest(str(tmp_path / "a")))
+    assert {"0/layers/router", "0/layers/wd_e",
+            "1/m/layers/wg_e"} <= set(manifest["leaves"])
