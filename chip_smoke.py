@@ -159,9 +159,11 @@ non-zero:
    generator on the card, 8 requests in 8 slots in lockstep (256-token
    prompts, 64 new tokens, greedy) through ``ServeEngine``; wall time,
    tokens/s, cache bytes and the launches of the encode and cdecode
-   kernels. The same token streams are then replayed, teacher-forced,
-   through an engine with the plain versions (``backend="ref"``) on the
-   card, whose logits must agree within 5e-2 of their largest (a replay
+   kernels. The first 192 steps of the same token streams (three chunk
+   flushes; all 319 until phases hybrid and embeds joined) are then
+   replayed through an engine with the plain versions
+   (``backend="ref"``) on the card, whose logits must agree within 5e-2
+   of their largest at every step (a replay
    through a raw-cache engine, printed and never checked, was cut to make
    room for phase 5s). On the cuda
    engine's own cache after its run, cdecode is held to its plain
@@ -233,6 +235,38 @@ non-zero:
    the prompt (printed); (e) the device time by kernel over 32 steady
    decode steps, the idle share and the expert ``bmm``s' share
    (``torch.profiler`` with input shapes), and the peak allocation;
+9h. hybrid, the zamba2 family at full width and depth (the launch counts
+   zeroed first, path ``hybrid_serving``): zamba2-2.7b in float32 (54
+   Mamba-2 layers in 9 groups, d 2560, 80 SSD heads of 64, N 64, the
+   shared attention block after each group; 2.42B parameters, 9.7 GB),
+   random weights from a seeded generator on the card: (a) 8 requests in
+   8 slots in lockstep (64-token prompts, 32 new tokens, greedy,
+   ``max_len`` 128) through ``ServeEngine``: wall, new and fed tokens/s,
+   max |logits|; (b) ``prefill`` of the same prompts (SSD at chunk 64)
+   against the engine's state after the prompt (fed one token a step,
+   chunk 1): the last prompt position's logits, every layer's ``h`` and
+   ``conv`` and every group's K/V within 1e-3 of their largest; (c) the
+   device time by kernel over 32 steady decode steps and the idle share
+   (``torch.profiler``); ``ssd_chunked`` at one layer's shapes (8 slots,
+   80 heads of 64, N 64, chunk 64; S 64 and a ragged 100) against the
+   recurrence step by step in float64, within 1e-4 of the largest |y| and
+   |h_last|; the peak allocation. (d) No kernel of the repo runs on this
+   path (the reference's hybrid is XLA): its launch counts must read 0;
+9e. embeds, the vision-language and audio front ends at full width
+   (the launch counts zeroed before each model, paths ``vlm_decode`` and
+   ``audio_decode``): qwen2-vl-7b (d 3584, 28 heads over 4 KV heads of
+   128, M-RoPE) and musicgen-medium (d 1536, 24 heads over 24 KV heads of
+   64, layernorm), each bf16 with 4 layers (of 28 and 48) over the
+   16-plane compressed cache, random weights from a seeded generator: 191
+   lockstep steps of ``decode_step`` in 8 slots (as 128 prompt positions
+   and 64 new tokens through an engine), fed seeded random embeddings
+   (B, 1, d); qwen2-vl's positions (3, B, 1) with the temporal, height
+   and width streams p, p // 8 and p % 8 for p < 64, then equal. cdecode
+   launched once a layer a step and the ndim-2 encode of K and V a layer
+   at each 64-token flush; on the cache after the run cdecode within 2e-5
+   of its plain version and the flush encode bit for bit (as phase 7);
+   the same steps through the plain versions (``backend="ref"``), the
+   logits within 5e-2 of their largest at every step;
 10. train, the trainer (the launch counts zeroed first, path ``train``):
    (a) ``launch.train.main`` at the lm-100m preset, 20 steps, gradients
    at 8 planes with error feedback, a checkpoint every 10 under
@@ -264,8 +298,9 @@ non-zero:
    tenants of phase 5t, the
    float64 paper sweep, live run
    and precision tier of phases 5f, 5bf and 5p, the serving slice of
-   phase 7, the SSM slice of phase 9, the MoE slice of phase 9m and the
-   trainer of phase 10, each
+   phase 7, the SSM slice of phase 9, the MoE slice of phase 9m, the
+   hybrid of phase 9h, the front ends of phase 9e and the trainer of
+   phase 10, each
    counted from zero), its error and times; the float32 codec's rows
    give their launches by ndim, one row for the unit (every path but
    train) and one for the training gradient leaf (path train).
@@ -295,6 +330,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 from repro_torch import _build  # noqa: E402
 from repro_torch import device as device_mod  # noqa: E402
@@ -325,6 +361,7 @@ from repro_torch.kernels.sscan import ref as sscan_ref  # noqa: E402
 from repro_torch.models import kvcache  # noqa: E402
 from repro_torch.models import model as lm  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import ssm as ssm_mod  # noqa: E402
 from repro_torch.models.layers import scale_in  # noqa: E402
 from repro_torch.serving.engine import ServeEngine  # noqa: E402
 from repro_torch.kernels.stencil import kernel as stencil_kernel  # noqa: E402
@@ -373,6 +410,9 @@ SERVE_ARCH, SERVE_PLANES = "qwen2-1.5b", 16
 SERVE_LAYERS = 4
 SERVE_SLOTS, PROMPT, MAX_NEW, SERVE_MAX_LEN = 8, 256, 64, 1024
 SERVE_TOL = 5e-2  # tests/test_kvcache.py's bound against the raw cache
+# the plain replay's steps: three chunk flushes (cut from all 319 to keep
+# the smoke within its time limit once phases hybrid and embeds joined)
+SERVE_REPLAY_STEPS = 3 * kvcache.CHUNK
 # phases 8-9: the SSM slice
 SSM_ARCH = "falcon-mamba-7b"
 # depth cut to 16 of its 64 layers (full width) to pay for phase moe
@@ -2801,17 +2841,19 @@ def serving_slice():
     del eng, seen
     torch.cuda.empty_cache()
 
-    # the same streams replayed, teacher-forced, through the plain versions
-    forced = [p + o[:-1] for p, o in zip(prompts, outs)]
-    chosen = torch.tensor(outs).T  # (MAX_NEW, slots)
+    # the streams' first SERVE_REPLAY_STEPS steps replayed through the
+    # plain versions
+    forced = [(p + o[:-1])[:SERVE_REPLAY_STEPS] for p, o in zip(prompts, outs)]
     _, ref_logits, rwall, reng = serve(cfg, params, forced, 1, "ref")
     del reng
-    ratio = replay_ratio(logits, ref_logits)
-    agree = (ref_logits[PROMPT - 1:].argmax(-1) == chosen).float().mean()
+    ratio = replay_ratio(logits[:SERVE_REPLAY_STEPS], ref_logits)
+    agree = (ref_logits.argmax(-1) == logits[:SERVE_REPLAY_STEPS].argmax(-1)
+             ).float().mean()
     emit({"phase": "serve_replay_ref", "backend": "ref",
-          "kv_planes": cfg.kv_compress_planes, "wall_s": rwall,
-          "max_ratio": max(ratio), "median_ratio": statistics.median(ratio),
-          "greedy_agreement": float(agree)})
+          "kv_planes": cfg.kv_compress_planes, "steps": SERVE_REPLAY_STEPS,
+          "wall_s": rwall, "max_ratio": max(ratio),
+          "median_ratio": statistics.median(ratio),
+          "argmax_agreement": float(agree)})
     check(max(ratio) < SERVE_TOL,
           f"cuda engine vs ref engine: ratio {max(ratio)}")
     torch.cuda.empty_cache()
@@ -2980,8 +3022,9 @@ def sscan_cases(gen, results):
 
 
 def states_after(eng, steps, snap):
-    """Copy the engine's SSM states into ``snap`` after its ``steps``-th
-    decode step (by wrapping its decode-step function)."""
+    """Copy the engine's SSM states (and a hybrid's K/V of the first
+    ``steps`` positions) into ``snap`` after its ``steps``-th decode step
+    (by wrapping its decode-step function)."""
     inner, count = eng._step, [0]
 
     def step(*args):
@@ -2989,6 +3032,9 @@ def states_after(eng, steps, snap):
         count[0] += 1
         if count[0] == steps:
             snap["conv"], snap["h"] = cache.conv.clone(), cache.h.clone()
+            if cache.k is not None:
+                snap["k"] = cache.k[:, :, :steps].clone()
+                snap["v"] = cache.v[:, :, :steps].clone()
         return logits, cache
 
     eng._step = step
@@ -3516,6 +3562,279 @@ def moe_slice():
 
 
 # ----------------------------------------------------------------------
+# phase hybrid: zamba2-2.7b at full width (Mamba-2/SSD and the shared
+# attention block, plain PyTorch as the reference's XLA)
+# ----------------------------------------------------------------------
+
+HYB_ARCH = "zamba2-2.7b"
+# full width and depth: 54 Mamba-2 layers in 9 groups; float32, as phase
+# 9's float32 pass (random bf16 layers drift ~5% alone)
+HYB_LAYERS = 54
+HYB_SLOTS, HYB_PROMPT, HYB_NEW, HYB_MAX_LEN = 8, 64, 32, 128
+# profiled decode steps: warm-up, then the window. A step launches ~4,500
+# kernels, and the profiler's own processing took ~4.5 s a profiled step
+# (with or without host events): 16 steps cost the phase 83 s, 4 27 s
+HYB_WINDOW = (8, 2)
+HYB_FORMS_TOL = 1e-3  # chunk 64 against chunk 1: of the largest value
+SSD_SHAPES = ((8, 64, 80, 64, 64), (8, 100, 80, 64, 64))  # (B, S, H, P, N)
+SSD_TOL = 1e-4  # against float64, of the largest |y| and |h_last|
+
+
+def ssd_f64(dt, a, b_in, c_in, x, h0):
+    """The Mamba-2 recurrence step by step in float64:
+    ``h_t = exp(dt_t a) h_{t-1} + dt_t x_t B_t^T``, ``y_t = h_t C_t``."""
+    rep = x.shape[2] // b_in.shape[2]
+    dt, a, b_in, c_in, x, h = (t.double() for t in (dt, a, b_in, c_in, x,
+                                                    h0))
+    ys = []
+    for t in range(dt.shape[1]):
+        bh = b_in[:, t].repeat_interleave(rep, dim=1)  # (B, H, N)
+        ch = c_in[:, t].repeat_interleave(rep, dim=1)
+        h = (torch.exp(dt[:, t] * a)[..., None, None] * h
+             + (dt[:, t, :, None] * x[:, t])[..., None] * bh[:, :, None, :])
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, ch))
+    return torch.stack(ys, dim=1), h
+
+
+def ssd_cases(gen):
+    """``ssd_chunked`` at one zamba2 layer's shapes (8 slots, 80 heads of
+    64, N 64, one B/C group, chunk 64) at S = 64 and a ragged S = 100,
+    from a non-zero state, against ``ssd_f64``."""
+    out = []
+    for bsz, s, nh, p, n in SSD_SHAPES:
+        dt = F.softplus(torch.randn(bsz, s, nh, generator=gen,
+                                    device="cuda") - 2.0)
+        a = -torch.exp(0.3 * torch.randn(nh, generator=gen, device="cuda"))
+        b_in, c_in = (torch.randn(bsz, s, 1, n, generator=gen, device="cuda")
+                      for _ in range(2))
+        x = torch.randn(bsz, s, nh, p, generator=gen, device="cuda")
+        h0 = 0.1 * torch.randn(bsz, nh, p, n, generator=gen, device="cuda")
+        with torch.inference_mode():
+            y, h = ssm_mod.ssd_chunked(dt, a, b_in, c_in, x, h0, SSCAN_CHUNK)
+            wy, wh = ssd_f64(dt, a, b_in, c_in, x, h0)
+            ms = median_ms(lambda: ssm_mod.ssd_chunked(
+                dt, a, b_in, c_in, x, h0, SSCAN_CHUNK), 5)
+        row = {"shape_bshpn": [bsz, s, nh, p, n], "chunk": SSCAN_CHUNK,
+               "y_rel": rel(y, wy), "h_rel": rel(h, wh), "tol": SSD_TOL,
+               "ms": ms}
+        out.append(row)
+        check(row["y_rel"] < SSD_TOL and row["h_rel"] < SSD_TOL,
+              f"ssd_chunked at {row['shape_bshpn']} is not within "
+              f"{SSD_TOL} of float64: {row}")
+    emit({"phase": "ssd_f64", "cases": out})
+
+
+def hybrid_slice():
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(HYB_ARCH), num_layers=HYB_LAYERS,
+                              dtype="float32")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    params = lm.init_params(cfg, gen, device="cuda")
+    rng = np.random.default_rng(SEED + 3)
+    prompts = rng.integers(1, cfg.vocab_size,
+                           size=(HYB_SLOTS, HYB_PROMPT)).tolist()
+    toks = torch.tensor(prompts, dtype=torch.int32, device="cuda")
+    pos = torch.arange(HYB_PROMPT, dtype=torch.int32,
+                       device="cuda").expand(HYB_SLOTS, -1)
+    fed = {}
+
+    # the path: serve, then prefill, counted from 0 (no kernel of the
+    # repo runs here: the reference's hybrid is XLA)
+    reset_counts()
+    cdecode_kernel.reset_launches()
+    sscan_kernel.reset_launches()
+    outs, logits, wall, eng = serve(
+        cfg, params, prompts, HYB_NEW, "cuda", slots=HYB_SLOTS,
+        max_len=HYB_MAX_LEN,
+        on_engine=lambda e: states_after(e, HYB_PROMPT, fed))
+    torch.cuda.synchronize()
+    p0 = time.perf_counter()
+    p_logits, (p_st, (p_k, p_v)) = lm.prefill(cfg, params, toks, pos)
+    torch.cuda.synchronize()
+    p_wall = time.perf_counter() - p0
+    counts = {"sscan": sscan_kernel.launches["sscan"],
+              "zfp_encode": zfp_kernel.launches["encode"],
+              "zfp_decode": zfp_kernel.launches["decode"],
+              "cdecode": cdecode_kernel.launches["cdecode"],
+              **stencil_kernel.launches}
+    del eng
+    torch.cuda.empty_cache()
+    check(sum(counts.values()) == 0,
+          f"hybrid: a kernel launched on a path with none: {counts}")
+    steps = HYB_PROMPT + HYB_NEW - 1
+    check(all(len(o) == HYB_NEW for o in outs), "hybrid: a request fell short")
+    check(bool(torch.isfinite(logits).all()), "hybrid: non-finite logits")
+    check(tuple(logits.shape) == (steps, HYB_SLOTS, cfg.vocab_size),
+          f"hybrid: logits {tuple(logits.shape)}")
+    gen_tokens = sum(len(o) for o in outs)
+    emit({"phase": "hybrid_serve", "arch": HYB_ARCH, "dtype": cfg.dtype,
+          "layers": cfg.num_layers, "groups": cfg.num_layers // cfg.attn_period,
+          "d_model": cfg.d_model, "ssm_heads": cfg.ssm_heads,
+          "ssm_head_dim": cfg.ssm_head_dim, "ssm_state": cfg.ssm_state,
+          "slots": HYB_SLOTS, "prompt": HYB_PROMPT, "max_new": HYB_NEW,
+          "max_len": HYB_MAX_LEN, "steps": steps, "wall_s": wall,
+          "new_tokens": gen_tokens, "new_tokens_per_s": gen_tokens / wall,
+          "fed_tokens_per_s": HYB_SLOTS * steps / wall,
+          "max_abs_logits": float(logits.abs().max()),
+          "params": sum(t.numel() for t in params.parameters()),
+          "params_bytes": sum(t.numel() * t.element_size()
+                              for t in params.parameters()),
+          "launches": counts})
+
+    # (b) the two forms of the recurrence: prefill (SSD at chunk 64)
+    # against the engine fed one token a step (chunk 1)
+    check(bool(torch.isfinite(p_logits).all()), "hybrid: non-finite prefill")
+    flat = lambda t: t.flatten(0, 1)
+    forms = {"logits_rel": rel(p_logits, logits[HYB_PROMPT - 1].cuda()),
+             "h_rel": rel(flat(p_st.h), fed["h"]),
+             "conv_rel": rel(flat(p_st.conv), fed["conv"]),
+             "k_rel": rel(p_k, fed["k"]), "v_rel": rel(p_v, fed["v"])}
+    per_layer_h = [rel(flat(p_st.h)[i], fed["h"][i])
+                   for i in range(cfg.num_layers)]
+    emit({"phase": "hybrid_forms", "prefill_wall_s": p_wall,
+          "tokens": [HYB_SLOTS, HYB_PROMPT], "chunk": cfg.ssm_chunk,
+          "tol": HYB_FORMS_TOL, **forms,
+          "h_rel_worst_layer": int(np.argmax(per_layer_h)),
+          "greedy_agreement": float((p_logits.argmax(-1) == logits[
+              HYB_PROMPT - 1].cuda().argmax(-1)).float().mean())})
+    check(max(forms.values()) < HYB_FORMS_TOL,
+          f"hybrid: prefill and the decode-fed engine differ: {forms}")
+    del p_st, p_k, p_v, fed
+    torch.cuda.empty_cache()
+
+    t1 = time.perf_counter()
+    eng = ServeEngine(cfg, params, slots=HYB_SLOTS, max_len=HYB_MAX_LEN,
+                      device="cuda")
+    for p in prompts:
+        eng.submit(p, max_new=1)
+    profile_window(eng, *HYB_WINDOW, "hybrid_profile")
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    ssd_cases(torch.Generator(device="cuda").manual_seed(SEED + 4))
+    emit({"phase": "hybrid_seconds", "seconds": time.perf_counter() - t0,
+          "profile_s": t2 - t1, "ssd_s": time.perf_counter() - t2,
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase embeds: the vision-language and audio front ends at full width
+# over the compressed KV cache (decode_step fed embeddings)
+# ----------------------------------------------------------------------
+
+# full width, depth cut to 4 layers as the Qwen2 slice's (4 of 28; of 48)
+EMB_ARCHS = (("qwen2-vl-7b", "vlm_decode"), ("musicgen-medium",
+                                             "audio_decode"))
+EMB_LAYERS, EMB_PLANES = 4, 16
+EMB_SLOTS, EMB_PROMPT, EMB_NEW = 8, 128, 64
+EMB_STEPS = EMB_PROMPT + EMB_NEW - 1  # as an engine: the last token unfed
+EMB_MAX_LEN = 256
+EMB_MROPE_SPLIT = 64  # positions whose three M-RoPE streams differ
+EMB_SCALE = 0.02  # the embeddings' scale, the embedding table's own
+
+
+def emb_positions(cfg, p: int) -> torch.Tensor:
+    """Every slot's position ``p``: (B, 1), or for M-RoPE (3, B, 1) with
+    temporal p, height p // 8 and width p % 8 for p < 64, then p thrice."""
+    col = torch.full((EMB_SLOTS, 1), p, dtype=torch.int32, device="cuda")
+    if not cfg.mrope_sections:
+        return col
+    if p >= EMB_MROPE_SPLIT:
+        return torch.stack([col, col, col])
+    return torch.stack([col, col // 8, col % 8])
+
+
+def emb_run(cfg, params, embeds, backend):
+    """``EMB_STEPS`` lockstep decode steps over a fresh compressed cache
+    fed ``embeds`` (B, S, d). Returns (logits (S, B, V) on the card,
+    the cache, wall s)."""
+    cache = lm.init_cache(cfg, EMB_SLOTS, EMB_MAX_LEN, "cuda")
+    out = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(EMB_STEPS):
+        logits, cache = lm.decode_step(cfg, params, cache,
+                                       embeds[:, i:i + 1],
+                                       emb_positions(cfg, i),
+                                       backend=backend)
+        out.append(logits)
+    torch.cuda.synchronize()
+    return torch.stack(out), cache, time.perf_counter() - t0
+
+
+def embeds_model(arch):
+    cfg = dataclasses.replace(get_config(arch), num_layers=EMB_LAYERS,
+                              kv_compress_planes=EMB_PLANES)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    params = lm.init_params(cfg, gen, device="cuda")
+    embeds = (EMB_SCALE * torch.randn(EMB_SLOTS, EMB_STEPS, cfg.d_model,
+                                      generator=gen, device="cuda")
+              ).to(lm.dtype_of(cfg))
+    zfp_kernel.reset_launches()
+    cdecode_kernel.reset_launches()
+    with last_attention_inputs(cfg.num_layers) as seen:
+        logits, cache, wall = emb_run(cfg, params, embeds, "cuda")
+    counts = {"zfp_encode": zfp_kernel.launches["encode"],
+              "zfp_decode": zfp_kernel.launches["decode"],
+              **{f"zfp_{k}": v for k, v in zfp_kernel.f32_ndims.items()},
+              "cdecode": cdecode_kernel.launches["cdecode"]}
+    flushes = EMB_STEPS // kvcache.CHUNK
+    want = {"cdecode": cfg.num_layers * EMB_STEPS,
+            "zfp_encode": 2 * cfg.num_layers * flushes}
+    check(counts["cdecode"] == want["cdecode"]
+          and counts["zfp_encode"] == want["zfp_encode"]
+          == counts.get("zfp_encode ndim2", 0),
+          f"{arch}: launches {counts}, expected {want}")
+    check(bool(torch.isfinite(logits).all()), f"{arch}: non-finite logits")
+    ok, err, same = cache_kernel_checks(cfg, types.SimpleNamespace(
+        cache=cache), seen)
+    del seen
+    ref_logits, _, rwall = emb_run(cfg, params, embeds, "ref")
+    ratio = replay_ratio(logits.float(), ref_logits.float())
+    agree = (logits.argmax(-1) == ref_logits.argmax(-1)).float().mean()
+    head = cfg.num_heads // cfg.num_kv_heads
+    emit({"phase": f"embeds_{arch}", "arch": arch, "family": cfg.family,
+          "dtype": cfg.dtype, "layers": cfg.num_layers,
+          "d_model": cfg.d_model, "head_dim": cfg.head_dim,
+          "queries_per_kv_head": head, "kv_planes": EMB_PLANES,
+          "slots": EMB_SLOTS, "steps": EMB_STEPS, "max_len": EMB_MAX_LEN,
+          "mrope": bool(cfg.mrope_sections), "wall_s": wall,
+          "step_ms": wall / EMB_STEPS * 1e3,
+          "fed_tokens_per_s": EMB_SLOTS * EMB_STEPS / wall,
+          "ref_wall_s": rwall, "launches": counts,
+          "cdecode_within_tol": ok, "cdecode_max_abs_err": err,
+          "cdecode_tol": CD_TOL, "encode_bitwise": same,
+          "max_ratio": max(ratio), "median_ratio": statistics.median(ratio),
+          "greedy_agreement": float(agree),
+          "compressed_cache_bytes": kvcache.compressed_bytes(cache),
+          "params_bytes": sum(t.numel() * t.element_size()
+                              for t in params.parameters())})
+    check(ok, f"{arch}: cdecode differs from its plain version (max |d| "
+              f"{err})")
+    check(same, f"{arch}: the chunk-flush encode differs from the plain "
+                f"codec")
+    check(max(ratio) < SERVE_TOL, f"{arch}: kernels vs plain versions: "
+                                  f"ratio {max(ratio)}")
+    del params, cache, logits, ref_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def embeds_slice():
+    """Each model's path counted from 0: (path name, its counts)."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    out = {path: embeds_model(arch) for arch, path in EMB_ARCHS}
+    emit({"phase": "embeds_seconds", "seconds": time.perf_counter() - t0,
+          "peak_allocated_bytes": torch.cuda.max_memory_allocated()})
+    return out
+
+
+# ----------------------------------------------------------------------
 # phase train: the trainer, compressed remat and compressed gradients
 # ----------------------------------------------------------------------
 
@@ -4000,6 +4319,13 @@ def main() -> int:
 
     moe_counts = moe_slice()
     emit({"phase": "launches", "path": "moe_serving", **moe_counts})
+    gc.collect()
+    torch.cuda.empty_cache()
+    hybrid_counts = hybrid_slice()
+    emit({"phase": "launches", "path": "hybrid_serving", **hybrid_counts})
+    emb_counts = embeds_slice()
+    for path, c in emb_counts.items():
+        emit({"phase": "launches", "path": path, **c})
 
     train_counts = train_slice(results)
     emit({"phase": "launches", "path": "train", **train_counts})
@@ -4061,6 +4387,7 @@ def main() -> int:
              "ooc_f64": f64_counts, "ooc_live_f64": live64_counts,
              "precision": prec_counts, "serving": serve_counts,
              "ssm_serving": ssm_counts, "moe_serving": moe_counts,
+             "hybrid_serving": hybrid_counts, **emb_counts,
              "train": train_counts}
     # the float32 codec's rows time the ndim-3 unit and give their launches
     # by ndim (the lossy checkpoint leaves at 1, the KV cache at 2), and

@@ -83,13 +83,20 @@ def params_from_reference(cfg: ModelConfig, leaves: Mapping[str, object],
 
     ``leaves`` is the reference's tree as numpy arrays: ``layers`` maps
     each leaf name to its ``(L, ...)`` stack (as ``jax.vmap`` made it),
-    beside ``final_norm``, ``lm_head`` and ``embed``. Every leaf must
-    match a parameter of the port by name and shape, and the other way
-    round."""
+    beside ``final_norm``, ``lm_head``, ``embed`` and, for the hybrid,
+    the ``shared_attn`` subtree of single leaves. Every leaf must match a
+    parameter of the port by name and shape, and the other way round."""
     dev = device_mod.resolve(device)
     model = M.Model(cfg, device=dev, dtype=M.dtype_of(cfg))
     layers = dict(leaves["layers"])
-    top = {k: v for k, v in leaves.items() if k != "layers"}
+    top = {}
+    for key, leaf in leaves.items():
+        if key == "layers":
+            continue
+        if isinstance(leaf, Mapping):
+            top.update({f"{key}.{name}": a for name, a in leaf.items()})
+        else:
+            top[key] = leaf
     want_layer = {name for name, _ in model.layers[0].named_parameters()}
     want_top = {name for name, _ in model.named_parameters()
                 if not name.startswith("layers.")}
@@ -103,7 +110,7 @@ def params_from_reference(cfg: ModelConfig, leaves: Mapping[str, object],
             for i, lp in enumerate(model.layers):
                 getattr(lp, name).copy_(_tensor(stack[i], dev))
         for name, leaf in top.items():
-            getattr(model, name).copy_(_tensor(_array(leaf), dev))
+            model.get_parameter(name).copy_(_tensor(_array(leaf), dev))
     return model
 
 
@@ -135,15 +142,16 @@ def _host(t: torch.Tensor):
 def _to_reference_tree(tensors: Mapping[str, torch.Tensor]):
     """A name -> tensor mapping in ``Model.named_parameters()`` naming as
     the reference's tree: ``layers`` holds each per-layer leaf stacked
-    ``(L, ...)``."""
+    ``(L, ...)``, ``shared_attn`` (the hybrid's) its leaves as they are."""
     tree: Dict[str, object] = {}
     for key, names in M.stacked_leaves(tensors).items():
         parts = [tensors[n].detach() for n in names]
-        if key.startswith("layers/"):
-            tree.setdefault("layers", {})[key.split("/", 1)[1]] = _host(
-                torch.stack(parts))
-        else:
+        if "/" not in key:
             tree[key] = _host(parts[0])
+            continue
+        sub, leaf = key.split("/", 1)
+        tree.setdefault(sub, {})[leaf] = _host(
+            torch.stack(parts) if sub == "layers" else parts[0])
     return tree
 
 
@@ -153,19 +161,22 @@ def _from_reference_tree(tree: Mapping[str, object], names,
     ``names``: every name's piece of its reference leaf on ``device``."""
     out: Dict[str, torch.Tensor] = {}
     for key, group in M.stacked_leaves(names).items():
-        if key.startswith("layers/"):
-            stack = tree["layers"][key.split("/", 1)[1]]
-            for i, name in enumerate(group):
-                out[name] = _tensor(stack[i], device)
-        else:
+        if "/" not in key:
             out[key] = _tensor(tree[key], device)
+            continue
+        sub, leaf = key.split("/", 1)
+        if sub == "layers":
+            for i, name in enumerate(group):
+                out[name] = _tensor(tree[sub][leaf][i], device)
+        else:
+            out[group[0]] = _tensor(tree[sub][leaf], device)
     return {n: out[n] for n in names}
 
 
 def params_to_reference(model: M.Model):
     """The reference's parameter tree of ``model`` (the inverse of
     ``params_from_reference``): host arrays, per-layer leaves stacked
-    ``(L, ...)`` under ``layers``."""
+    ``(L, ...)`` under ``layers``, the hybrid's ``shared_attn`` subtree."""
     return _to_reference_tree(dict(model.named_parameters()))
 
 

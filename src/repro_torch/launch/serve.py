@@ -11,14 +11,21 @@ or (``--ooc``) the multi-tenant out-of-core stencil scheduler.
       --arch qwen3-moe-235b-a22b --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch falcon-mamba-7b \
       --no-smoke --slots 8 --requests 8
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
+      --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --ooc --tenants 3 \
       --shape 192 1152 1152 --blocks 4 --sweeps 2
 
 ``--arch`` takes a config of the dense family (raw KV cache), of the
 MoE family (qwen3-moe-235b-a22b, llama4-scout-17b-a16e: each step's
-tokens routed to their top-k experts, with no drop at decode) or of the
+tokens routed to their top-k experts, with no drop at decode), of the
 ssm family (falcon-mamba: per-slot ``conv`` and ``h`` states, the
-selective-scan kernel on every layer and step). The flags are the
+selective-scan kernel on every layer and step) or the hybrid
+(zamba2-2.7b: Mamba-2 states a layer and the shared block's raw K/V a
+group). The audio and vision-language configs (musicgen-medium,
+qwen2-vl-7b) take embeddings, which the engine does not feed (the
+reference's neither): the launcher stops with the engine's message
+before it makes any weights. The flags are the
 reference launcher's (``repro.launch.serve``), plus
 ``--no-smoke`` (the full-width config) and ``--device``. It runs on the
 CUDA device unless ``--device cpu`` is given. Weights are random, from a
@@ -43,7 +50,7 @@ import torch
 from repro_torch import device as device_mod
 from repro_torch.configs import get_config, smoke
 from repro_torch.models import model as M
-from repro_torch.serving.engine import ServeEngine
+from repro_torch.serving.engine import ServeEngine, check_servable
 
 
 def run_ooc(args):
@@ -118,10 +125,14 @@ def main(argv=None):
     if args.ooc:
         return run_ooc(args)
 
-    dev = device_mod.resolve(args.device)
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = smoke(cfg)
+    try:
+        check_servable(cfg)
+    except ValueError as e:
+        raise SystemExit(f"serve: {e}") from e
+    dev = device_mod.resolve(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = M.init_params(cfg, gen, device=dev)
     eng = ServeEngine(

@@ -1,24 +1,31 @@
 """Decoder LM: parameters, caches, the full-sequence forward, the
 training loss, prefill and the one-token decode step.
 
-Port of the dense, MoE and Mamba-1 (``ssm``) paths of
-``repro.models.model``. Each layer is an ``nn.Module`` whose parameters
-carry the reference's leaf names (dense: ``ln1``, ``wq``, ``bq``, ...,
-``wg``, ``wu``, ``wd``; MoE: the FFN's ``router``, ``wg_e``, ``wu_e``,
-``wd_e`` and the shared expert's ``wg_s``, ``wu_s``, ``wd_s`` instead;
-Mamba-1: ``ln1``, ``in_proj``, ``conv_w``, ..., ``A_log``, ``D``,
-``out_proj``) in its layout, ``(d_in, d_out)``, so ``h @ wq`` computes
-what the reference computes; the layers sit in an ``nn.ModuleList``
-where the reference scans a stacked tree (``stacked_leaves`` maps the
-port's names onto the reference's ``(L, ...)`` leaves). As in the
-reference, the model has its own ``lm_head`` even when the config ties
-embeddings, and a Mamba-1 layer keeps ``A_log`` and ``D`` in float32.
+Port of ``repro.models.model``, every family: dense, MoE, Mamba-1
+(``ssm``), the zamba2 hybrid, and the audio and vision-language front
+ends (``embeds_input``: the model takes precomputed embeddings, and
+qwen2-vl (3, B, S) M-RoPE positions). Each layer is an ``nn.Module``
+whose parameters carry the reference's leaf names (dense: ``ln1``,
+``wq``, ``bq``, ..., ``wg``, ``wu``, ``wd``; MoE: the FFN's ``router``,
+``wg_e``, ``wu_e``, ``wd_e`` and the shared expert's ``wg_s``, ``wu_s``,
+``wd_s`` instead; Mamba-1: ``ln1``, ``in_proj``, ``conv_w``, ...,
+``A_log``, ``D``, ``out_proj``; Mamba-2 the same without ``x_proj`` and
+``dt_w``) in its layout, ``(d_in, d_out)``, so ``h @ wq`` computes what
+the reference computes; the layers sit in an ``nn.ModuleList`` where the
+reference scans a stacked tree (``stacked_leaves`` maps the port's names
+onto the reference's ``(L, ...)`` leaves). The hybrid's shared attention
+block is ``Model.shared_attn``, a ``DenseLayer`` (the reference's
+``shared_attn`` subtree), applied after every ``attn_period`` Mamba-2
+layers. As in the reference, the model has its own ``lm_head`` even when
+the config ties embeddings, and a Mamba layer keeps ``A_log`` and ``D``
+in float32.
 Parameters are made with ``requires_grad=False``; training turns it on
 for the model it trains (``launch.steps.make_train_step``).
 
-The dense and MoE families' ``forward`` is differentiable: blocked
-attention (``layers.blocked_attention``) and each layer under the
-config's remat policy (``_remat``: none, full, dots, or compressed
+The ``forward`` of every family but ``ssm`` is differentiable: blocked
+attention (``layers.blocked_attention``) and each layer (the hybrid:
+each group of ``attn_period`` Mamba-2 layers and the shared block) under
+the config's remat policy (``_remat``: none, full, dots, or compressed
 residuals through ``core.remat``); an MoE layer's FFN is
 ``models.moe.moe_ffn`` (top-k routing, capacity dispatch, its
 load-balance loss summed over the layers into ``aux``); ``loss_fn``
@@ -34,14 +41,17 @@ SSM family's layers scan through the selective-scan kernel
 model runs the XLA form) at decode and at prefill. Every kernel launches
 on the card when ``backend="cuda"``, which is the default for a model on
 a CUDA device. The compressed cache is slot-synchronous, as in the
-reference.
+reference. The hybrid's Mamba-2 layers (``models.ssm.mamba2_seq``) and
+its shared block are plain PyTorch, as the reference's are XLA, and its
+cache is the raw one whatever ``kv_compress_planes`` says (the
+reference's ``init_cache``): ``conv`` and ``h`` a Mamba-2 layer, K and
+V a group.
 
-Not ported yet (ROADMAP.md queue 1): Mamba-2 and the hybrid family
-(item 18), the ssm family's training, a gradient through the scan (item
-19: its ``forward`` is inference-only and ignores ``cfg.remat``), the
-audio and vision-language front ends (item 20), the logical sharding
-axes (item 21) and with them MoE's expert-parallel branch; training an
-MoE model at full width waits for a multi-card trainer (item 24).
+Not ported yet (ROADMAP.md queue 1): the ssm family's training, a
+gradient through the scan (item 19: its ``forward`` is inference-only
+and ignores ``cfg.remat``), the logical sharding axes (item 21) and with
+them MoE's expert-parallel branch; training an MoE model at full width
+waits for a multi-card trainer (item 24).
 """
 
 from __future__ import annotations
@@ -63,12 +73,8 @@ from repro_torch.models import ssm as SSM
 
 NOT_PORTED = (
     "the {what} is not ported yet: ROADMAP.md queue 1 item {item} (this "
-    "port trains the dense and moe families and serves the dense, moe and "
-    "ssm families)"
+    "port trains every family but ssm)"
 )
-PORTED_FAMILIES = ("dense", "moe", "ssm")
-# the ROADMAP item that ports each family still missing
-FAMILY_ITEM = {"hybrid": 18, "audio": 20, "vlm": 20}
 SSM_TRAINING_ITEM = 19
 REMATS = ("none", "full", "dots", "compressed")
 COMPRESSED_REMAT_PLANES = 12  # the reference's model.py:344
@@ -78,24 +84,25 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _require_ported(cfg: ModelConfig) -> None:
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(NOT_PORTED.format(
-            what=f"{cfg.family!r} family ({cfg.name})",
-            item=FAMILY_ITEM[cfg.family]))
+def _mixer_kind(cfg: ModelConfig) -> str:
+    if cfg.family == "ssm":
+        return "mamba1"
+    if cfg.family == "hybrid":
+        return "mamba2"
+    return "attn"
 
 
 def stacked_leaves(names) -> Dict[str, List[str]]:
     """The reference's leaf of each parameter name, in first-seen order:
     ``layers.<i>.<leaf>`` joins ``layers/<leaf>`` (its pieces in layer
-    order, the reference's ``(L, ...)`` stack), any other name is a leaf
-    of its own. Keys are the checkpoint's flat keys of the reference's
-    parameter tree."""
+    order, the reference's ``(L, ...)`` stack), ``shared_attn.<leaf>`` is
+    the leaf ``shared_attn/<leaf>`` of the hybrid's subtree, any other
+    name is a leaf of its own. Keys are the checkpoint's flat keys of the
+    reference's parameter tree."""
     out: Dict[str, List[str]] = {}
     for name in names:
         parts = name.split(".")
-        key = "/".join((parts[0], parts[2])) if parts[0] == "layers" \
-            else name
+        key = "/".join((parts[0], parts[-1])) if len(parts) > 1 else name
         out.setdefault(key, []).append(name)
     return out
 
@@ -200,15 +207,55 @@ class Mamba1Layer(nn.Module):
         normal(self.out_proj, self.out_proj.shape[0] ** -0.5)
 
 
-class Model(nn.Module):
-    """The decoder's parameters: ``layers``, ``final_norm``, ``lm_head``
-    and (for token input) ``embed``."""
+class Mamba2Layer(nn.Module):
+    """One Mamba-2 (SSD) mixer layer (zamba2), with the reference's leaves:
+    ``in_proj`` gives z, x, B and C (``ssm_groups`` each) and the heads'
+    dt; ``dt_b``, ``A_log`` and ``D`` are per head, the last two float32
+    whatever ``dtype``."""
 
     def __init__(self, cfg: ModelConfig, *, device, dtype):
         super().__init__()
-        _require_ported(cfg)
         self.cfg = cfg
-        layer = Mamba1Layer if cfg.family == "ssm" else DenseLayer
+        d, di, n = cfg.d_model, cfg.d_inner, cfg.ssm_state
+        nh, g = cfg.ssm_heads, cfg.ssm_groups
+        p = lambda *shape: _param(shape, device, dtype)
+        self.ln1 = p(d)
+        self.in_proj = p(d, 2 * di + 2 * g * n + nh)
+        self.conv_w, self.conv_b = p(di, cfg.ssm_conv), p(di)
+        self.dt_b = p(nh)
+        self.A_log = _param((nh,), device, torch.float32)
+        self.D = _param((nh,), device, torch.float32)
+        self.out_proj = p(di, d)
+
+    def forward(self, x, state=None, *, backend="ref", h_out=None):
+        return _mamba_layer(self.cfg, self, x, state, backend=backend,
+                            h_out=h_out)
+
+    @torch.no_grad()
+    def reset_parameters(self, normal) -> None:
+        """As ``_mamba2_layer_init``: ``conv_w`` scaled by the kernel
+        width, ``dt_b`` at softplus^-1(0.01), ``A_log = 0``, ``D = 1``."""
+        self.ln1.fill_(1.0)
+        normal(self.in_proj, self.in_proj.shape[0] ** -0.5)
+        normal(self.conv_w, self.conv_w.shape[1] ** -0.5)
+        self.conv_b.zero_()
+        self.dt_b.fill_(-4.6)
+        self.A_log.zero_()
+        self.D.fill_(1.0)
+        normal(self.out_proj, self.out_proj.shape[0] ** -0.5)
+
+
+LAYERS = {"attn": DenseLayer, "mamba1": Mamba1Layer, "mamba2": Mamba2Layer}
+
+
+class Model(nn.Module):
+    """The decoder's parameters: ``layers``, ``final_norm``, ``lm_head``,
+    (for token input) ``embed`` and (for the hybrid) ``shared_attn``."""
+
+    def __init__(self, cfg: ModelConfig, *, device, dtype):
+        super().__init__()
+        self.cfg = cfg
+        layer = LAYERS[_mixer_kind(cfg)]
         self.layers = nn.ModuleList(
             layer(cfg, device=device, dtype=dtype)
             for _ in range(cfg.num_layers))
@@ -216,6 +263,8 @@ class Model(nn.Module):
         self.lm_head = _param((cfg.d_model, cfg.vocab_size), device, dtype)
         if not cfg.embeds_input:
             self.embed = _param((cfg.vocab_size, cfg.d_model), device, dtype)
+        if cfg.attn_period:
+            self.shared_attn = DenseLayer(cfg, device=device, dtype=dtype)
 
     @property
     def device(self) -> torch.device:
@@ -226,11 +275,10 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 *, device: device_mod.DeviceLike = None) -> Model:
     """Random weights as the reference draws them (normal in the
     config's type, scaled by ``fan_in ** -0.5``; norms one, biases zero,
-    the Mamba-1 constants as ``_mamba1_layer_init``, the embedding at
-    0.02), from ``generator`` (seed 0 on the device when none is given).
-    The numbers differ from ``jax.random``'s; carry the reference's own
-    weights over with ``convert.params_from_reference``."""
-    _require_ported(cfg)
+    the Mamba constants as ``_mamba1_layer_init`` / ``_mamba2_layer_init``,
+    the embedding at 0.02), from ``generator`` (seed 0 on the device when
+    none is given). The numbers differ from ``jax.random``'s; carry the
+    reference's own weights over with ``convert.params_from_reference``."""
     dev = device_mod.resolve(device)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
@@ -243,6 +291,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
         normal(model.lm_head, cfg.d_model ** -0.5)
         if not cfg.embeds_input:
             normal(model.embed, 0.02)
+        if cfg.attn_period:
+            model.shared_attn.reset_parameters(normal)
     return model
 
 
@@ -321,10 +371,16 @@ def _decoder_layer(cfg, p, x, positions, kv_cache=None, cache_len=None):
 
 
 def _mamba_layer(cfg, p, x, state=None, *, backend="ref", h_out=None):
-    """Pre-norm Mamba-1 mixer with its residual. Returns (x, new state)."""
+    """Pre-norm Mamba mixer (Mamba-1 through the scan's ``backend``, or
+    Mamba-2) with its residual. Returns (x, new state)."""
     h = L.norm(x, p.ln1, cfg.norm_eps, cfg.norm)
-    y, new_state = SSM.mamba1_seq(p, h, chunk=cfg.ssm_chunk, state=state,
-                                  backend=backend, h_out=h_out)
+    if _mixer_kind(cfg) == "mamba1":
+        y, new_state = SSM.mamba1_seq(p, h, chunk=cfg.ssm_chunk, state=state,
+                                      backend=backend, h_out=h_out)
+    else:
+        y, new_state = SSM.mamba2_seq(
+            p, h, chunk=cfg.ssm_chunk, ngroups=cfg.ssm_groups,
+            ssm_state=cfg.ssm_state, state=state, h_out=h_out)
     return x + y, new_state
 
 
@@ -347,10 +403,10 @@ def _final_hidden_to_logits(cfg, params: Model, x: torch.Tensor):
 class DecodeCache(NamedTuple):
     """Attention KV (possibly absent), SSM states (possibly absent)."""
 
-    k: Optional[torch.Tensor]  # (L, B, Smax, KV, hd)
+    k: Optional[torch.Tensor]  # (L_attn, B, Smax, KV, hd); hybrid: a group
     v: Optional[torch.Tensor]
     conv: Optional[torch.Tensor]  # (L_ssm, B, K-1, di)
-    h: Optional[torch.Tensor]  # (L_ssm, B, di, N) float32
+    h: Optional[torch.Tensor]  # (L_ssm, B, di, N) f32; Mamba-2 (.., H, P, N)
     length: int
 
 
@@ -378,14 +434,25 @@ def init_compressed_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                device: device_mod.DeviceLike = None):
-    _require_ported(cfg)
+    """The decode cache: the ssm family's ``conv`` and ``h`` a layer; the
+    hybrid's ``conv`` and ``h`` a Mamba-2 layer and a raw K/V a group
+    (``kv_compress_planes`` ignored, as in the reference); the attention
+    families' K/V a layer, raw or compressed."""
     dev = device_mod.resolve(device)
-    if cfg.family == "ssm":
+    mixer = _mixer_kind(cfg)
+    if mixer != "attn":
+        state = ((cfg.d_inner,) if mixer == "mamba1"
+                 else (cfg.ssm_heads, cfg.ssm_head_dim))
         conv = torch.zeros((cfg.num_layers, batch, cfg.ssm_conv - 1,
                             cfg.d_inner), dtype=dtype_of(cfg), device=dev)
-        h = torch.zeros((cfg.num_layers, batch, cfg.d_inner, cfg.ssm_state),
+        h = torch.zeros((cfg.num_layers, batch) + state + (cfg.ssm_state,),
                         dtype=torch.float32, device=dev)
-        return DecodeCache(None, None, conv, h, 0)
+        if mixer == "mamba1":
+            return DecodeCache(None, None, conv, h, 0)
+        shape = (cfg.num_layers // cfg.attn_period, batch, max_len,
+                 cfg.num_kv_heads, cfg.head_dim)
+        k = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
+        return DecodeCache(k, torch.zeros_like(k), conv, h, 0)
     if cfg.kv_compress_planes:
         return init_compressed_cache(cfg, batch, max_len, device)
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
@@ -454,6 +521,58 @@ def _dense_body(cfg, names, positions, collect_cache: bool):
     return body
 
 
+def _hybrid_body(cfg, m_names, s_names, positions, collect_cache: bool):
+    """One hybrid group as a function of tensors only, ``(h, aux,
+    *mamba_weights, *shared_weights) -> (h, aux[, conv, h_ssm, k, v])``:
+    ``attn_period`` Mamba-2 layers (``m_names`` a layer, in layer order),
+    then the shared attention block. Every weight is an argument, as in
+    ``_dense_body``; ``conv`` and ``h_ssm`` are the group's layers'
+    states stacked ``(period, ...)``."""
+    period, nm = cfg.attn_period, len(m_names)
+
+    def body(h, aux, *weights):
+        convs, hs = [], []
+        for j in range(period):
+            lp = SimpleNamespace(**dict(zip(
+                m_names, weights[j * nm:(j + 1) * nm])))
+            h, st = _mamba_layer(cfg, lp, h)
+            convs.append(st.conv)
+            hs.append(st.h)
+        sp = SimpleNamespace(**dict(zip(s_names, weights[period * nm:])))
+        h, (k, v), a = _decoder_layer(cfg, sp, h, positions)
+        aux = aux + a
+        if not collect_cache:
+            return h, aux
+        return h, aux, torch.stack(convs), torch.stack(hs), k, v
+
+    return body
+
+
+def _hybrid_forward(cfg, params, x, positions, collect_cache, backend):
+    """``num_layers // attn_period`` groups, each under ``_remat``. With
+    ``collect_cache`` the reference's grouped cache: (MambaState(conv
+    (G, period, B, K-1, di), h (G, period, B, H, P, N)), (k, v) each
+    (G, B, S, KV, hd))."""
+    period = cfg.attn_period
+    m_names = [n for n, _ in params.layers[0].named_parameters()]
+    s_names = [n for n, _ in params.shared_attn.named_parameters()]
+    shared = [getattr(params.shared_attn, n) for n in s_names]
+    body = _remat(cfg, _hybrid_body(cfg, m_names, s_names, positions,
+                                    collect_cache), backend)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    parts = []
+    for g in range(cfg.num_layers // period):
+        group = params.layers[g * period:(g + 1) * period]
+        outs = body(x, aux, *(getattr(lp, n) for lp in group
+                              for n in m_names), *shared)
+        x, aux = outs[0], outs[1]
+        parts.append(outs[2:])
+    if not collect_cache:
+        return x, aux, None
+    conv, h, k, v = (torch.stack(t) for t in zip(*parts))
+    return x, aux, (SSM.MambaState(conv, h), (k, v))
+
+
 @torch.inference_mode()
 def _ssm_forward(cfg, params, x, collect_cache, backend):
     states = []
@@ -473,21 +592,24 @@ def forward(cfg: ModelConfig, params: Model, tokens: torch.Tensor,
             backend: Optional[str] = None):
     """Full-sequence forward. Returns (hidden (B, S, d), aux loss, cache).
 
-    Dense and MoE: differentiable (each layer under ``_remat``); with
-    ``collect_cache`` the per-layer K and V as ``(L, B, S, KV, hd)``
-    stacks ``(k, v)``. ssm: inference only (``cfg.remat`` ignored;
-    training it is ROADMAP.md item 19); with ``collect_cache`` one
-    ``MambaState`` of ``(L, ...)`` stacks; ``positions`` unused, as in
-    the reference's ssm branch. ``backend`` picks the kernels (the
+    Dense, MoE, audio and vlm: differentiable (each layer under
+    ``_remat``); with ``collect_cache`` the per-layer K and V as
+    ``(L, B, S, KV, hd)`` stacks ``(k, v)``. hybrid: differentiable (each
+    group under ``_remat``), the grouped cache of ``_hybrid_forward``.
+    ssm: inference only (``cfg.remat`` ignored; training it is ROADMAP.md
+    item 19); with ``collect_cache`` one ``MambaState`` of ``(L, ...)``
+    stacks; ``positions`` unused, as in the reference's ssm branch. ``backend`` picks the kernels (the
     compressed remat's codec, the selective scan): ``"cuda"``, the
     default on a CUDA device, or ``"ref"``."""
-    _require_ported(cfg)
     dev = params.device
     backend = device_mod.backend_for(dev, backend)
     x = _embed_in(cfg, params, _on(tokens, dev))
     if cfg.family == "ssm":
         return _ssm_forward(cfg, params, x, collect_cache, backend)
     positions = _on(positions, dev)
+    if cfg.family == "hybrid":
+        return _hybrid_forward(cfg, params, x, positions, collect_cache,
+                               backend)
     names = [n for n, _ in params.layers[0].named_parameters()]
     body = _remat(cfg, _dense_body(cfg, names, positions, collect_cache),
                   backend)
@@ -551,8 +673,9 @@ def loss_fn(cfg: ModelConfig, params: Model, batch, *,
 def prefill(cfg: ModelConfig, params: Model, tokens: torch.Tensor,
             positions: torch.Tensor, *, backend: Optional[str] = None):
     """Full-sequence forward; returns (last-token logits (B, V), the
-    cache parts: the dense family's ``(k, v)`` stacks of shape
-    (L, B, S, KV, hd), the ssm family's ``MambaState`` stacks)."""
+    cache parts: the attention families' ``(k, v)`` stacks of shape
+    (L, B, S, KV, hd), the ssm family's ``MambaState`` stacks, the
+    hybrid's grouped ``(MambaState, (k, v))``)."""
     hidden, _, cache = forward(cfg, params, tokens, positions,
                                collect_cache=True, backend=backend)
     logits = _final_hidden_to_logits(cfg, params, hidden[:, -1:])[:, 0]
@@ -572,30 +695,35 @@ def decode_step(
     """One decode step; each slot's token is written at its own
     position (per-slot continuous batching; the compressed cache is
     slot-synchronous) and attention masks to position + 1; an SSM layer
-    advances each slot's ``conv`` and ``h`` in place. ``backend`` picks
+    advances each slot's ``conv`` and ``h`` in place, and the hybrid's
+    shared block after group g attends over group g's K/V. ``backend`` picks
     the kernels of the compressed path and of the selective scan:
     ``"cuda"`` (the default on a CUDA device) or ``"ref"`` (their plain
     versions). An MoE layer routes the step's B tokens with no drop
     (``moe._capacity``) and its load-balance loss is dropped, as in the
     reference. Returns (logits (B, V), the cache with ``length + 1``)."""
-    _require_ported(cfg)
     dev = params.device
     backend = device_mod.backend_for(dev, backend)
     token = _on(token, dev)
     positions = _on(positions, dev)
     x = _embed_in(cfg, params, token)
-    if cfg.family == "ssm":
+    pos_b = positions[0, :, 0] if cfg.mrope_sections else positions[:, 0]
+    new_len = pos_b.to(torch.int32) + 1  # (B,) per-slot fill
+    if cfg.family in ("ssm", "hybrid"):
+        period = cfg.attn_period
         for i, lp in enumerate(params.layers):
             x, st = lp(x, SSM.MambaState(cache.conv[i], cache.h[i]),
                        backend=backend, h_out=cache.h[i])
             cache.conv[i].copy_(st.conv)
+            if period and (i + 1) % period == 0:
+                g = i // period
+                x, _, _ = params.shared_attn(
+                    x, positions, (cache.k[g], cache.v[g]), new_len)
         logits = _final_hidden_to_logits(cfg, params, x)[:, 0]
         return logits, cache._replace(length=cache.length + 1)
     if cfg.kv_compress_planes:
         return _decode_step_compressed(cfg, params, cache, x, positions,
                                        backend)
-    pos_b = positions[0, :, 0] if cfg.mrope_sections else positions[:, 0]
-    new_len = pos_b.to(torch.int32) + 1  # (B,) per-slot fill
     for i, lp in enumerate(params.layers):
         x, _, _ = lp(x, positions, (cache.k[i], cache.v[i]), new_len)
     logits = _final_hidden_to_logits(cfg, params, x)[:, 0]

@@ -21,13 +21,21 @@ to the earlier request's history). Where the reference would serve such
 a request wrongly, this engine refuses it: admitting a request into a
 compressed cache that already holds tokens raises ``ValueError``.
 
-An SSM cache (``conv`` and ``h``, falcon-mamba) holds each slot's
-recurrent state, which the next step reads as it is. A request admitted
-into a slot starts from zero state, as ``mamba1_seq(state=None)`` does:
-the engine zeroes that slot's ``conv`` and ``h`` rows in every layer.
-The reference engine resets only the slot's position, so a request it
-admits into a freed slot starts from the previous request's state (and
-from the idle steps taken on token 0 since).
+An SSM cache (``conv`` and ``h``: falcon-mamba's a Mamba-1 layer, the
+zamba2 hybrid's a Mamba-2 layer beside its raw K/V a group) holds each
+slot's recurrent state, which the next step reads as it is. A request
+admitted into a slot starts from zero state, as ``mamba1_seq`` and
+``mamba2_seq`` with ``state=None`` do: the engine zeroes that slot's
+``conv`` and ``h`` rows in every layer. The reference engine resets only
+the slot's position, so a request it admits into a freed slot starts
+from the previous request's state (and from the idle steps taken on
+token 0 since).
+
+The engine feeds token ids, as the reference's does: a config that
+takes embeddings (``embeds_input``: the audio and vision-language
+families) is refused with ``ValueError``; drive those through
+``models.model.decode_step`` with embeddings and, for qwen2-vl, (3, B, 1)
+M-RoPE positions.
 """
 
 from __future__ import annotations
@@ -53,6 +61,15 @@ class Request:
     done: bool = False
 
 
+def check_servable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a config the engine cannot feed."""
+    if cfg.embeds_input:
+        raise ValueError(
+            f"{cfg.name} takes embeddings ({cfg.family} family), and the "
+            f"serving engine feeds token ids only, as the reference's "
+            f"does: drive it through models.model.decode_step instead")
+
+
 class ServeEngine:
     def __init__(
         self,
@@ -66,6 +83,7 @@ class ServeEngine:
         device: device_mod.DeviceLike = None,
         backend: Optional[str] = None,
     ):
+        check_servable(cfg)
         # an index-free "cuda" names the current card, as tensors record it
         self.device = torch.empty(0, device=device_mod.resolve(device)).device
         if params.device != self.device:

@@ -1726,3 +1726,67 @@ def test_moe_combine_is_deterministic_on_card(cuda_device):
     assert int((~keep).sum()) > 0
     assert torch.equal(ys[0][0].view(torch.int16), ys[1][0].view(torch.int16))
     assert torch.equal(ys[0][1], ys[1][1])
+
+
+def test_hybrid_prefill_against_decode_on_card(cuda_device):
+    """zamba2 at smoke width in float32 on the card: ``prefill`` (SSD at
+    chunk 8 over 40 positions) against 40 decode steps (chunk 1) from
+    zero state: the last logits, every layer's ``h`` and ``conv`` and
+    every group's K/V within 1e-3 of their largest; the decode launches
+    no hand-written kernel (the reference's hybrid runs none)."""
+    cfg = smoke(get_config("zamba2-2.7b"))
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    params = model.init_params(cfg, gen, device=cuda_device)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        1, cfg.vocab_size, size=(4, 40)).astype(np.int32))
+    pos = torch.arange(40, dtype=torch.int32).expand(4, -1)
+    want, (st, (k, v)) = model.prefill(cfg, params, toks, pos)
+    cache = model.init_cache(cfg, 4, 64, cuda_device)
+    for n in (zfp_kernel, cdecode_kernel, sscan_kernel):
+        n.reset_launches()
+    for i in range(40):
+        logits, cache = model.decode_step(cfg, params, cache,
+                                          toks[:, i:i + 1], pos[:, i:i + 1])
+    assert sum(zfp_kernel.launches.values()) == 0
+    assert cdecode_kernel.launches["cdecode"] == sscan_kernel.launches[
+        "sscan"] == 0
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max())
+    assert rel(logits, want) < 1e-3
+    assert rel(cache.h, st.h.flatten(0, 1)) < 1e-3
+    assert rel(cache.conv, st.conv.flatten(0, 1)) < 1e-3
+    assert rel(cache.k[:, :, :40], k) < 1e-3
+    assert rel(cache.v[:, :, :40], v) < 1e-3
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-vl-7b"])
+def test_embeds_compressed_decode_kernels_against_plain(cuda_device, arch):
+    """The audio and vision-language front ends over the 16-plane
+    compressed cache, smoke width in float32: 72 decode steps fed
+    seeded embeddings (qwen2-vl's (3, B, 1) positions with three
+    different streams), through the kernels and through the plain
+    versions: the logits within 1e-3 of their largest at every step, and
+    the kernels launched (cdecode once a layer a step)."""
+    cfg = dataclasses.replace(smoke(get_config(arch)), kv_compress_planes=16)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    params = model.init_params(cfg, gen, device=cuda_device)
+    emb = torch.randn(4, 72, cfg.d_model, generator=gen, device=cuda_device)
+    logs = {}
+    for backend in ("cuda", "ref"):
+        cdecode_kernel.reset_launches()
+        cache = model.init_cache(cfg, 4, 128, cuda_device)
+        out = []
+        for i in range(72):
+            pos = torch.full((4, 1), i, dtype=torch.int32)
+            if cfg.mrope_sections:
+                pos = torch.stack([pos, pos // 4, pos % 4])
+            logits, cache = model.decode_step(cfg, params, cache,
+                                              emb[:, i:i + 1], pos,
+                                              backend=backend)
+            out.append(logits.float())
+        logs[backend] = torch.stack(out)
+        assert cdecode_kernel.launches["cdecode"] == (
+            72 * cfg.num_layers if backend == "cuda" else 0)
+    ratio = ((logs["cuda"] - logs["ref"]).abs().amax(dim=(1, 2))
+             / logs["ref"].abs().amax(dim=(1, 2)))
+    assert float(ratio.max()) < 1e-3

@@ -307,3 +307,83 @@ def test_launcher_serves_moe_on_cpu(capsys, arch):
     assert [line.startswith(f"request {i}:")
             for i, line in enumerate(out.splitlines()[:6], 1)] == [True] * 6
     assert "18 tokens in" in out
+
+
+# ----------------------------------------------------------------------
+# the hybrid family (zamba2 smoke: Mamba-2 states a layer, the shared
+# block's raw K/V a group), and the embeddings front ends the engine
+# refuses
+# ----------------------------------------------------------------------
+
+
+def _hyb_setup(seed=41):
+    jcfg = jsmoke(jget_config("zamba2-2.7b"))
+    tcfg = smoke(get_config("zamba2-2.7b"))
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(seed))
+    tp = convert.params_from_reference(tcfg, jax.tree.map(np.asarray, jp),
+                                       "cpu")
+    return jcfg, tcfg, jp, tp
+
+
+def test_hybrid_engine_matches_reference_lockstep():
+    """Every slot admitted at once from zero state: greedy streams equal
+    to the reference engine's, the logits within 1e-4, every sampled
+    step's top-2 margin over twice the largest logit distance."""
+    jcfg, tcfg, jp, tp = _hyb_setup()
+    prompts = np.random.default_rng(9).integers(
+        1, tcfg.vocab_size, size=(2, 12)).tolist()
+    out_j, log_j = _serve(JEngine(jcfg, jp, slots=2, max_len=64), prompts, 6)
+    out_t, log_t = _serve(TEngine(tcfg, tp, slots=2, max_len=64,
+                                  device="cpu"), prompts, 6)
+    assert out_t == out_j
+    assert log_t.shape == log_j.shape == (17, 2, tcfg.vocab_size)
+    np.testing.assert_allclose(log_t, log_j, rtol=0, atol=TOL[0])
+    assert _margins(log_j[11:]).min() > 2 * np.abs(log_t - log_j).max()
+
+
+def test_hybrid_late_admission_starts_from_zero_state():
+    """A request admitted into a freed hybrid slot yields the stream it
+    yields served alone: the engine zeroes every layer's conv and h rows
+    of the slot (its K/V rows are masked by position)."""
+    _, tcfg, _, tp = _hyb_setup()
+    outs, late, (step, slot, h_max, conv_max) = _late_traffic(
+        TEngine(tcfg, tp, slots=2, max_len=64, device="cpu"))
+    assert [len(o) for o in outs] == LATE["max_new"]
+    assert step > 0 and slot == 1 and h_max == conv_max == 0.0
+    solo_out, solo = _solo(TEngine(tcfg, tp, slots=2, max_len=64,
+                                   device="cpu"))
+    assert outs[2] == solo_out
+    np.testing.assert_allclose(late, solo, rtol=0, atol=TOL[0])
+
+
+def test_launcher_serves_zamba2_on_cpu(capsys):
+    """``--arch zamba2-2.7b`` at smoke size: 6 requests through 4 slots
+    (two enter freed slots) are all answered."""
+    from repro_torch.launch import serve
+
+    serve.main(["--arch", "zamba2-2.7b", "--device", "cpu", "--max-new", "3"])
+    out = capsys.readouterr().out
+    assert [line.startswith(f"request {i}:")
+            for i, line in enumerate(out.splitlines()[:6], 1)] == [True] * 6
+    assert "18 tokens in" in out
+
+
+@pytest.mark.parametrize("arch", ["musicgen-medium", "qwen2-vl-7b"])
+def test_launcher_refuses_embeddings_archs(capsys, arch):
+    """The audio and vision-language configs take embeddings, which the
+    engine (the reference's too) does not feed: the launcher stops with
+    the engine's message and answers nothing."""
+    from repro_torch.launch import serve
+
+    with pytest.raises(SystemExit, match="feeds token ids only"):
+        serve.main(["--arch", arch, "--device", "cpu"])
+    assert "request" not in capsys.readouterr().out
+
+
+def test_engine_refuses_embeds_input_config():
+    cfg = smoke(get_config("qwen2-vl-7b"))
+    from repro_torch.models import model as TM
+
+    params = TM.init_params(cfg, device="cpu")
+    with pytest.raises(ValueError, match="embeddings"):
+        TEngine(cfg, params, device="cpu")

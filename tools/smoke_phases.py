@@ -2,10 +2,14 @@
 """Run chosen phases of ``chip_smoke.py`` on the card and time each.
 
     python3 tools/smoke_phases.py ssm:64 ssm:16 moe
+    python3 tools/smoke_phases.py hybrid embeds hybrid:18
 
 Each argument names a phase: ``ssm`` (phase 9: falcon-mamba,
 its depth after the colon, the smoke's own ``SSM_LAYERS`` without one),
-``serving`` (phase 7: Qwen2-1.5B) or ``moe`` (phase ``moe``: Qwen3-MoE).
+``serving`` (phase 7: Qwen2-1.5B), ``moe`` (phase ``moe``: Qwen3-MoE),
+``hybrid`` (phase ``hybrid``: zamba2-2.7b, its depth after the colon,
+``HYB_LAYERS`` without one) or ``embeds`` (phase ``embeds``: qwen2-vl-7b
+and musicgen-medium).
 Needs one CUDA device and ``nvcc``; builds every kernel first. Prints the
 card line (``nvidia-smi`` name and power limit), the phases' own JSON
 lines, and after each one ``{"phase_seconds": ..., "phase": ...}``: the
@@ -41,11 +45,16 @@ def main(argv) -> int:
         return 2
     print(smoke.device_mod.card_line(), flush=True)
     smoke._build.build_all()
-    phases = {"ssm": smoke.ssm_slice, "serving": smoke.serving_slice, "moe": smoke.moe_slice}
+    phases = {"ssm": smoke.ssm_slice, "serving": smoke.serving_slice,
+              "moe": smoke.moe_slice, "hybrid": smoke.hybrid_slice,
+              "embeds": smoke.embeds_slice}
+    depths = {"ssm": ("SSM_LAYERS", smoke.SSM_LAYERS),
+              "hybrid": ("HYB_LAYERS", smoke.HYB_LAYERS)}
     for arg in argv:
         name, _, depth = arg.partition(":")
-        if depth:
-            smoke.SSM_LAYERS = int(depth)
+        if name in depths:
+            attr, default = depths[name]
+            setattr(smoke, attr, int(depth) if depth else default)
         t0 = time.perf_counter()
         phases[name]()
         seconds = time.perf_counter() - t0
