@@ -292,6 +292,29 @@ non-zero:
    (compressed against none) by leaf, and the codec's time a launch,
    bound and plain time at the largest residual leaf and at the
    largest gradient leaf (233M values), bit for bit;
+10s. train_ssm, training the ssm family (the launch counts zeroed first,
+   path ``train_ssm``): the scan's backward kernel at the training shape
+   (8, 512, 8192, 16) against float64 autograd of the plain version
+   (in channel slices), each gradient within ``SSCAN_BWD_TOL`` of its
+   largest value, the forward that saves its states bit for bit the
+   forward that does not, both timed beside their bounds and plain
+   versions; (a) falcon-mamba-7b at full width, 4 of 64 layers,
+   float32, compressed remat, batch 8 x 512, 3 steps of
+   ``make_train_step`` from seeded weights: a step launches the scan
+   twice a layer and its backward once a layer, two runs bit for bit,
+   each step replayed on the plain versions from the same weights and
+   AdamW state, losses and gradient norms within 1e-4 relative (a
+   replay left to run on by itself leaves the run: AdamW's first steps
+   move every weight by about the learning rate, so rounding in a
+   gradient's sign moves it by twice that); printed: losses, step
+   walls, the last
+   step's idle share (``torch.profiler``), the peak allocation; (b)
+   zamba2-2.7b at full width, 12 of 54 layers (two groups: the shared
+   block's gradient sums two applications), float32, compressed remat,
+   2 steps: no scan launch, the shared block trained; (c) one falcon
+   step under ``distributed.sharding.use_rules`` on a one-rank (1, 1)
+   ``launch.mesh`` mesh (a gloo group of one) bit for bit the step
+   without;
 11. the kernels line: every kernel with its launches on the main paths
    (the out-of-core wave of phases 4 and 5, the live engine of phase
    5b, its checkpoints of phase 5c, the sharded engine of phase 5s, the
@@ -299,11 +322,14 @@ non-zero:
    float64 paper sweep, live run
    and precision tier of phases 5f, 5bf and 5p, the serving slice of
    phase 7, the SSM slice of phase 9, the MoE slice of phase 9m, the
-   hybrid of phase 9h, the front ends of phase 9e and the trainer of
-   phase 10, each
+   hybrid of phase 9h, the front ends of phase 9e and the trainers of
+   phases 10 and 10s, each
    counted from zero), its error and times; the float32 codec's rows
    give their launches by ndim, one row for the unit (every path but
-   train) and one for the training gradient leaf (path train).
+   train and train_ssm) and one for the training gradient leaf (those
+   two); the scan has a row at the decode shape (the serving paths)
+   and one at the training shape (train_ssm), its backward one
+   (train_ssm).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -376,6 +402,8 @@ from repro_torch.distributed import collectives  # noqa: E402
 from repro_torch.launch import steps as train_steps  # noqa: E402
 from repro_torch.launch import train as train_mod  # noqa: E402
 from repro_torch.optim import adamw  # noqa: E402
+from repro_torch.distributed import sharding  # noqa: E402
+from repro_torch.launch import mesh as mesh_mod  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12  # H100 SXM, float32 outside the tensor cores
@@ -499,6 +527,13 @@ def kernel_device_ms(fn, name: str, reps: int):
             return {"device_ms": sum(e.self_device_time_total for e in found)
                     / 1e3 / sum(e.count for e in found),
                     "device_ms_by": "profiler"}
+    return {**events_batch_ms(fn, reps),
+            "profiler_keys": [e.key[:60] for e in events][:8]}
+
+
+def events_batch_ms(fn, reps: int):
+    """CUDA events around ``reps`` back-to-back calls of ``fn``, over
+    ``reps``: the device time where a launch outlasts the host's call."""
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -507,8 +542,7 @@ def kernel_device_ms(fn, name: str, reps: int):
     end.record()
     end.synchronize()
     return {"device_ms": start.elapsed_time(end) / reps,
-            "device_ms_by": "events_batch",
-            "profiler_keys": [e.key[:60] for e in events][:8]}
+            "device_ms_by": "events_batch"}
 
 
 def build_log(name: str) -> str:
@@ -3996,9 +4030,11 @@ class CodecWitness:
         remat.compress_tree, collectives.quantize_leaf = self._undo
 
 
-def step_profile(step, model, opt, batch):
+def step_profile(step, model, opt, batch, required=True):
     """One train step under ``torch.profiler``: device busy seconds
-    (kernel time summed) against the step's wall."""
+    (kernel time summed) against the step's wall. Late in a long process
+    the profiler has returned no device records: that fails the phase
+    when ``required``, else the profile reads "not measured"."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -4009,6 +4045,9 @@ def step_profile(step, model, opt, batch):
         wall = time.perf_counter() - t0
     device = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not device and not required:
+        return opt, met, {"profiled_wall_s": wall,
+                          "idle_share": "not measured"}
     check(bool(device), "train (b): the profiler saw no device time")
     busy = sum(e.self_device_time_total for e in device) / 1e6
     top = sorted(device, key=lambda e: -e.self_device_time_total)[:8]
@@ -4228,6 +4267,356 @@ def train_slice(results):
     return dict(counts)
 
 
+# ----------------------------------------------------------------------
+# phase 10s: training the ssm family
+# ----------------------------------------------------------------------
+
+TSSM_LAYERS, TSSM_HYB_LAYERS, TSSM_HYB_STEPS = 4, 12, 2
+SSCAN_TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_SEQ, 8192, 16)  # falcon-mamba's
+# of each gradient's largest |value| in float64: the backward chains up
+# to S decays of ex2.approx (~2 ulp each), ~1.2e-4 at S = 512, and sums
+# over up to 8,192 channels in float32; 1e-3 leaves a factor ~8
+SSCAN_BWD_TOL = 1e-3
+SSCAN_BWD_SLICE = 2048  # channels a float64 reference pass
+
+
+def device_ms_sum(fn, names, reps: int):
+    """Device ms a call of ``fn``: the profiler's time of every kernel
+    whose name holds one of ``names``, over ``reps`` calls; as
+    ``kernel_device_ms``, three profiler windows, then CUDA events around
+    ``reps`` back-to-back calls ("events_batch")."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        found = [e for e in prof.key_averages()
+                 if any(n in e.key for n in names)]
+        if found:
+            return {"device_ms": sum(e.self_device_time_total
+                                     for e in found) / 1e3 / reps,
+                    "device_ms_by": "profiler",
+                    "device_kernels": sorted({e.key[:40] for e in found})}
+    return {**events_batch_ms(fn, reps), "device_kernels": []}
+
+
+def sscan_bwd_bound(bsz, s, d, n):
+    """Bytes the backward must move: dt, x and dL/dy read, dx and ddt
+    written (B, S, D); B and C read, dB and dC written (B, S, N); A read,
+    dA written; dh0 written; the forward's saved states read once. Its
+    operations: one exp and ~12 float32 operations a (b, t, d, n)."""
+    nbytes = 4 * (5 * bsz * s * d + 4 * bsz * s * n + 2 * d * n
+                  + bsz * d * n + bsz * -(-s // sscan_kernel.SAVE_EVERY)
+                  * d * n)
+    elems = bsz * s * d * n
+    return nbytes, bound_ms(nbytes, 12 * elems, elems)
+
+
+def scan_grads_f64(args, h0, gy, dtype):
+    """Autograd of the plain scan in ``dtype``, ``SSCAN_BWD_SLICE``
+    channels at a time (the channels are independent but for dB and dC,
+    summed over the slices, and dA's sum over the batch, within one)."""
+    dt, a, b_in, c_in, x = args
+    d = x.shape[2]
+    out = [None] * 6
+    parts = []
+    for lo in range(0, d, SSCAN_BWD_SLICE):
+        sl = slice(lo, lo + SSCAN_BWD_SLICE)
+        g = sscan_ref.selective_scan_bwd_ref(
+            dt[:, :, sl].to(dtype), a[sl].to(dtype), b_in.to(dtype),
+            c_in.to(dtype), x[:, :, sl].to(dtype), h0[:, sl].to(dtype),
+            gy[:, :, sl].to(dtype), None, SSCAN_CHUNK)
+        parts.append(g)
+    for i, dim in ((0, 2), (1, 0), (4, 2), (5, 1)):
+        out[i] = torch.cat([g[i] for g in parts], dim=dim)
+    for i in (2, 3):
+        out[i] = sum(g[i] for g in parts)
+    return out
+
+
+def sscan_train_cases(gen, results):
+    """Row 6 at the training shape (the forward with its states) and row
+    6b (the backward) against float64 autograd of the plain version."""
+    shape = SSCAN_TRAIN_SHAPE
+    bsz, s, d, n = shape
+    args, h0 = sscan_inputs(shape, gen)
+    gy = normal((bsz, s, d), gen, 1.0)
+    states = torch.empty(sscan_kernel.states_shape(*shape), device="cuda")
+    y_saved, _ = sscan_kernel.selective_scan(*args, h0, states_out=states)
+    y_plain, _ = sscan_kernel.selective_scan(*args, h0)
+    same_y = same_bits(y_saved, y_plain)
+    del y_saved, y_plain
+    got = sscan_kernel.selective_scan_bwd(*args, h0, states, gy)
+    torch.cuda.synchronize()
+    want = scan_grads_f64(args, h0, gy, torch.float64)
+    names = ("dt", "a", "b_in", "c_in", "x", "h0")
+    share = {k: float((g.double() - w).abs().max() / w.abs().max())
+             for k, g, w in zip(names, got, want)}
+    abs_err = max(float((g.double() - w).abs().max())
+                  for g, w in zip(got, want))
+    plain32 = scan_grads_f64(args, h0, gy, torch.float32)
+    plain_share = {k: float((g.double() - w).abs().max() / w.abs().max())
+                   for k, g, w in zip(names, plain32, want)}
+    del want, plain32
+    torch.cuda.empty_cache()
+    nbytes, bound = sscan_bwd_bound(*shape)
+    bwd = lambda: sscan_kernel.selective_scan_bwd(*args, h0, states, gy)
+    plain = lambda: sscan_ref.selective_scan_bwd_ref(*args, h0, gy, None,
+                                                     SSCAN_CHUNK)
+    r = {"max_abs_err": abs_err, "ms": median_ms(bwd, 10),
+         **device_ms_sum(bwd, ("sscan_bwd_kernel", "sum_parts_kernel"), 10),
+         "plain_ms": median_ms(plain, 1), "bound": bound}
+    results[("sscan_bwd", shape, SSCAN_CHUNK)] = r
+    fwd = lambda: sscan_kernel.selective_scan(*args, h0, states_out=states)
+    f_nbytes = sscan_bound(*shape)[0] + states.numel() * 4
+    fr = {"max_abs_err": 0.0 if same_y else float("inf"),
+          "ms": median_ms(fwd, 10),
+          **kernel_device_ms(fwd, "sscan_kernel", 10),
+          "plain_ms": median_ms(lambda: sscan_ref.selective_scan_ref(
+              *args, h0, SSCAN_CHUNK), 2),
+          "bound": bound_ms(f_nbytes, 6 * bsz * s * d * n + bsz * s * d,
+                            bsz * s * d * n)}
+    results[("sscan", shape, SSCAN_CHUNK)] = fr
+    emit({"phase": "kernel_vs_plain", "kernel": "sscan_bwd",
+          "shape_bsdn": list(shape), "against": "float64 autograd of "
+          "selective_scan_ref", "tol": SSCAN_BWD_TOL,
+          "err_share_of_largest": share, "plain32_share": plain_share,
+          "max_abs_err": abs_err, "ms": r["ms"], "device_ms": r["device_ms"],
+          "device_kernels": r["device_kernels"], "plain_ms": r["plain_ms"],
+          "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
+          "bound_bytes": nbytes, "library_ms": None,
+          "ptxas": kernel_ptxas("sscan", "sscan_bwd_kernel")})
+    emit({"phase": "kernel_vs_plain", "kernel": "sscan",
+          "shape_bsdn": list(shape), "states_saved": True,
+          "y_bitwise_unsaved": same_y, "ms": fr["ms"],
+          "device_ms": fr["device_ms"], "plain_ms": fr["plain_ms"],
+          "bound_ms": fr["bound"][0], "bound_by": fr["bound"][1],
+          "bound_bytes": f_nbytes})
+    check(same_y, "sscan: saving the states changed y")
+    check(all(v <= SSCAN_BWD_TOL for v in share.values()),
+          f"sscan_bwd: {share} of the largest float64 values, past "
+          f"{SSCAN_BWD_TOL}")
+    del args, h0, gy, states, got
+    torch.cuda.empty_cache()
+
+
+def tssm_setup(arch, layers, seed, steps):
+    cfg = dataclasses.replace(get_config(arch), num_layers=layers,
+                              dtype="float32", remat="compressed")
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    model = lm.init_params(cfg, gen, device="cuda")
+    init = [p.detach().clone() for p in model.parameters()]
+    del model
+    pipe = SyntheticLM(PipelineConfig(cfg.vocab_size, TRAIN_BATCH,
+                                      TRAIN_SEQ, seed=0))
+    batches = [{k: torch.from_numpy(v.copy()).cuda() for k, v in
+                pipe.batch_at(i).items()} for i in range(steps)]
+    return cfg, init, batches
+
+
+def copy_state(dst_model, dst_opt, src_model, src_opt):
+    """Copy weights and AdamW state (step, moments) in place."""
+    with torch.no_grad():
+        for a, b in zip(dst_model.parameters(), src_model.parameters()):
+            a.copy_(b)
+        dst_opt.step.copy_(src_opt.step)
+        for k in src_opt.m:
+            dst_opt.m[k].copy_(src_opt.m[k])
+            dst_opt.v[k].copy_(src_opt.v[k])
+
+
+def train_falcon():
+    """(a), then (c) on its weights. Each kernel step is replayed first
+    on the plain versions from the same weights and AdamW state (a copy
+    of the run's): a replay that ran on by itself would leave the run
+    once a step's float32 rounding differed, since AdamW's first steps
+    move every weight by about the learning rate whatever the size of
+    its gradient. Returns the kernel steps' launches."""
+    cfg, init, batches = tssm_setup(SSM_ARCH, TSSM_LAYERS, SEED + 8,
+                                    TRAIN_STEPS)
+
+    def steps_for(backend):
+        return train_steps.make_train_step(
+            cfg, peak_lr=3e-4, warmup=0, total_steps=TRAIN_STEPS,
+            backend=backend)
+
+    kmodel = fresh_model(cfg, init)
+    kopt = adamw.init(dict(kmodel.named_parameters()))
+    pmodel = fresh_model(cfg, init)
+    popt = adamw.init(dict(pmodel.named_parameters()))
+    kstep, pstep = steps_for("cuda"), steps_for("ref")
+    kmet, pmet, walls, pwalls, prof = [], [], [], [], None
+    # the replay's copy of the state, resident through the kernel steps
+    held = 4 * (sum(p.numel() for p in pmodel.parameters())
+                + 2 * sum(t.numel() for t in popt.m.values()) + 1)
+    peak = 0
+    reset_counts()
+    sscan_kernel.reset_launches()
+    for i, batch in enumerate(batches):
+        copy_state(pmodel, popt, kmodel, kopt)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        popt, met = pstep(pmodel, popt, batch)
+        torch.cuda.synchronize()
+        pwalls.append(time.perf_counter() - t0)
+        pmet.append({k: float(v) for k, v in met.items()})
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        if i == len(batches) - 1:
+            kopt, met, prof = step_profile(kstep, kmodel, kopt, batch,
+                                           required=False)
+        else:
+            t0 = time.perf_counter()
+            kopt, met = kstep(kmodel, kopt, batch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        kmet.append({k: float(v) for k, v in met.items()})
+        peak = max(peak, torch.cuda.max_memory_allocated() - held)
+    counts = {**path_counts(), **sscan_kernel.launches}
+    param_diff = max(rel_leaf(a, b) for a, b in zip(kmodel.parameters(),
+                                                    pmodel.parameters()))
+    del pmodel, popt
+    torch.cuda.empty_cache()
+    rmodel, ropt, rmet, _, _ = run_steps(cfg, init, batches, "cuda")
+    bitwise = [m["loss"] for m in rmet] == [m["loss"] for m in kmet] and \
+        [m["gnorm"] for m in rmet] == [m["gnorm"] for m in kmet] and all(
+            torch.equal(a, b) for a, b in zip(kmodel.parameters(),
+                                              rmodel.parameters()))
+    del rmodel, ropt, kmodel, kopt
+    torch.cuda.empty_cache()
+    rules = train_rules(cfg, init, batches[0])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    per_step = {k: v / TRAIN_STEPS for k, v in counts.items() if v}
+    emit({"phase": "train_ssm_falcon", "arch": SSM_ARCH,
+          "layers": cfg.num_layers, "d_model": cfg.d_model,
+          "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+          "params": sum(p.numel() for p in init),
+          "batch": [TRAIN_BATCH, TRAIN_SEQ], "remat": cfg.remat,
+          "losses": [m["loss"] for m in kmet],
+          "gnorms": [m["gnorm"] for m in kmet],
+          "plain_losses": [m["loss"] for m in pmet],
+          "plain_gnorms": [m["gnorm"] for m in pmet],
+          "step_wall_s": walls, "tokens_per_s": [tokens / w for w in walls],
+          f"step{TRAIN_STEPS}_profile": prof, "plain_step_wall_s": pwalls,
+          "last_step_param_rel_diff": param_diff,
+          "bitwise_run_to_run": bitwise, "peak_allocated_bytes": peak,
+          "replay_state_bytes_not_in_peak": held,
+          "launches_per_step": per_step, "rules_one_rank": rules,
+          "launches": {k: v for k, v in counts.items() if v}})
+    check(all(math.isfinite(m["loss"]) for m in kmet),
+          "train_ssm (a): a loss is not finite")
+    check(counts["sscan"] == 2 * cfg.num_layers * TRAIN_STEPS
+          and counts["sscan_bwd"] == cfg.num_layers * TRAIN_STEPS,
+          f"train_ssm (a): {counts['sscan']} scan and "
+          f"{counts['sscan_bwd']} backward launches for {cfg.num_layers} "
+          f"layers x {TRAIN_STEPS} steps")
+    check(bitwise, "train_ssm (a): two runs of the steps differ")
+    for a, b in zip(kmet, pmet):
+        for k in ("loss", "gnorm"):
+            check(abs(a[k] - b[k]) <= TRAIN_REPLAY_TOL * abs(b[k]),
+                  f"train_ssm (a): {k} {a[k]} against the plain replay's "
+                  f"{b[k]}")
+    check(rules["bitwise"], "train_ssm (c): the step under use_rules on a "
+                            "(1, 1) mesh differs from the step without")
+    return counts
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def train_rules(cfg, init, batch):
+    """(c) One step without rules, then one under ``use_rules`` on a
+    (1, 1) ``launch.mesh`` mesh over a gloo group of one rank: the
+    metrics and every weight bit for bit."""
+    import torch.distributed as dist
+
+    def one_step():
+        model = fresh_model(cfg, init)
+        opt = adamw.init(dict(model.named_parameters()))
+        step = train_steps.make_train_step(cfg, peak_lr=3e-4, warmup=0,
+                                           total_steps=1, backend="cuda")
+        opt, met = step(model, opt, batch)
+        return model, {k: float(v) for k, v in met.items()}
+
+    plain_model, plain_met = one_step()
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = mesh_mod.make_mesh_for_devices(1, 1)
+        with sharding.use_rules(mesh, sharding.DEFAULT_RULES):
+            ruled_model, ruled_met = one_step()
+        dims = list(mesh.mesh_dim_names)
+    finally:
+        dist.destroy_process_group()
+    same = ruled_met == plain_met and all(
+        torch.equal(a, b) for a, b in zip(plain_model.parameters(),
+                                          ruled_model.parameters()))
+    del plain_model, ruled_model
+    torch.cuda.empty_cache()
+    return {"mesh": dims, "loss": ruled_met["loss"], "bitwise": same}
+
+
+def train_hybrid():
+    """(b) zamba2-2.7b at 12 of 54 layers. Returns the steps' launches."""
+    cfg, init, batches = tssm_setup(HYB_ARCH, TSSM_HYB_LAYERS, SEED + 9,
+                                    TSSM_HYB_STEPS)
+    reset_counts()
+    sscan_kernel.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    model, opt, met, walls, _ = run_steps(cfg, init, batches, "cuda")
+    counts = {**path_counts(), **sscan_kernel.launches}
+    peak = torch.cuda.max_memory_allocated()
+    shared_moved = all(not torch.equal(p, q) for (n, p), q in zip(
+        model.named_parameters(), init) if n.startswith("shared_attn."))
+    emit({"phase": "train_ssm_hybrid", "arch": HYB_ARCH,
+          "layers": cfg.num_layers, "groups": cfg.num_layers
+          // cfg.attn_period, "d_model": cfg.d_model,
+          "params": sum(p.numel() for p in init),
+          "batch": [TRAIN_BATCH, TRAIN_SEQ], "remat": cfg.remat,
+          "losses": [m["loss"] for m in met],
+          "gnorms": [m["gnorm"] for m in met], "step_wall_s": walls,
+          "peak_allocated_bytes": peak, "shared_block_trained": shared_moved,
+          "launches": {k: v for k, v in counts.items() if v}})
+    check(all(math.isfinite(m["loss"]) for m in met),
+          "train_ssm (b): a loss is not finite")
+    check(counts["sscan"] == counts["sscan_bwd"] == 0,
+          "train_ssm (b): the hybrid launched the Mamba-1 scan")
+    check(shared_moved, "train_ssm (b): the shared block did not train")
+    check(counts.get("zfp_encode ndim1", 0)
+          == counts.get("zfp_decode ndim1", 0) > 0,
+          "train_ssm (b): compressed remat's codec launches do not pair")
+    del model, opt, init
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_ssm_slice(results):
+    """Phase train_ssm: the backward kernel's case, (a) with (c), (b);
+    the launches of (a) and (b), counted from zero."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 10)
+    sscan_train_cases(gen, results)
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_a = train_falcon()
+    gc.collect()
+    torch.cuda.empty_cache()
+    counts_b = train_hybrid()
+    counts = collections.Counter(counts_a)
+    counts.update(counts_b)
+    emit({"phase": "train_ssm_seconds", "seconds": time.perf_counter() - t0})
+    return dict(counts)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4334,6 +4723,14 @@ def main() -> int:
               f"the train phase never launched {name}")
     cfg = train_config()
     grad_leaf = (cfg.vocab_size * cfg.d_model,)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_ssm_counts = train_ssm_slice(results)
+    emit({"phase": "launches", "path": "train_ssm", **train_ssm_counts})
+    for name in ("sscan", "sscan_bwd", "zfp_encode ndim1",
+                 "zfp_decode ndim1"):
+        check(train_ssm_counts.get(name, 0) > 0,
+              f"the train_ssm phase never launched {name}")
 
     rows = [
         ("zfp_encode", "zfp_encode", "src/repro/kernels/zfp/kernel.py:90",
@@ -4381,6 +4778,15 @@ def main() -> int:
     rows.append(("sscan", "sscan", "src/repro/kernels/sscan/kernel.py:66",
                  "src/repro_torch/csrc/sscan.cu",
                  (SSCAN_SHAPES[0], SSCAN_CHUNK)))
+    rows.append(("sscan", "sscan", "src/repro/kernels/sscan/kernel.py:66",
+                 "src/repro_torch/csrc/sscan.cu",
+                 (SSCAN_TRAIN_SHAPE, SSCAN_CHUNK)))
+    # the backward has no TPU kernel (the reference differentiates the
+    # XLA scan): its row names the function it differentiates
+    rows.append(("sscan_bwd", "sscan_bwd",
+                 "src/repro/kernels/sscan/kernel.py:66",
+                 "src/repro_torch/csrc/sscan.cu",
+                 (SSCAN_TRAIN_SHAPE, SSCAN_CHUNK)))
     paths = {"ooc_wave": counts, "ooc_live": live_counts,
              "ooc_ckpt": ckpt_counts, "ooc_sharded": shard_counts,
              "ooc_tenancy": tenant_counts,
@@ -4388,7 +4794,7 @@ def main() -> int:
              "precision": prec_counts, "serving": serve_counts,
              "ssm_serving": ssm_counts, "moe_serving": moe_counts,
              "hybrid_serving": hybrid_counts, **emb_counts,
-             "train": train_counts}
+             "train": train_counts, "train_ssm": train_ssm_counts}
     # the float32 codec's rows time the ndim-3 unit and give their launches
     # by ndim (the lossy checkpoint leaves at 1, the KV cache at 2), and
     # the training path's gradient leaf at ndim 1;
@@ -4399,13 +4805,18 @@ def main() -> int:
     # tier's, both rates), so no launch counts twice
     engines64 = ("ooc_f64", "ooc_live_f64", "ooc_sharded")
     prec = ("precision",)
-    # the float32 codec: the training leaf's row counts path train, the
-    # unit's row every other path
-    untrained = tuple(p for p in paths if p != "train")
+    # the float32 codec: the training leaf's row counts the training
+    # paths, the unit's row every other path; the scan's decode row the
+    # serving paths, its training row path train_ssm
+    trained = ("train", "train_ssm")
+    untrained = tuple(p for p in paths if p not in trained)
     row_paths = {("zfp_encode", UNIT): untrained,
                  ("zfp_decode", UNIT): untrained,
-                 ("zfp_encode", grad_leaf): ("train",),
-                 ("zfp_decode", grad_leaf): ("train",),
+                 ("zfp_encode", grad_leaf): trained,
+                 ("zfp_decode", grad_leaf): trained,
+                 ("sscan", SSCAN_SHAPES[0]): tuple(
+                     p for p in paths if p != "train_ssm"),
+                 ("sscan", SSCAN_TRAIN_SHAPE): ("train_ssm",),
                  ("wave_multistep_f64", BLOCK): engines64,
                  ("wave_multistep_f64", PREC_SHAPE): prec,
                  ("zfp_encode_f64", UNIT): engines64,

@@ -514,3 +514,23 @@ def restore(path: str, like_tree, device=None) -> Tuple[int, Any]:
     """``(step, tree shaped like like_tree)`` of host arrays."""
     step, out, _ = load(path, device)
     return step, _unflatten(like_tree, out)
+
+
+def place(tree, axes_tree, mesh, rules):
+    """Elastic resharding: put host arrays (or tensors) onto ``mesh``
+    as DTensors, each leaf at the placements its logical axes resolve
+    to (``sharding.named_sharding_tree``); every rank of the mesh calls
+    it with the same tree. The leaves go to the mesh's device type."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.distributed.sharding import map_axes, placements, \
+        resolve_spec
+
+    def put(axes, leaf):
+        t = leaf if isinstance(leaf, torch.Tensor) else _tensor(
+            np.asarray(leaf))
+        spec = resolve_spec(axes, tuple(t.shape), rules, mesh)
+        return distribute_tensor(t.to(mesh.device_type), mesh,
+                                 placements(spec, mesh))
+
+    return map_axes(put, axes_tree, tree)

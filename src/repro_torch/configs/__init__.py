@@ -1,8 +1,8 @@
 """Architecture registry: --arch <id> resolves here.
 
 A copy of ``repro.configs`` (plain data, no JAX): every arch id
-resolves. ``repro_torch.models.model.init_params`` builds the dense,
-MoE and ssm families and raises ``NotImplementedError`` for the others.
+resolves, and ``repro_torch.models.model.init_params`` builds every
+family.
 """
 from repro_torch.configs import base
 from repro_torch.configs.base import ModelConfig, SHAPES, ShapeSpec, smoke

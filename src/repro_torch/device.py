@@ -35,8 +35,9 @@ def resolve(device: DeviceLike = None) -> torch.device:
             "no CUDA device is available; pass device='cpu' (and "
             "backend='ref') to run the plain PyTorch versions on the CPU"
         )
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu' "
+                         "('meta' for shapes only)")
     return dev
 
 

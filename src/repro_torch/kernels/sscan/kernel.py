@@ -10,10 +10,16 @@ recurrence step by step over a stream staged in shared memory, so there
 is no chunk and no ``S % chunk`` or ``D % d_tile`` constraint.
 
 ``h_out`` (optional) receives ``h_last`` in place, as the serving cache
-wants; it may be ``h0`` itself. On a CPU tensor the wrapper runs the
-plain version (``ref``, at ``chunk`` steps a chunk); on a CUDA tensor it
-launches the kernel or raises. ``launches["sscan"]`` counts launches,
-one per call that reaches the card.
+wants; it may be ``h0`` itself. ``states_out`` (optional, training)
+receives the state before every ``SAVE_EVERY`` steps, the checkpoints of
+``selective_scan_bwd``: the gradient kernel of ``csrc/sscan.cu``, which
+replaces no TPU kernel (``repro`` differentiates the XLA form of the
+scan; its Pallas kernel has no backward). On a CPU tensor each wrapper
+runs its plain version (``ref``: the chunked scan, and autograd of it);
+on a CUDA tensor it launches the kernel or raises.
+``launches["sscan"]`` and ``launches["sscan_bwd"]`` count launches, one
+per call that reaches the card (the backward's call is its scan and the
+two fixed-order sums of its partials).
 """
 
 from __future__ import annotations
@@ -26,12 +32,15 @@ import torch
 from repro_torch import _build
 from repro_torch.kernels.sscan import ref
 
-launches = {"sscan": 0}
+launches = {"sscan": 0, "sscan_bwd": 0}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P]
+_ARGS = [_P] * 9 + [_I] * 4 + [_P]
+_BWD_ARGS = [_P] * 17 + [_I] * 4 + [_P]
 MAX_STATE = 16  # csrc/sscan.cu kMaxN: the states a channel keeps in registers
+SAVE_EVERY = 16  # csrc/sscan.cu kStage: steps between the saved states
+BWD_CHANNELS = 32  # csrc/sscan.cu kBwdChan: channels a CTA of the backward
 
 
 def reset_launches() -> None:
@@ -50,6 +59,25 @@ def _require(x: torch.Tensor, shape, what: str, dev: torch.device) -> None:
         raise ValueError(f"{what} lies on {x.device}, not {dev}")
 
 
+def states_shape(bsz: int, s: int, d: int, n: int) -> Tuple[int, ...]:
+    """Shape of ``states_out``: one state every ``SAVE_EVERY`` steps."""
+    return (bsz, -(-s // SAVE_EVERY), d, n)
+
+
+def _check_inputs(dt, a, b_in, c_in, x, h0) -> Tuple[int, int, int, int]:
+    bsz, s, d = x.shape
+    n = a.shape[1]
+    if not 1 <= n <= MAX_STATE:
+        raise ValueError(f"the kernel keeps at most {MAX_STATE} states a "
+                         f"channel in registers, got N = {n}")
+    for t, shape, what in ((dt, (bsz, s, d), "dt"), (x, (bsz, s, d), "x"),
+                           (a, (d, n), "a"), (b_in, (bsz, s, n), "b_in"),
+                           (c_in, (bsz, s, n), "c_in"),
+                           (h0, (bsz, d, n), "h0")):
+        _require(t, shape, what, x.device)
+    return bsz, s, d, n
+
+
 def selective_scan(
     dt: torch.Tensor,  # (B, S, D) f32
     a: torch.Tensor,  # (D, N) f32
@@ -60,34 +88,79 @@ def selective_scan(
     *,
     h_out: Optional[torch.Tensor] = None,
     chunk: int = 64,
+    states_out: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (y (B, S, D), h_last (B, D, N)); ``h_last`` is ``h_out``
-    when one is given."""
+    when one is given. ``states_out`` (``states_shape``) receives the
+    backward's checkpoints."""
     if x.device.type == "cpu":
         y, h = ref.selective_scan_ref(dt, a, b_in, c_in, x, h0,
                                       max(1, min(chunk, x.shape[1])))
+        if states_out is not None:
+            states_out.copy_(ref.boundary_states(dt, a, b_in, c_in, x, h0,
+                                                 SAVE_EVERY))
         if h_out is None:
             return y, h
         return y, h_out.copy_(h)
-    bsz, s, d = x.shape
-    n = a.shape[1]
-    if not 1 <= n <= MAX_STATE:
-        raise ValueError(f"the kernel keeps at most {MAX_STATE} states a "
-                         f"channel in registers, got N = {n}")
+    bsz, s, d, n = _check_inputs(dt, a, b_in, c_in, x, h0)
     dev = x.device
-    for t, shape, what in ((dt, (bsz, s, d), "dt"), (x, (bsz, s, d), "x"),
-                           (a, (d, n), "a"), (b_in, (bsz, s, n), "b_in"),
-                           (c_in, (bsz, s, n), "c_in"),
-                           (h0, (bsz, d, n), "h0")):
-        _require(t, shape, what, dev)
     if h_out is None:
         h_out = torch.empty_like(h0)
     _require(h_out, (bsz, d, n), "h_out", dev)
+    if states_out is not None:
+        _require(states_out, states_shape(bsz, s, d, n), "states_out", dev)
     y = torch.empty_like(x)
     fn = _build.bind("sscan", "sscan_forward", _ARGS)
     err = fn(dt.data_ptr(), x.data_ptr(), a.data_ptr(), b_in.data_ptr(),
              c_in.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
+             None if states_out is None else states_out.data_ptr(),
              bsz, s, d, n, torch.cuda.current_stream(dev).cuda_stream)
     _build.check("sscan", err, "sscan_forward")
     launches["sscan"] += 1
     return y, h_out
+
+
+def selective_scan_bwd(
+    dt: torch.Tensor,  # (B, S, D) f32
+    a: torch.Tensor,  # (D, N) f32
+    b_in: torch.Tensor,  # (B, S, N) f32
+    c_in: torch.Tensor,  # (B, S, N) f32
+    x: torch.Tensor,  # (B, S, D) f32
+    h0: torch.Tensor,  # (B, D, N) f32
+    states: torch.Tensor,  # states_shape(...), from the forward
+    gy: torch.Tensor,  # (B, S, D) f32: dL/dy
+    gh: Optional[torch.Tensor] = None,  # (B, D, N) f32: dL/dh_last, or 0
+    *,
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, ...]:
+    """The gradients ``(ddt, da, db_in, dc_in, dx, dh0)`` of
+    ``selective_scan``'s ``(y, h_last)``. On the CPU the plain version:
+    autograd of ``ref.selective_scan_ref`` (``states`` unused)."""
+    if x.device.type == "cpu":
+        return ref.selective_scan_bwd_ref(dt, a, b_in, c_in, x, h0, gy, gh,
+                                          max(1, min(chunk, x.shape[1])))
+    bsz, s, d, n = _check_inputs(dt, a, b_in, c_in, x, h0)
+    dev = x.device
+    _require(states, states_shape(bsz, s, d, n), "states", dev)
+    _require(gy, (bsz, s, d), "gy", dev)
+    if gh is not None:
+        _require(gh, (bsz, d, n), "gh", dev)
+    ddt, dx = torch.empty_like(x), torch.empty_like(x)
+    da, dh0 = torch.empty_like(a), torch.empty_like(h0)
+    db, dc = torch.empty_like(b_in), torch.empty_like(c_in)
+    tiles = -(-d // BWD_CHANNELS)
+    db_part = torch.empty((bsz, tiles, s, n), dtype=torch.float32,
+                          device=dev)
+    dc_part = torch.empty_like(db_part)
+    da_part = torch.empty_like(h0)
+    fn = _build.bind("sscan", "sscan_backward", _BWD_ARGS)
+    err = fn(dt.data_ptr(), x.data_ptr(), a.data_ptr(), b_in.data_ptr(),
+             c_in.data_ptr(), states.data_ptr(), gy.data_ptr(),
+             None if gh is None else gh.data_ptr(), dx.data_ptr(),
+             ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+             dh0.data_ptr(), db_part.data_ptr(), dc_part.data_ptr(),
+             da_part.data_ptr(), bsz, s, d, n,
+             torch.cuda.current_stream(dev).cuda_stream)
+    _build.check("sscan", err, "sscan_backward")
+    launches["sscan_bwd"] += 1
+    return ddt, da, db, dc, dx, dh0

@@ -18,7 +18,7 @@ tolerance of ``tests/test_sscan_kernel.py``, rtol 1e-4 / atol 1e-5).
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +73,40 @@ def selective_scan_ref(
         del decay, inp, acum, bcum, h_chunk
     y = torch.cat(ys, dim=1)[:, :s]
     return y, h.contiguous()
+
+
+def boundary_states(dt, a, b_in, c_in, x, h0, every: int) -> torch.Tensor:
+    """The state before every ``every`` steps, (B, ceil(S / every), D,
+    N): the plain version of the checkpoints the CUDA forward saves for
+    its backward."""
+    bsz, s, d = x.shape
+    states, h = [], h0
+    for t0 in range(0, s, every):
+        states.append(h)
+        sl = slice(t0, t0 + every)
+        _, h = selective_scan_ref(dt[:, sl], a, b_in[:, sl], c_in[:, sl],
+                                  x[:, sl], h, every)
+    if not states:
+        return h0.new_zeros((bsz, 0, d, a.shape[1]))
+    return torch.stack(states, dim=1)
+
+
+def selective_scan_bwd_ref(dt, a, b_in, c_in, x, h0, gy,
+                           gh: Optional[torch.Tensor], chunk: int
+                           ) -> Tuple[torch.Tensor, ...]:
+    """The plain version of the backward kernel: autograd of
+    ``selective_scan_ref`` at ``chunk``. Returns ``(ddt, da, db_in,
+    dc_in, dx, dh0)`` of ``y`` under ``gy`` and ``h_last`` under ``gh``
+    (None: no gradient reaches ``h_last``)."""
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(True)
+               for t in (dt, a, b_in, c_in, x, h0)]
+        y, h = selective_scan_ref(*ins, chunk)
+        outs, grads = [y], [gy]
+        if gh is not None:
+            outs.append(h)
+            grads.append(gh)
+        return torch.autograd.grad(outs, ins, grads)
 
 
 def selective_scan_f64(

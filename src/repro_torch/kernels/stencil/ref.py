@@ -19,6 +19,7 @@ from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -89,13 +90,30 @@ def ladder_steps(p_prev: torch.Tensor, p_cur: torch.Tensor,
     return run_steps(p_prev, p_cur, vel2, steps)
 
 
+def _host_exp(t: torch.Tensor) -> torch.Tensor:
+    """``exp`` of a CPU tensor on the calling thread (numpy's); on a card
+    ``torch.exp``.
+
+    On the CPU ``torch.exp`` of 2,048 values or more is cut into chunks
+    that the intra-op threads compute in parallel, and under load one
+    chunk of a first call was seen to come out at up to 1.5e-4 relative
+    error (1 process in ~60 with 8 or more running, a seventh of a
+    (96, 12, 12) field, the same error curve each time): a run's initial
+    field then differed from the next run's in the same process. numpy's
+    ``exp`` gives the same bits on every call."""
+    if t.device.type != "cpu":
+        return torch.exp(t)
+    return torch.from_numpy(np.exp(t.numpy()))
+
+
 def ricker_source(shape: Tuple[int, int, int], dtype=torch.float32,
                   device=None) -> torch.Tensor:
     """Smooth initial condition: a Ricker-like wavelet in the volume
-    centre (wave fields representative of the paper's workload)."""
+    centre (wave fields representative of the paper's workload). The
+    same bits on every call on the CPU (``_host_exp``)."""
     z, y, x = [torch.arange(s, dtype=dtype, device=device) - (s - 1) / 2
                for s in shape]
     r2 = (
         z[:, None, None] ** 2 + y[None, :, None] ** 2 + x[None, None, :] ** 2
     ) / (max(shape) / 8) ** 2
-    return (1.0 - 2.0 * r2) * torch.exp(-r2)
+    return (1.0 - 2.0 * r2) * _host_exp(-r2)

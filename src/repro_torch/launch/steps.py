@@ -2,11 +2,12 @@
 
 Port of ``repro.launch.steps``. A step is an eager function of the model
 (an ``nn.Module``, updated in place by training) rather than a jitted
-function of a parameter tree. ``input_specs`` returns tensors on the
-``meta`` device (shapes and types, no allocation) for every
-(architecture x shape) cell. The mesh half of the reference module
-(``shardings_for``, ``donate_argnums_for``, ``cache_specs``,
-``batch_logical_axes``) is not ported: ROADMAP.md queue 1 item 21.
+function of a parameter tree. ``input_specs``, ``cache_specs`` and the
+specs ``shardings_for`` returns are tensors on the ``meta`` device
+(shapes and types, no allocation) for every (architecture x shape) cell.
+``shardings_for`` gives the DTensor placements of a step's arguments
+over a mesh (``distributed.sharding``); ``donate_argnums_for`` names the
+arguments a step updates in place (the reference donates them).
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, ShapeSpec
 from repro_torch.distributed import collectives
+from repro_torch.distributed import sharding as SH
 from repro_torch.models import model as M
 from repro_torch.optim import adamw, schedule
 
@@ -59,6 +61,20 @@ def input_specs(cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
         "tokens": _tokens_spec(cfg, b, 1),
         "positions": _positions_spec(cfg, b, 1),
     }
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeSpec):
+    """The decode cache of ``shape`` as ``meta`` tensors."""
+    return M.init_cache(cfg, shape.global_batch, max_len=shape.seq_len,
+                        device="meta")
+
+
+def batch_logical_axes(cfg: ModelConfig, shape: ShapeSpec):
+    tok = ("batch", "seq", "embed") if cfg.embeds_input else ("batch", "seq")
+    pos = (None, "batch", "seq") if cfg.mrope_sections else ("batch", "seq")
+    if shape.kind == "train":
+        return {"tokens": tok, "labels": ("batch", "seq"), "positions": pos}
+    return {"tokens": tok, "positions": pos}
 
 
 # ---------------------------------------------------------------------------
@@ -122,3 +138,58 @@ def step_for(cfg: ModelConfig, shape: ShapeSpec):
     if shape.kind == "prefill":
         return make_prefill_step(cfg)
     return make_decode_step(cfg)
+
+
+# ---------------------------------------------------------------------------
+# Sharding trees
+# ---------------------------------------------------------------------------
+
+
+def shardings_for(cfg: ModelConfig, shape: ShapeSpec, mesh, rules):
+    """Returns (placements of the step's arguments, their ``meta``
+    specs): (params, opt_state, batch) for train, (params, cache, batch)
+    for decode, (params, batch) for prefill; each leaf's placements are
+    ``sharding.named_sharding_tree``'s."""
+    specs = input_specs(cfg, shape)
+    batch_shardings = SH.named_sharding_tree(
+        batch_logical_axes(cfg, shape), specs, mesh, rules)
+    param_axes = M.param_logical_axes(cfg)
+    param_specs = M.param_specs(cfg)
+    param_shardings = SH.named_sharding_tree(param_axes, param_specs, mesh,
+                                             rules)
+    if shape.kind == "train":
+        opt_axes = adamw.state_logical_axes(param_axes)
+        opt_specs = adamw.init(param_specs_to_zeros(param_specs))
+        opt_shardings = SH.named_sharding_tree(opt_axes, opt_specs, mesh,
+                                               rules)
+        return (
+            (param_shardings, opt_shardings, batch_shardings),
+            (param_specs, opt_specs, specs),
+        )
+    if shape.kind == "decode":
+        c_specs = cache_specs(cfg, shape)
+        c_shardings = SH.named_sharding_tree(
+            M.cache_logical_axes(cfg), c_specs, mesh, rules)
+        return (
+            (param_shardings, c_shardings, batch_shardings),
+            (param_specs, c_specs, specs),
+        )
+    return (param_shardings, batch_shardings), (param_specs, specs)
+
+
+def donate_argnums_for(shape: ShapeSpec):
+    """train: params and opt state (updated in place); decode: the
+    cache."""
+    if shape.kind == "train":
+        return (0, 1)
+    if shape.kind == "decode":
+        return (1,)
+    return ()
+
+
+def param_specs_to_zeros(param_specs: Dict[str, torch.Tensor]
+                         ) -> Dict[str, torch.Tensor]:
+    """Zeros shaped like each spec, on the spec's device (``meta``: no
+    allocation)."""
+    return {k: torch.zeros(s.shape, dtype=s.dtype, device=s.device)
+            for k, s in param_specs.items()}

@@ -20,6 +20,8 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.sharding import logical
+
 # ---------------------------------------------------------------------------
 # Norms
 # ---------------------------------------------------------------------------
@@ -189,4 +191,5 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
 def glu_mlp(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
             w_down: torch.Tensor) -> torch.Tensor:
     h = F.silu(x @ w_gate) * (x @ w_up)
+    h = logical(h, "batch", "seq", "mlp")
     return h @ w_down

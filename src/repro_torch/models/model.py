@@ -22,14 +22,19 @@ in float32.
 Parameters are made with ``requires_grad=False``; training turns it on
 for the model it trains (``launch.steps.make_train_step``).
 
-The ``forward`` of every family but ``ssm`` is differentiable: blocked
-attention (``layers.blocked_attention``) and each layer (the hybrid:
-each group of ``attn_period`` Mamba-2 layers and the shared block) under
-the config's remat policy (``_remat``: none, full, dots, or compressed
-residuals through ``core.remat``); an MoE layer's FFN is
-``models.moe.moe_ffn`` (top-k routing, capacity dispatch, its
-load-balance loss summed over the layers into ``aux``); ``loss_fn``
-adds the chunked cross-entropy and ``0.01 * aux``.
+The ``forward`` of every family is differentiable: blocked attention
+(``layers.blocked_attention``), the Mamba-1 scan (through the sscan
+kernel's backward on the card, ``kernels.sscan.ops.SelectiveScan``) and
+each layer (the hybrid: each group of ``attn_period`` Mamba-2 layers and
+the shared block) under the config's remat policy (``_remat``: none,
+full, dots, or compressed residuals through ``core.remat``); an MoE
+layer's FFN is ``models.moe.moe_ffn`` (top-k routing, capacity
+dispatch, its load-balance loss summed over the layers into ``aux``);
+``loss_fn`` adds the chunked cross-entropy and ``0.01 * aux``. The
+activations carry the reference's ``logical(...)`` sharding hints
+(``distributed.sharding``; no-ops outside ``use_rules``), and
+``param_logical_axes``, ``cache_logical_axes`` and
+``compressed_cache_logical_axes`` give the reference's axes.
 
 Caches keep the reference's shapes, are updated **in place**, and carry
 ``length`` as a host ``int``. Over a ``CompressedCache``,
@@ -38,7 +43,8 @@ Caches keep the reference's shapes, are updated **in place**, and carry
 path instead) and encodes each full chunk with the codec kernel. The
 SSM family's layers scan through the selective-scan kernel
 (``kernels.sscan.ops``, via ``models.ssm.mamba1_seq``; the reference's
-model runs the XLA form) at decode and at prefill. Every kernel launches
+model runs the XLA form) at decode, at prefill and in training, whose
+gradient launches the scan's backward kernel. Every kernel launches
 on the card when ``backend="cuda"``, which is the default for a model on
 a CUDA device. The compressed cache is slot-synchronous, as in the
 reference. The hybrid's Mamba-2 layers (``models.ssm.mamba2_seq``) and
@@ -47,11 +53,9 @@ cache is the raw one whatever ``kv_compress_planes`` says (the
 reference's ``init_cache``): ``conv`` and ``h`` a Mamba-2 layer, K and
 V a group.
 
-Not ported yet (ROADMAP.md queue 1): the ssm family's training, a
-gradient through the scan (item 19: its ``forward`` is inference-only
-and ignores ``cfg.remat``), the logical sharding axes (item 21) and with
-them MoE's expert-parallel branch; training an MoE model at full width
-waits for a multi-card trainer (item 24).
+Not ported yet (ROADMAP.md queue 1): MoE's expert-parallel branch;
+training an MoE model at full width waits for a multi-card trainer
+(item 24).
 """
 
 from __future__ import annotations
@@ -65,17 +69,13 @@ from torch import nn
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import logical
 from repro_torch.kernels.cdecode import ops as cdecode_ops
 from repro_torch.models import kvcache as KVC
 from repro_torch.models import layers as L
 from repro_torch.models import moe as MOE
 from repro_torch.models import ssm as SSM
 
-NOT_PORTED = (
-    "the {what} is not ported yet: ROADMAP.md queue 1 item {item} (this "
-    "port trains every family but ssm)"
-)
-SSM_TRAINING_ITEM = 19
 REMATS = ("none", "full", "dots", "compressed")
 COMPRESSED_REMAT_PLANES = 12  # the reference's model.py:344
 
@@ -297,6 +297,100 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 
 # ---------------------------------------------------------------------------
+# Logical sharding axes (the reference's, keyed by the port's names)
+# ---------------------------------------------------------------------------
+
+
+def _dense_layer_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    p = {
+        "ln1": (None,),
+        "wq": ("p_embed", "p_heads"),
+        "wk": ("p_embed", "p_kv_heads"),
+        "wv": ("p_embed", "p_kv_heads"),
+        "wo": ("p_heads", "p_embed"),
+    }
+    if cfg.qkv_bias:
+        p.update(bq=("p_heads",), bk=("p_kv_heads",), bv=("p_kv_heads",))
+    if not cfg.parallel_block:
+        p["ln2"] = (None,)
+    if cfg.family == "moe":
+        p["router"] = (None, None)
+        p["wg_e"] = ("p_experts", "p_embed", None)
+        p["wu_e"] = ("p_experts", "p_embed", None)
+        p["wd_e"] = ("p_experts", None, "p_embed")
+        if cfg.shared_expert_ff:
+            p["wg_s"] = ("p_embed", "p_mlp")
+            p["wu_s"] = ("p_embed", "p_mlp")
+            p["wd_s"] = ("p_mlp", "p_embed")
+    else:
+        p["wg"] = ("p_embed", "p_mlp")
+        p["wu"] = ("p_embed", "p_mlp")
+        p["wd"] = ("p_mlp", "p_embed")
+    return p
+
+
+def _mamba1_layer_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    return {
+        "ln1": (None,),
+        "in_proj": ("p_embed", "p_mlp"),
+        "conv_w": ("p_mlp", None),
+        "conv_b": ("p_mlp",),
+        "x_proj": ("p_mlp", None),
+        "dt_w": (None, "p_mlp"),
+        "dt_b": ("p_mlp",),
+        "A_log": ("p_mlp", None),
+        "D": ("p_mlp",),
+        "out_proj": ("p_mlp", "p_embed"),
+    }
+
+
+def _mamba2_layer_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    return {
+        "ln1": (None,),
+        "in_proj": ("p_embed", "p_mlp"),
+        "conv_w": ("p_mlp", None),
+        "conv_b": ("p_mlp",),
+        "dt_b": (None,),
+        "A_log": (None,),
+        "D": (None,),
+        "out_proj": ("p_mlp", "p_embed"),
+    }
+
+
+_LAYER_AXES = {"attn": _dense_layer_axes, "mamba1": _mamba1_layer_axes,
+               "mamba2": _mamba2_layer_axes}
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """Every parameter as a ``meta`` tensor (shape and type, no
+    allocation), in ``named_parameters()`` order."""
+    model = Model(cfg, device=torch.device("meta"), dtype=dtype_of(cfg))
+    return dict(model.named_parameters())
+
+
+def param_logical_axes(cfg: ModelConfig) -> Dict[str, tuple]:
+    """The logical axes of every parameter, keyed by the port's names in
+    ``named_parameters()`` order: a layer's leaf (``layers.<i>.<leaf>``)
+    takes the reference's per-layer axes, without the leading ``L`` axis
+    of its stack (unsharded there), ``shared_attn.<leaf>`` the dense
+    layer's, and ``final_norm``, ``lm_head``, ``embed`` their own."""
+    layer = _LAYER_AXES[_mixer_kind(cfg)](cfg)
+    dense = _dense_layer_axes(cfg)
+    top = {"final_norm": (None,), "lm_head": ("p_embed", "p_vocab"),
+           "embed": ("p_vocab", "p_embed")}
+    out = {}
+    for name in param_specs(cfg):
+        parts = name.split(".")
+        if parts[0] == "layers":
+            out[name] = layer[parts[-1]]
+        elif parts[0] == "shared_attn":
+            out[name] = dense[parts[-1]]
+        else:
+            out[name] = top[name]
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Layer bodies
 # ---------------------------------------------------------------------------
 
@@ -311,6 +405,8 @@ def _qkv(cfg, p, h, positions):
     v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
     q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
+    q = logical(q, "batch", "seq", "heads", None)
+    k = logical(k, "batch", "seq", "kv_heads", None)
     return q, k, v
 
 
@@ -367,7 +463,7 @@ def _decoder_layer(cfg, p, x, positions, kv_cache=None, cache_len=None):
     attn_out, new_kv = _attn_block(cfg, p, x, positions, kv_cache, cache_len)
     h = L.norm(x, p.ln1, cfg.norm_eps, cfg.norm) if cfg.parallel_block else None
     x, aux = _residual(cfg, p, x, h, attn_out)
-    return x, new_kv, aux
+    return logical(x, "batch", "seq", "embed"), new_kv, aux
 
 
 def _mamba_layer(cfg, p, x, state=None, *, backend="ref", h_out=None):
@@ -381,18 +477,19 @@ def _mamba_layer(cfg, p, x, state=None, *, backend="ref", h_out=None):
         y, new_state = SSM.mamba2_seq(
             p, h, chunk=cfg.ssm_chunk, ngroups=cfg.ssm_groups,
             ssm_state=cfg.ssm_state, state=state, h_out=h_out)
-    return x + y, new_state
+    return logical(x + y, "batch", "seq", "embed"), new_state
 
 
 def _embed_in(cfg, params: Model, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.embeds_input:
         return tokens.to(dtype_of(cfg))
-    return params.embed[tokens.long()]
+    return logical(params.embed[tokens.long()], "batch", "seq", "embed")
 
 
 def _final_hidden_to_logits(cfg, params: Model, x: torch.Tensor):
     x = L.norm(x, params.final_norm, cfg.norm_eps, cfg.norm)
-    return (x @ params.lm_head) * cfg.logit_scale
+    return logical((x @ params.lm_head) * cfg.logit_scale,
+                   "batch", "seq", "vocab_out")
 
 
 # ---------------------------------------------------------------------------
@@ -458,6 +555,29 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
     shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
     k = torch.zeros(shape, dtype=dtype_of(cfg), device=dev)
     return DecodeCache(k, torch.zeros_like(k), None, None, 0)
+
+
+def compressed_cache_logical_axes(cfg: ModelConfig) -> CompressedCache:
+    pay = (None, "cache_batch", "cache_kv_heads", "cache_seq", None)
+    em = (None, "cache_batch", "cache_kv_heads", "cache_seq")
+    tail = (None, "cache_batch", None, "cache_kv_heads", None)
+    return CompressedCache(pay, em, pay, em, tail, tail, ())
+
+
+def cache_logical_axes(cfg: ModelConfig):
+    """The logical axes of ``init_cache``'s fields (``length``, a host
+    int here, takes ``()``)."""
+    kv_axes = (None, "cache_batch", "cache_seq", "cache_kv_heads", None)
+    ssm_axes = (None, "cache_batch", None, "mlp")
+    h1_axes = (None, "cache_batch", "mlp", None)
+    h2_axes = (None, "cache_batch", None, None, None)
+    if cfg.family in ("dense", "moe", "audio", "vlm"):
+        if cfg.kv_compress_planes:
+            return compressed_cache_logical_axes(cfg)
+        return DecodeCache(kv_axes, kv_axes, None, None, ())
+    if cfg.family == "ssm":
+        return DecodeCache(None, None, ssm_axes, h1_axes, ())
+    return DecodeCache(kv_axes, kv_axes, ssm_axes, h2_axes, ())
 
 
 def _on(a, dev: torch.device) -> torch.Tensor:
@@ -573,18 +693,39 @@ def _hybrid_forward(cfg, params, x, positions, collect_cache, backend):
     return x, aux, (SSM.MambaState(conv, h), (k, v))
 
 
-@torch.inference_mode()
+def _ssm_body(cfg, names, collect_cache: bool, backend: str):
+    """One Mamba-1 layer as a function of tensors only, ``(h, *weights)
+    -> h`` (with ``collect_cache``: ``(h, conv, h_ssm)``), as
+    ``_dense_body``: the remat policies see every weight as an argument.
+    The scan differentiates through the sscan kernels on the card
+    (``kernels.sscan.ops.SelectiveScan``)."""
+    def body(h, *weights):
+        lp = SimpleNamespace(**dict(zip(names, weights)))
+        h, st = _mamba_layer(cfg, lp, h, backend=backend)
+        return (h, st.conv, st.h) if collect_cache else h
+
+    return body
+
+
 def _ssm_forward(cfg, params, x, collect_cache, backend):
-    states = []
+    """Each Mamba-1 layer under ``_remat``; with ``collect_cache`` one
+    ``MambaState`` of ``(L, ...)`` stacks."""
+    names = [n for n, _ in params.layers[0].named_parameters()]
+    body = _remat(cfg, _ssm_body(cfg, names, collect_cache, backend),
+                  backend)
+    convs, hs = [], []
     for lp in params.layers:
-        x, st = lp(x, backend=backend)
+        outs = body(x, *(getattr(lp, n) for n in names))
         if collect_cache:
-            states.append(st)
+            x, conv, h = outs
+            convs.append(conv)
+            hs.append(h)
+        else:
+            x = outs
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if not collect_cache:
         return x, aux, None
-    return x, aux, SSM.MambaState(torch.stack([s.conv for s in states]),
-                                  torch.stack([s.h for s in states]))
+    return x, aux, SSM.MambaState(torch.stack(convs), torch.stack(hs))
 
 
 def forward(cfg: ModelConfig, params: Model, tokens: torch.Tensor,
@@ -592,15 +733,15 @@ def forward(cfg: ModelConfig, params: Model, tokens: torch.Tensor,
             backend: Optional[str] = None):
     """Full-sequence forward. Returns (hidden (B, S, d), aux loss, cache).
 
-    Dense, MoE, audio and vlm: differentiable (each layer under
-    ``_remat``); with ``collect_cache`` the per-layer K and V as
-    ``(L, B, S, KV, hd)`` stacks ``(k, v)``. hybrid: differentiable (each
-    group under ``_remat``), the grouped cache of ``_hybrid_forward``.
-    ssm: inference only (``cfg.remat`` ignored; training it is ROADMAP.md
-    item 19); with ``collect_cache`` one ``MambaState`` of ``(L, ...)``
-    stacks; ``positions`` unused, as in the reference's ssm branch. ``backend`` picks the kernels (the
-    compressed remat's codec, the selective scan): ``"cuda"``, the
-    default on a CUDA device, or ``"ref"``."""
+    Every family is differentiable. Dense, MoE, audio and vlm: each
+    layer under ``_remat``; with ``collect_cache`` the per-layer K and V
+    as ``(L, B, S, KV, hd)`` stacks ``(k, v)``. hybrid: each group under
+    ``_remat``, the grouped cache of ``_hybrid_forward``. ssm: each layer
+    under ``_remat``; with ``collect_cache`` one ``MambaState`` of
+    ``(L, ...)`` stacks; ``positions`` unused, as in the reference's ssm
+    branch. ``backend`` picks the kernels (the compressed remat's codec,
+    the selective scan and its backward): ``"cuda"``, the default on a
+    CUDA device, or ``"ref"``."""
     dev = params.device
     backend = device_mod.backend_for(dev, backend)
     x = _embed_in(cfg, params, _on(tokens, dev))
@@ -654,10 +795,6 @@ def loss_fn(cfg: ModelConfig, params: Model, batch, *,
             backend: Optional[str] = None) -> torch.Tensor:
     """The training loss: batch ``tokens`` (or embeddings), ``labels``,
     ``positions`` (tensors or numpy arrays)."""
-    if cfg.family == "ssm":
-        raise NotImplementedError(NOT_PORTED.format(
-            what="training of the 'ssm' family (a gradient through the "
-                 "selective scan)", item=SSM_TRAINING_ITEM))
     hidden, aux, _ = forward(cfg, params, batch["tokens"],
                              batch["positions"], backend=backend)
     loss = chunked_xent(cfg, params, hidden, batch["labels"])

@@ -24,8 +24,9 @@ input agree bit for bit, as a ``full``-remat recompute needs:
   order.
 
 The expert-parallel branch (experts sharded over a mesh axis under
-``shard_map``, a ``psum`` combining the shards) waits for the logical
-sharding axes: ROADMAP.md queue 1 item 21.
+``shard_map``, a ``psum`` combining the shards) is not ported yet:
+ROADMAP.md queue 1 item 24 (it reads ``distributed.sharding``'s
+``current_mesh()`` and ``current_rules()``).
 """
 
 from __future__ import annotations

@@ -7,7 +7,9 @@ Port of ``repro.models.ssm``: ``causal_conv``, ``MambaState``,
 ``mamba2_init_state``. The Mamba-1 scan goes through
 ``kernels.sscan.ops.selective_scan``: on a CUDA device with
 ``backend="cuda"`` that launches the hand-written kernel on every call,
-one token or a whole prompt (the reference's model runs the XLA form
+one token or a whole prompt, and under a gradient its backward kernel
+(``SelectiveScan``; ``a = -exp(A_log)`` stays outside it, so ``A_log``'s
+gradient is autograd's) (the reference's model runs the XLA form
 ``chunked_selective_scan`` instead, which stays here as the kernel's
 plain version). Mamba-2 is plain PyTorch, as the reference's is XLA:
 ``ssd_chunked`` is the chunked matmul form of SSD (Dao & Gu,

@@ -7,8 +7,9 @@ order (the reference's are trees of ``(L, ...)`` stacks;
 carry a state across). ``update`` keeps the reference's order of
 operations and writes parameters and moments **in place**. The
 error-feedback buffer ``ef`` serves compressed gradients
-(``repro_torch.distributed.collectives``). ``state_logical_axes`` (a
-sharding annotation) is not ported: ROADMAP.md queue 1 item 21.
+(``repro_torch.distributed.collectives``). ``state_logical_axes``: the
+moments take their parameters' logical sharding axes
+(``distributed.sharding``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,19 @@ def init(params: Mapping[str, torch.Tensor],
     return AdamWState(
         step=torch.zeros((), dtype=torch.int32, device=dev),
         m=zeros(), v=zeros(), ef=zeros() if error_feedback else None,
+    )
+
+
+def state_logical_axes(param_axes, error_feedback: bool = False
+                       ) -> AdamWState:
+    """The state's logical axes: the moments (and ``ef``) inherit their
+    parameters' (``models.model.param_logical_axes``), ``step`` is a
+    scalar."""
+    return AdamWState(
+        step=(),
+        m=param_axes,
+        v=param_axes,
+        ef=param_axes if error_feedback else None,
     )
 
 

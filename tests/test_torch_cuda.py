@@ -25,7 +25,11 @@ operations); the fused ZFP-decode attention kernel decodes bit for bit
 it is held within rtol = atol = 2e-5; the
 selective-scan kernel runs the recurrence step by step in float32,
 held within rtol 1e-4 / atol 1e-5 (the bound of
-``tests/test_sscan_kernel.py``) of the same recurrence in float64. The float64 codec and
+``tests/test_sscan_kernel.py``) of the same recurrence in float64, and
+its backward kernel within 1e-4 of each gradient's largest value of
+float64 autograd of the plain version, bit for bit from run to run (a
+falcon-mamba smoke train step on it within 1e-4 of the plain step's
+loss). The float64 codec and
 stencil kernels (``csrc/zfp64.cu``, ``csrc/stencil64.cu``) are held bit
 for bit too, alone, through the float64 engines, and through the
 precision curve, whose lossless code must be exactly 0 on the card.
@@ -458,6 +462,133 @@ def test_sscan_kernel_against_plain(cuda_device, b, s, d, n):
                                want_y.cpu().numpy(), rtol=1e-4, atol=1e-5)
     np.testing.assert_allclose(h_io.double().cpu().numpy(),
                                want_h.cpu().numpy(), rtol=1e-4, atol=1e-5)
+
+
+SSCAN_BWD_TOL = 1e-4  # of each gradient's largest |value| in float64
+
+
+def _scan_case(device, b, s, d, n, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    dt = np.log1p(np.exp(f(b, s, d) - 1.0))
+    a = -np.exp(0.3 * f(d, n))
+    arrays = (dt, a, f(b, s, n), f(b, s, n), f(b, s, d), 0.1 * f(b, d, n),
+              f(b, s, d), f(b, d, n))
+    return [torch.from_numpy(np.ascontiguousarray(t)).to(device)
+            for t in arrays]
+
+
+@pytest.mark.parametrize("n", [1, 5, 16])
+@pytest.mark.parametrize("d", [8, 200])
+@pytest.mark.parametrize("s", [1, 16, 33, 130])
+@pytest.mark.parametrize("b", [1, 2])
+def test_sscan_backward_kernel_against_float64(cuda_device, b, s, d, n):
+    """The backward kernel's six gradients (cotangents on ``y`` and
+    ``h_last``) within ``SSCAN_BWD_TOL`` of each one's largest value,
+    against float64 autograd of the plain version; the forward's saved
+    states within rtol 1e-4 / atol 1e-5 of the float64 states, and its
+    ``y`` bit for bit the ``y`` of a forward that saves none. D = 200
+    ends in a partial warp of 32 channels, S = 33 and 130 in a partial
+    stage of 16 steps, N = 1 and 5 mask states."""
+    dt, a, b_in, c_in, x, h0, gy, gh = _scan_case(
+        cuda_device, b, s, d, n, 100 * b + s + d + n)
+    ins = (dt, a, b_in, c_in, x, h0)
+    states = torch.empty(sscan_kernel.states_shape(b, s, d, n),
+                         device=cuda_device)
+    y_saved, _ = sscan_kernel.selective_scan(*ins, states_out=states)
+    y_plain, _ = sscan_kernel.selective_scan(*ins)
+    assert torch.equal(y_saved, y_plain)
+    want_states = sscan_ref.boundary_states(
+        *(t.double() for t in ins), sscan_kernel.SAVE_EVERY)
+    np.testing.assert_allclose(states.double().cpu().numpy(),
+                               want_states.cpu().numpy(), rtol=1e-4,
+                               atol=1e-5)
+    before = sscan_kernel.launches["sscan_bwd"]
+    got = sscan_kernel.selective_scan_bwd(*ins, states, gy, gh)
+    torch.cuda.synchronize()
+    assert sscan_kernel.launches["sscan_bwd"] == before + 1
+    want = sscan_ref.selective_scan_bwd_ref(
+        *(t.double() for t in ins), gy.double(), gh.double(), 8)
+    for name, g, w in zip(("dt", "a", "b_in", "c_in", "x", "h0"), got,
+                          want):
+        assert g.dtype == torch.float32 and g.shape == w.shape, name
+        err = float((g.double() - w).abs().max())
+        assert err <= SSCAN_BWD_TOL * float(w.abs().max()), (name, err)
+
+
+def test_sscan_backward_is_bitwise_run_to_run(cuda_device):
+    """No atomics: two backward calls (and two autograd passes through
+    ``SelectiveScan``) give the same bits, at 1000 channels and 300
+    steps without a cotangent on ``h_last``, as the model's are."""
+    dt, a, b_in, c_in, x, h0, gy, _ = _scan_case(cuda_device, 2, 300, 1000,
+                                                 16, 5)
+    ins = (dt, a, b_in, c_in, x, h0)
+    states = torch.empty(sscan_kernel.states_shape(2, 300, 1000, 16),
+                         device=cuda_device)
+    sscan_kernel.selective_scan(*ins, states_out=states)
+    one = sscan_kernel.selective_scan_bwd(*ins, states, gy)
+    two = sscan_kernel.selective_scan_bwd(*ins, states, gy)
+    for p, q in zip(one, two):
+        assert torch.equal(p, q)
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        y, _ = sscan_ops.selective_scan(*leaves, chunk=64, backend="cuda")
+        grads.append(torch.autograd.grad((y * gy).sum(), leaves))
+    for p, q in zip(*grads):
+        assert torch.equal(p, q)
+
+
+def test_ssm_train_steps_on_the_kernels_match_plain(cuda_device):
+    """falcon-mamba smoke, float32, compressed remat: three steps of
+    ``make_train_step`` on the kernels against the same steps on the
+    plain versions, both on the card: losses and gradient norms within
+    1e-4 relative; a step launches the scan twice a layer (the forward
+    and compressed remat's re-forward) and its backward once a layer;
+    two runs on the kernels are bit for bit equal."""
+    from repro_torch.launch import steps as train_steps
+    from repro_torch.optim import adamw
+
+    cfg = dataclasses.replace(smoke(get_config("falcon-mamba-7b")),
+                              dtype="float32", remat="compressed")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    init = [p.detach().clone() for p in model.init_params(
+        cfg, gen, device="cuda").parameters()]
+    rng = np.random.default_rng(3)
+    batches = [{"tokens": torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 40)).astype(np.int32)).cuda(),
+        "labels": torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (2, 40)).astype(np.int32)).cuda(),
+        "positions": torch.arange(40, dtype=torch.int32,
+                                  device="cuda").repeat(2, 1)}
+        for _ in range(3)]
+
+    def run(backend):
+        m = model.Model(cfg, device="cuda", dtype=torch.float32)
+        with torch.no_grad():
+            for p, t in zip(m.parameters(), init):
+                p.copy_(t)
+        opt = adamw.init(dict(m.named_parameters()))
+        step = train_steps.make_train_step(cfg, warmup=0, total_steps=3,
+                                           backend=backend)
+        out = []
+        for batch in batches:
+            opt, met = step(m, opt, batch)
+            out.append((float(met["loss"]), float(met["gnorm"])))
+        return out, [p.detach().clone() for p in m.parameters()]
+
+    sscan_kernel.reset_launches()
+    k1, w1 = run("cuda")
+    assert sscan_kernel.launches["sscan"] == 3 * 2 * cfg.num_layers
+    assert sscan_kernel.launches["sscan_bwd"] == 3 * cfg.num_layers
+    k2, w2 = run("cuda")
+    assert k1 == k2 and all(torch.equal(p, q) for p, q in zip(w1, w2))
+    sscan_kernel.reset_launches()
+    plain, _ = run("ref")
+    assert sscan_kernel.launches["sscan_bwd"] == 0
+    for (kl, kg), (pl, pg) in zip(k1, plain):
+        assert abs(kl - pl) <= 1e-4 * abs(pl)
+        assert abs(kg - pg) <= 1e-4 * abs(pg)
 
 
 def test_ssm_serving_cuda_equals_ref_on_card(cuda_device):

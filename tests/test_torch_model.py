@@ -296,9 +296,10 @@ def test_ssm_a_log_and_d_stay_float32_under_bfloat16():
 
 
 def test_dense_forward_is_not_ported():
-    """Every family's forward is ported now; the one refusal left is
-    training the ssm family (a gradient through the selective scan),
-    which names its ROADMAP item, 19."""
+    """Every family's forward and loss are ported now (the name is kept
+    from when a family was refused): the dense prefill runs, and the ssm
+    family's loss, once refused (a gradient through the selective
+    scan), is finite and reaches every weight."""
     cfg = smoke(get_config("qwen2-1.5b"))
     params = TM.init_params(cfg, device="cpu")
     toks = torch.zeros((1, 4), dtype=torch.int32)
@@ -307,8 +308,13 @@ def test_dense_forward_is_not_ported():
     scfg = smoke(get_config("falcon-mamba-7b"))
     sparams = TM.init_params(scfg, device="cpu")
     batch = {"tokens": toks, "labels": toks, "positions": toks}
-    with pytest.raises(NotImplementedError, match="item 19"):
-        TM.loss_fn(scfg, sparams, batch)
+    sparams.requires_grad_(True)
+    loss = TM.loss_fn(scfg, sparams, batch)
+    assert torch.isfinite(loss)
+    grads = torch.autograd.grad(loss, list(sparams.parameters()),
+                                allow_unused=True)
+    assert all(g is not None for g in grads)
+    assert not hasattr(TM, "SSM_TRAINING_ITEM")
 
 
 # ----------------------------------------------------------------------
@@ -415,6 +421,43 @@ def test_dense_remat_policies_agree_in_the_port():
         assert torch.equal(out[remat][0], out["none"][0])
         for a, b in zip(out[remat][1], out["none"][1]):
             assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("remat", ["none", "full", "dots", "compressed"])
+def test_ssm_loss_and_gradients_match_reference(remat):
+    """falcon-mamba (smoke, float32): ``loss_fn`` and every gradient
+    against ``jax.grad`` of ``repro``'s, each Mamba-1 layer under the
+    remat policy (compressed: the layer's hidden state and weights coded
+    at 12 planes, as the reference codes them), the scan differentiated
+    through its plain version; ``LOSS_RTOL`` and ``GRAD_TOL``."""
+    jcfg, tcfg, jp, tp, batch = _dense_setup("falcon-mamba-7b", seed=41,
+                                             remat=remat)
+    jl, jg = jax.jit(jax.value_and_grad(
+        lambda p: JM.loss_fn(jcfg, p, batch)))(jp)
+    tp.requires_grad_(True)
+    tl = TM.loss_fn(tcfg, tp, batch)
+    tg = torch.autograd.grad(tl, list(tp.parameters()))
+    assert float(tl.detach()) == pytest.approx(float(jl), rel=LOSS_RTOL)
+    _grads_match(tp, tg, jg)
+
+
+def test_ssm_forward_and_prefill_keep_their_cache():
+    """The ssm forward, now under ``_remat``, returns the same hidden
+    state and ``MambaState`` stacks with and without autograd, and the
+    prefill (inference mode) the same cache."""
+    _, tcfg, _, tp, batch = _dense_setup("falcon-mamba-7b", seed=42,
+                                         remat="compressed")
+    with torch.no_grad():
+        h0, _, st0 = TM.forward(tcfg, tp, batch["tokens"],
+                                batch["positions"], collect_cache=True)
+    tp.requires_grad_(True)
+    h1, _, st1 = TM.forward(tcfg, tp, batch["tokens"], batch["positions"],
+                            collect_cache=True)
+    assert h1.requires_grad and torch.equal(h1.detach(), h0)
+    assert torch.equal(st1.conv.detach(), st0.conv)
+    assert torch.equal(st1.h.detach(), st0.h)
+    _, st2 = TM.prefill(tcfg, tp, batch["tokens"], batch["positions"])
+    assert torch.equal(st2.h, st0.h) and torch.equal(st2.conv, st0.conv)
 
 
 def test_chunked_xent_masks_and_pads():

@@ -257,3 +257,131 @@ def test_ssd_masked_exponent_keeps_the_gradient_finite():
     _close(th, jh)
     assert jg.size == 512 and np.isnan(jg).all()
     assert torch.isfinite(tg).all() and float(tg.abs().max()) > 0
+
+
+# ----------------------------------------------------------------------
+# the selective scan's gradient (training the ssm family)
+# ----------------------------------------------------------------------
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)  # the scan's own bound
+
+
+def _scan_inputs(b, s, d, n, seed):
+    """(dt, a, b_in, c_in, x, h0) and the cotangents (gy, gh), numpy
+    float32, dt and a as the model draws them (softplus, -exp)."""
+    rng = np.random.default_rng(seed)
+    f = lambda *shape: rng.standard_normal(shape).astype(np.float32)
+    dt = np.log1p(np.exp(f(b, s, d) - 2.0)).astype(np.float32)
+    a = -np.exp(0.3 * f(d, n)).astype(np.float32)
+    return (dt, a, f(b, s, n), f(b, s, n), f(b, s, d), 0.1 * f(b, d, n)), \
+        (f(b, s, d), f(b, d, n))
+
+
+@pytest.mark.parametrize("n", [16, 8])
+def test_selective_scan_gradients_match_reference(n):
+    """Every input's gradient of ``y`` and ``h_last`` under cotangents
+    (gy, gh) against ``jax.grad`` of ``repro``'s XLA form
+    ``chunked_selective_scan``: B 2, S 37 (ragged against the chunk of
+    8), D 24, within the scan's rtol 1e-4 / atol 1e-5."""
+    from repro_torch.kernels.sscan import ops as sscan_ops
+
+    ins, (gy, gh) = _scan_inputs(2, 37, 24, n, seed=n)
+
+    def jloss(*t):
+        y, h = JS.chunked_selective_scan(*t, 8)
+        return jnp.sum(y * gy) + jnp.sum(h * gh)
+
+    want = jax.grad(jloss, argnums=tuple(range(6)))(*map(jnp.asarray, ins))
+    tins = [torch.from_numpy(t).requires_grad_(True) for t in ins]
+    y, h = sscan_ops.selective_scan(*tins, chunk=8)
+    got = torch.autograd.grad(
+        (y * torch.from_numpy(gy)).sum() + (h * torch.from_numpy(gh)).sum(),
+        tins)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+def test_plain_scan_gradcheck_in_float64():
+    """``torch.autograd.gradcheck`` of the plain version (the backward
+    kernel's oracle) in float64, ragged S 9 against chunk 4."""
+    from repro_torch.kernels.sscan import ref as sscan_ref
+
+    ins, _ = _scan_inputs(1, 9, 3, 4, seed=3)
+    tins = [torch.from_numpy(t).double().requires_grad_(True) for t in ins]
+    assert torch.autograd.gradcheck(
+        lambda *t: sscan_ref.selective_scan_ref(*t, 4), tins)
+
+
+def test_scan_function_runs_its_plain_versions_on_cpu():
+    """``SelectiveScan`` (the card's autograd route) on CPU tensors: its
+    forward's checkpoints are ``ref.boundary_states`` (the state before
+    every ``SAVE_EVERY`` steps, equal to the float64 recurrence's) and
+    its backward ``kernel.selective_scan_bwd``'s plain version; both
+    give what autograd of the plain scan gives, bit for bit."""
+    from repro_torch.kernels.sscan import kernel as sscan_kernel
+    from repro_torch.kernels.sscan import ops as sscan_ops
+    from repro_torch.kernels.sscan import ref as sscan_ref
+
+    ins, (gy, gh) = _scan_inputs(2, 37, 24, 16, seed=4)
+    t = [torch.from_numpy(a) for a in ins]
+    states = torch.empty(sscan_kernel.states_shape(2, 37, 24, 16))
+    y, h = sscan_kernel.selective_scan(*t, chunk=8, states_out=states)
+    every = sscan_kernel.SAVE_EVERY
+    assert states.shape == (2, 3, 24, 16)
+    assert torch.equal(states[:, 0], t[5])
+    for k in (1, 2):
+        _, hk = sscan_ref.selective_scan_f64(
+            *(a[:, :k * every] if a.dim() == 3 and a.shape[1] == 37 else a
+              for a in t))
+        np.testing.assert_allclose(states[:, k].numpy(), hk.numpy(), **TOL)
+    tins = [a.clone().requires_grad_(True) for a in t]
+    y, h = sscan_ops.SelectiveScan.apply(*tins)
+    tg, th = torch.from_numpy(gy), torch.from_numpy(gh)
+    got = torch.autograd.grad((y * tg).sum() + (h * th).sum(), tins)
+    want = sscan_ref.selective_scan_bwd_ref(*t, tg, th, 37)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_h_out_takes_no_gradient():
+    """The serving cache's in-place ``h_out`` refuses a scan that needs
+    a gradient; without one it is written as before."""
+    from repro_torch.kernels.sscan import ops as sscan_ops
+
+    ins, _ = _scan_inputs(1, 5, 4, 8, seed=6)
+    t = [torch.from_numpy(a) for a in ins]
+    h_out = torch.zeros_like(t[5])
+    with pytest.raises(ValueError, match="no gradient"):
+        sscan_ops.selective_scan(t[0].requires_grad_(True), *t[1:],
+                                 chunk=4, h_out=h_out)
+    t[0].requires_grad_(False)
+    _, h = sscan_ops.selective_scan(*t, chunk=4, h_out=h_out)
+    assert h is h_out and float(h_out.abs().max()) > 0
+
+
+def test_mamba1_seq_gradients_match_reference(layer):
+    """The whole Mamba-1 mixer's gradients (every weight it reads, ``A_log``
+    through ``a = -exp(A_log)`` outside the scan, and the input) against
+    ``jax.grad`` of ``repro``'s ``mamba1_seq``, S 37, chunk 8."""
+    cfg, jl, tl = layer
+    x = _x(cfg, 2, 37, seed=9)
+    gy = np.random.default_rng(10).standard_normal(x.shape).astype(
+        np.float32)
+
+    def jloss(p, xx):
+        y, _ = JS.mamba1_seq(p, xx, chunk=8)
+        return jnp.sum(y * gy)
+
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(jl, jnp.asarray(x))
+    names = [n for n, _ in tl.named_parameters() if n != "ln1"]
+    params = [getattr(tl, n).detach().clone().requires_grad_(True)
+              for n in names]
+    lp = dict(zip(names, params))
+    tx = torch.from_numpy(x).requires_grad_(True)
+    y, _ = TS.mamba1_seq(type("P", (), lp), tx, chunk=8)
+    got = torch.autograd.grad((y * torch.from_numpy(gy)).sum(),
+                              params + [tx])
+    for name, g in zip(names, got):
+        np.testing.assert_allclose(g.numpy(), np.asarray(jgp[name]),
+                                   err_msg=name, **GRAD_TOL)
+    np.testing.assert_allclose(got[-1].numpy(), np.asarray(jgx), **GRAD_TOL)

@@ -123,6 +123,28 @@ def test_moe_train_steps_match_reference():
     _steps_match_reference("qwen3-moe-235b-a22b", flips=1e-3)
 
 
+def test_ssm_train_steps_match_reference():
+    """The same for the ssm family (smoke falcon-mamba): each Mamba-1
+    layer under compressed remat, its scan differentiated (through the
+    plain version here, the backward kernel on the card). Seen: one
+    4-value codec block of ``dt_w`` flipped a kept plane (4 of 65,536
+    values past 1e-7), so a share of 1e-3 is held to the learning rate,
+    as for the MoE family."""
+    _steps_match_reference("falcon-mamba-7b", flips=1e-3)
+
+
+@pytest.mark.parametrize("arch", ["falcon-mamba-7b", "zamba2-2.7b"])
+def test_launcher_trains_the_ssm_families(arch):
+    """``--arch falcon-mamba-7b --smoke`` (and the zamba2 hybrid) trains
+    on the CPU for two steps: finite losses, float32 and ``remat="none"``
+    as ``repro``'s launcher sets them."""
+    run = TT.main(["--arch", arch, "--smoke", "--steps", "2", "--batch",
+                   "2", "--seq", "32", "--device", "cpu"])
+    assert run.cfg.dtype == "float32" and run.cfg.remat == "none"
+    assert [h[0] for h in run.history] == [0, 1]
+    assert all(np.isfinite(h[1]) for h in run.history)
+
+
 def test_reference_train_step_with_compressed_remat_fails_under_jit():
     """Reference caveat (ROADMAP.md §3): ``repro``'s train step with
     ``remat="compressed"`` runs un-jitted, but ``jax.jit`` of it, with the

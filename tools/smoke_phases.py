@@ -8,8 +8,10 @@ Each argument names a phase: ``ssm`` (phase 9: falcon-mamba,
 its depth after the colon, the smoke's own ``SSM_LAYERS`` without one),
 ``serving`` (phase 7: Qwen2-1.5B), ``moe`` (phase ``moe``: Qwen3-MoE),
 ``hybrid`` (phase ``hybrid``: zamba2-2.7b, its depth after the colon,
-``HYB_LAYERS`` without one) or ``embeds`` (phase ``embeds``: qwen2-vl-7b
-and musicgen-medium).
+``HYB_LAYERS`` without one), ``embeds`` (phase ``embeds``: qwen2-vl-7b
+and musicgen-medium), ``train`` (phase 10: the launcher and Qwen2-1.5B's
+steps) or ``train_ssm`` (phase 10s: the scan's backward kernel,
+falcon-mamba's and zamba2's steps).
 Needs one CUDA device and ``nvcc``; builds every kernel first. Prints the
 card line (``nvidia-smi`` name and power limit), the phases' own JSON
 lines, and after each one ``{"phase_seconds": ..., "phase": ...}``: the
@@ -47,7 +49,9 @@ def main(argv) -> int:
     smoke._build.build_all()
     phases = {"ssm": smoke.ssm_slice, "serving": smoke.serving_slice,
               "moe": smoke.moe_slice, "hybrid": smoke.hybrid_slice,
-              "embeds": smoke.embeds_slice}
+              "embeds": smoke.embeds_slice,
+              "train": lambda: smoke.train_slice({}),
+              "train_ssm": lambda: smoke.train_ssm_slice({})}
     depths = {"ssm": ("SSM_LAYERS", smoke.SSM_LAYERS),
               "hybrid": ("HYB_LAYERS", smoke.HYB_LAYERS)}
     for arg in argv:
