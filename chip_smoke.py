@@ -298,7 +298,10 @@ non-zero:
    (in channel slices), each gradient within ``SSCAN_BWD_TOL`` of its
    largest value, the forward that saves its states bit for bit the
    forward that does not, both timed beside their bounds and plain
-   versions; (a) falcon-mamba-7b at full width, 4 of 64 layers,
+   versions; the backward's kernels (``sscan_bwd_kernel`` and
+   ``sum_parts_kernel``) must show no spill and no stack frame, and its
+   line carries its residency and the bytes of its partials; (a)
+   falcon-mamba-7b at full width, 4 of 64 layers,
    float32, compressed remat, batch 8 x 512, 3 steps of
    ``make_train_step`` from seeded weights: a step launches the scan
    twice a layer and its backward once a layer, two runs bit for bit,
@@ -4381,6 +4384,12 @@ def sscan_train_cases(gen, results):
           "bound": bound_ms(f_nbytes, 6 * bsz * s * d * n + bsz * s * d,
                             bsz * s * d * n)}
     results[("sscan", shape, SSCAN_CHUNK)] = fr
+    # the backward's kernels keep their stage in registers: no spill and no
+    # stack frame; its residency, and the bytes of its partials (dB and
+    # dC, one a BWD_CHANNELS-channel group, written and read once)
+    bwd_ptxas = {k: kernel_ptxas("sscan", k)
+                 for k in ("sscan_bwd_kernel", "sum_parts_kernel")}
+    groups = -(-d // sscan_kernel.BWD_CHANNELS)
     emit({"phase": "kernel_vs_plain", "kernel": "sscan_bwd",
           "shape_bsdn": list(shape), "against": "float64 autograd of "
           "selective_scan_ref", "tol": SSCAN_BWD_TOL,
@@ -4389,7 +4398,12 @@ def sscan_train_cases(gen, results):
           "device_kernels": r["device_kernels"], "plain_ms": r["plain_ms"],
           "bound_ms": r["bound"][0], "bound_by": r["bound"][1],
           "bound_bytes": nbytes, "library_ms": None,
-          "ptxas": kernel_ptxas("sscan", "sscan_bwd_kernel")})
+          "partial_bytes": 2 * 2 * 4 * bsz * groups * s * n,
+          "residency": sscan_kernel.bwd_residency(), "ptxas": bwd_ptxas})
+    for entry, ptxas in bwd_ptxas.items():
+        check(len(ptxas) == 1 and ptxas[0].get("spill_stores", 0) == 0
+              and ptxas[0].get("stack_frame", 0) == 0,
+              f"sscan {entry} spills or keeps a stack frame: {ptxas}")
     emit({"phase": "kernel_vs_plain", "kernel": "sscan",
           "shape_bsdn": list(shape), "states_saved": True,
           "y_bitwise_unsaved": same_y, "ms": fr["ms"],

@@ -14,12 +14,20 @@ wants; it may be ``h0`` itself. ``states_out`` (optional, training)
 receives the state before every ``SAVE_EVERY`` steps, the checkpoints of
 ``selective_scan_bwd``: the gradient kernel of ``csrc/sscan.cu``, which
 replaces no TPU kernel (``repro`` differentiates the XLA form of the
-scan; its Pallas kernel has no backward). On a CPU tensor each wrapper
-runs its plain version (``ref``: the chunked scan, and autograd of it);
-on a CUDA tensor it launches the kernel or raises.
+scan; its Pallas kernel has no backward). The backward recomputes each
+16-step stage from its checkpoint with four lanes a channel and four
+states a lane, keeps the stage in registers, runs it backwards, and sums
+dB and dC over channels on chip (warp butterflies, then the CTA's 16
+warps in shared memory), writing one partial a ``BWD_CHANNELS``-channel
+CTA; a second launch adds the partials in order. Its bound is the bytes
+it must move (0.242 ms at falcon-mamba's training shape (8, 512, 8192,
+16) on an H100); ``bwd_residency`` reports its registers, shared memory
+and warps an SM. On a CPU tensor each wrapper runs its plain version
+(``ref``: the chunked scan, and autograd of it); on a CUDA tensor it
+launches the kernel or raises.
 ``launches["sscan"]`` and ``launches["sscan_bwd"]`` count launches, one
 per call that reaches the card (the backward's call is its scan and the
-two fixed-order sums of its partials).
+fixed-order sums of its partials).
 """
 
 from __future__ import annotations
@@ -40,7 +48,12 @@ _ARGS = [_P] * 9 + [_I] * 4 + [_P]
 _BWD_ARGS = [_P] * 17 + [_I] * 4 + [_P]
 MAX_STATE = 16  # csrc/sscan.cu kMaxN: the states a channel keeps in registers
 SAVE_EVERY = 16  # csrc/sscan.cu kStage: steps between the saved states
-BWD_CHANNELS = 32  # csrc/sscan.cu kBwdChan: channels a CTA of the backward
+BWD_CHANNELS = 128  # csrc/sscan.cu kBwdGroup: channels a dB / dC partial
+# each constant and the library's getter of it
+_GETTERS = (("MAX_STATE", "sscan_max_state"),
+            ("SAVE_EVERY", "sscan_save_every"),
+            ("BWD_CHANNELS", "sscan_bwd_channels"))
+_checked = []
 
 
 def reset_launches() -> None:
@@ -57,6 +70,39 @@ def _require(x: torch.Tensor, shape, what: str, dev: torch.device) -> None:
         raise ValueError(f"{what} must be contiguous")
     if x.device != dev:
         raise ValueError(f"{what} lies on {x.device}, not {dev}")
+
+
+def _bind(symbol: str, argtypes):
+    """Bind a C entry of ``csrc/sscan.cu``, first checking once that the
+    library's extents are the constants this module sizes its scratch
+    by (a library built from another source would overrun them)."""
+    if not _checked:
+        lib = _build.library("sscan")
+        for const, getter in _GETTERS:
+            fn = getattr(lib, getter)
+            fn.argtypes, fn.restype = [], ctypes.c_int
+            if fn() != globals()[const]:
+                raise _build.KernelError(
+                    f"csrc/sscan.cu {getter}() = {fn()}, but the wrapper's "
+                    f"{const} is {globals()[const]}")
+        _checked.append(True)
+    return _build.bind("sscan", symbol, argtypes)
+
+
+def bwd_residency() -> dict:
+    """The backward kernel's residency on the current card, from the
+    library (``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` and
+    ``cudaFuncGetAttributes``): CTAs and warps an SM, threads a CTA,
+    registers and local bytes a thread, static and dynamic shared
+    memory. For measurement; no launch."""
+    fn = _bind("sscan_bwd_occupancy", [_P])
+    out = (ctypes.c_int * 6)()
+    _build.check("sscan", fn(out), "sscan_bwd_occupancy")
+    keys = ("ctas_per_sm", "threads", "dynamic_smem", "registers",
+            "static_smem", "local_bytes")
+    res = dict(zip(keys, out))
+    res["warps_per_sm"] = res["ctas_per_sm"] * res["threads"] // 32
+    return res
 
 
 def states_shape(bsz: int, s: int, d: int, n: int) -> Tuple[int, ...]:
@@ -110,7 +156,7 @@ def selective_scan(
     if states_out is not None:
         _require(states_out, states_shape(bsz, s, d, n), "states_out", dev)
     y = torch.empty_like(x)
-    fn = _build.bind("sscan", "sscan_forward", _ARGS)
+    fn = _bind("sscan_forward", _ARGS)
     err = fn(dt.data_ptr(), x.data_ptr(), a.data_ptr(), b_in.data_ptr(),
              c_in.data_ptr(), h0.data_ptr(), y.data_ptr(), h_out.data_ptr(),
              None if states_out is None else states_out.data_ptr(),
@@ -148,12 +194,12 @@ def selective_scan_bwd(
     ddt, dx = torch.empty_like(x), torch.empty_like(x)
     da, dh0 = torch.empty_like(a), torch.empty_like(h0)
     db, dc = torch.empty_like(b_in), torch.empty_like(c_in)
-    tiles = -(-d // BWD_CHANNELS)
-    db_part = torch.empty((bsz, tiles, s, n), dtype=torch.float32,
+    groups = -(-d // BWD_CHANNELS)
+    db_part = torch.empty((bsz, groups, s, n), dtype=torch.float32,
                           device=dev)
     dc_part = torch.empty_like(db_part)
     da_part = torch.empty_like(h0)
-    fn = _build.bind("sscan", "sscan_backward", _BWD_ARGS)
+    fn = _bind("sscan_backward", _BWD_ARGS)
     err = fn(dt.data_ptr(), x.data_ptr(), a.data_ptr(), b_in.data_ptr(),
              c_in.data_ptr(), states.data_ptr(), gy.data_ptr(),
              None if gh is None else gh.data_ptr(), dx.data_ptr(),

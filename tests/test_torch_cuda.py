@@ -478,23 +478,16 @@ def _scan_case(device, b, s, d, n, seed):
             for t in arrays]
 
 
-@pytest.mark.parametrize("n", [1, 5, 16])
-@pytest.mark.parametrize("d", [8, 200])
-@pytest.mark.parametrize("s", [1, 16, 33, 130])
-@pytest.mark.parametrize("b", [1, 2])
-def test_sscan_backward_kernel_against_float64(cuda_device, b, s, d, n):
-    """The backward kernel's six gradients (cotangents on ``y`` and
-    ``h_last``) within ``SSCAN_BWD_TOL`` of each one's largest value,
-    against float64 autograd of the plain version; the forward's saved
-    states within rtol 1e-4 / atol 1e-5 of the float64 states, and its
-    ``y`` bit for bit the ``y`` of a forward that saves none. D = 200
-    ends in a partial warp of 32 channels, S = 33 and 130 in a partial
-    stage of 16 steps, N = 1 and 5 mask states."""
-    dt, a, b_in, c_in, x, h0, gy, gh = _scan_case(
-        cuda_device, b, s, d, n, 100 * b + s + d + n)
-    ins = (dt, a, b_in, c_in, x, h0)
+def _check_scan_backward(ins, gy, gh):
+    """The forward with its checkpoints, then the backward kernel, against
+    float64 autograd of the plain version: each gradient within
+    ``SSCAN_BWD_TOL`` of its largest value; the checkpoints within rtol
+    1e-4 / atol 1e-5 of the float64 states and the forward's ``y`` bit for
+    bit a forward's that saves none. Returns the gradients."""
+    b, s, d = ins[4].shape
+    n = ins[1].shape[1]
     states = torch.empty(sscan_kernel.states_shape(b, s, d, n),
-                         device=cuda_device)
+                         device=ins[0].device)
     y_saved, _ = sscan_kernel.selective_scan(*ins, states_out=states)
     y_plain, _ = sscan_kernel.selective_scan(*ins)
     assert torch.equal(y_saved, y_plain)
@@ -508,12 +501,75 @@ def test_sscan_backward_kernel_against_float64(cuda_device, b, s, d, n):
     torch.cuda.synchronize()
     assert sscan_kernel.launches["sscan_bwd"] == before + 1
     want = sscan_ref.selective_scan_bwd_ref(
-        *(t.double() for t in ins), gy.double(), gh.double(), 8)
+        *(t.double() for t in ins), gy.double(),
+        None if gh is None else gh.double(), 8)
     for name, g, w in zip(("dt", "a", "b_in", "c_in", "x", "h0"), got,
                           want):
         assert g.dtype == torch.float32 and g.shape == w.shape, name
         err = float((g.double() - w).abs().max())
         assert err <= SSCAN_BWD_TOL * float(w.abs().max()), (name, err)
+    return got
+
+
+@pytest.mark.parametrize("n", [1, 5, 16])
+@pytest.mark.parametrize("d", [8, 200, 390])
+@pytest.mark.parametrize("s", [1, 16, 33, 130])
+@pytest.mark.parametrize("b", [1, 2])
+def test_sscan_backward_kernel_against_float64(cuda_device, b, s, d, n):
+    """The backward kernel's six gradients (cotangents on ``y`` and
+    ``h_last``) within ``SSCAN_BWD_TOL`` of each one's largest value,
+    against float64 autograd of the plain version; the forward's saved
+    states within rtol 1e-4 / atol 1e-5 of the float64 states, and its
+    ``y`` bit for bit the ``y`` of a forward that saves none. A CTA of
+    the backward holds ``BWD_CHANNELS`` (128) channels: D = 8 leaves most
+    of one idle, 200 ends in a partial second CTA and 390 in a partial
+    fourth, and is no multiple of 4 (the staged dt, x and gy go by 4-byte
+    copies); S = 33 and 130 end in a partial stage of 16 steps; N = 1 and
+    5 mask states (and 5 stages the checkpoints by 4-byte copies)."""
+    dt, a, b_in, c_in, x, h0, gy, gh = _scan_case(
+        cuda_device, b, s, d, n, 100 * b + s + d + n)
+    _check_scan_backward((dt, a, b_in, c_in, x, h0), gy, gh)
+
+
+def _offset(t):
+    """A contiguous copy of ``t`` whose ``data_ptr`` is 4 bytes past a
+    16-byte boundary: a view at storage offset 1."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    return view
+
+
+@pytest.mark.parametrize("n", [4, 16])
+@pytest.mark.parametrize("d", [64, 200])
+def test_sscan_backward_unaligned_inputs(cuda_device, d, n):
+    """Every input a view at a storage offset, so no ``data_ptr`` is
+    16-byte aligned and the backward stages dt, x, gy and the checkpoints
+    by 4-byte copies: the gradients equal, bit for bit, those of the same
+    values in aligned storage, and sit within ``SSCAN_BWD_TOL`` of float64
+    autograd."""
+    dt, a, b_in, c_in, x, h0, gy, gh = _scan_case(cuda_device, 2, 37, d, n,
+                                                  7 + d + n)
+    ins = (dt, a, b_in, c_in, x, h0)
+    aligned = _check_scan_backward(ins, gy, gh)
+    states = torch.empty(sscan_kernel.states_shape(2, 37, d, n),
+                         device=cuda_device)
+    sscan_kernel.selective_scan(*ins, states_out=states)
+    moved = [_offset(t) for t in (*ins, states, gy, gh)]
+    got = sscan_kernel.selective_scan_bwd(*moved[:6], moved[6], moved[7],
+                                          moved[8])
+    for p, q in zip(got, aligned):
+        assert torch.equal(p, q)
+
+
+def test_sscan_backward_at_the_training_width(cuda_device):
+    """B 2, S 64, D 8192, N 16: falcon-mamba's width (64 CTAs a batch row)
+    and four stages, no cotangent on ``h_last`` (as the model's), within
+    ``SSCAN_BWD_TOL`` of float64 autograd."""
+    dt, a, b_in, c_in, x, h0, gy, _ = _scan_case(cuda_device, 2, 64, 8192,
+                                                 16, 11)
+    _check_scan_backward((dt, a, b_in, c_in, x, h0), gy, None)
 
 
 def test_sscan_backward_is_bitwise_run_to_run(cuda_device):

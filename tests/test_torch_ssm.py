@@ -343,6 +343,87 @@ def test_scan_function_runs_its_plain_versions_on_cpu():
         assert torch.equal(g, w)
 
 
+def _cuda_constants():
+    """The integer ``constexpr``s of ``csrc/sscan.cu`` that are literals or
+    products, sums and quotients of earlier ones (by name)."""
+    import ast
+    import re
+    from pathlib import Path
+
+    from repro_torch.kernels.sscan import kernel as sscan_kernel
+
+    src = Path(sscan_kernel.__file__).resolve().parents[2] / "csrc" / \
+        "sscan.cu"
+    ops = {ast.Mult: lambda a, b: a * b, ast.Add: lambda a, b: a + b,
+           ast.Sub: lambda a, b: a - b, ast.FloorDiv: lambda a, b: a // b,
+           ast.Div: lambda a, b: a // b}
+    known = {}
+
+    def value(node):
+        if isinstance(node, ast.Constant) and isinstance(node.value, int):
+            return node.value
+        if isinstance(node, ast.Name):
+            return known[node.id]
+        if isinstance(node, ast.BinOp) and type(node.op) in ops:
+            return ops[type(node.op)](value(node.left), value(node.right))
+        raise KeyError(ast.dump(node))
+
+    for name, expr in re.findall(r"constexpr int (\w+) = ([^;]+);",
+                                 src.read_text()):
+        try:
+            known[name] = value(ast.parse(expr, mode="eval").body)
+        except (KeyError, SyntaxError):
+            pass  # a template's own constant
+    return known
+
+
+def test_scan_wrapper_constants_are_the_cuda_sources():
+    """The wrapper sizes the checkpoints and the backward's scratch from
+    ``MAX_STATE``, ``SAVE_EVERY`` and ``BWD_CHANNELS``: each is its
+    ``constexpr`` in ``csrc/sscan.cu`` (``kMaxN``, ``kStage``,
+    ``kBwdGroup``), so a redesign that changes one there and not here
+    fails on the CPU too (on the card the wrapper also checks the built
+    library's getters at first bind)."""
+    from repro_torch.kernels.sscan import kernel as sscan_kernel
+
+    consts = _cuda_constants()
+    assert consts["kMaxN"] == sscan_kernel.MAX_STATE
+    assert consts["kStage"] == sscan_kernel.SAVE_EVERY
+    assert consts["kBwdGroup"] == sscan_kernel.BWD_CHANNELS
+    # one partial a CTA of the backward: 8 channels a warp
+    assert consts["kBwdGroup"] == 8 * consts["kBwdWarps"]
+
+
+@pytest.mark.parametrize("getter", ["sscan_max_state", "sscan_save_every",
+                                    "sscan_bwd_channels"])
+def test_scan_wrapper_refuses_a_library_of_other_extents(monkeypatch,
+                                                         getter):
+    """At first bind the wrapper asks the library for each extent it sizes
+    scratch by and raises ``KernelError`` on a mismatch, before any
+    launch (here a stand-in library whose ``getter`` is off by one)."""
+    from repro_torch import _build
+    from repro_torch.kernels.sscan import kernel as sscan_kernel
+
+    class Getter:
+        def __init__(self, value):
+            self.value = value
+
+        def __call__(self):
+            return self.value
+
+    class Library:
+        pass
+
+    lib = Library()
+    for const, name in sscan_kernel._GETTERS:
+        value = getattr(sscan_kernel, const)
+        setattr(lib, name, Getter(value + (name == getter)))
+    monkeypatch.setattr(_build, "library", lambda name: lib)
+    monkeypatch.setattr(sscan_kernel, "_checked", [])
+    with pytest.raises(_build.KernelError, match=getter):
+        sscan_kernel._bind("sscan_backward", sscan_kernel._BWD_ARGS)
+
+
 def test_h_out_takes_no_gradient():
     """The serving cache's in-place ``h_out`` refuses a scan that needs
     a gradient; without one it is written as before."""

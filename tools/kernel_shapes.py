@@ -5,6 +5,7 @@ at every shape the port's main paths launch them, for the tree at
 
     python3 tools/kernel_shapes.py [--root DIR] [--label NAME]
                                    [--f64-zlens N ...] [--f64-threads N ...]
+                                   [--only KERNEL ...]
 
 Needs one CUDA device and ``nvcc``; builds the kernels of that tree's
 ``src/repro_torch`` at first use. Prints the card line (``nvidia-smi``
@@ -35,6 +36,17 @@ bound (each input read once, each output written once, at 3.35 TB/s):
 * the falcon-mamba-7b slice (phase 9): the scan at (8, 1, 8192, 16) on
   64 layers of 159 decode steps (10176) and at (8, 128, 8192, 16) on
   64 layers of one prefill (64);
+* training the ssm family (phase ``train_ssm``, falcon-mamba-7b at 4
+  layers, 8 x 512 tokens): the scan's forward with its checkpoints and
+  its backward at (8, 512, 8192, 16), 8 and 4 launches a step, on inputs
+  drawn as ``chip_smoke.py``'s ``sscan_inputs`` draws them; the
+  backward's device time is that of every kernel of its call (the scan
+  and the sums of its partials), its byte bound that of
+  ``chip_smoke.py``'s ``sscan_bwd_bound``. Both rows call only
+  ``selective_scan`` and ``selective_scan_bwd``, so a tree of the
+  backward's first design times with the same script; the backward's row
+  carries its residency where the tree's wrapper reports one
+  (``bwd_residency``);
 * float64, the paper's own type (``chip_smoke.py``'s float64 paper
   sweep: 1152^3, ndiv 8, bt 12, code 4 at 24 planes, one sweep and a
   gather): the float64 codec on the same units, encode 27 and 18
@@ -80,6 +92,7 @@ STENCIL = [("wave_step", (20, 1152, 1152), 16),
            ("wave_step", (240, 1152, 1152), 0),
            ("wave_rung", (240, 1152, 1152), 192)]
 SCAN = [((8, 1, 8192, 16), 10176), ((8, 128, 8192, 16), 64)]
+TRAIN_SCAN = (8, 512, 8192, 16)  # phase train_ssm: 8 forwards, 4 backwards a step
 # (depth, encodes, decodes): the float64 paper sweep's units at 24 planes
 # and the precision tier's at each of 24 and 32
 PAPER64_UNITS = ((96, 27, 18), (48, 18, 12))
@@ -100,9 +113,9 @@ STENCIL64 = [("wave_step", (240, 1152, 1152), 0),
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 
 
-def device_ms(torch, fn, name: str, reps: int) -> float:
-    """Device time of one launch of the kernels whose name holds
-    ``name``, from ``torch.profiler`` over ``reps`` calls of ``fn``."""
+def device_ms(torch, fn, names, reps: int):
+    """Device time of the kernels whose name holds one of ``names`` over
+    ``reps`` calls of ``fn``, from ``torch.profiler``: (ms, launches)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -112,11 +125,12 @@ def device_ms(torch, fn, name: str, reps: int) -> float:
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        found = [e for e in prof.key_averages() if name in e.key]
+        found = [e for e in prof.key_averages()
+                 if any(n in e.key for n in names)]
         if found:
-            total = sum(e.self_device_time_total for e in found)
-            return total / 1e3 / sum(e.count for e in found)
-    raise RuntimeError(f"the profiler saw no {name} launch")
+            return (sum(e.self_device_time_total for e in found) / 1e3,
+                    sum(e.count for e in found))
+    raise RuntimeError(f"the profiler saw no launch of {names}")
 
 
 def ptxas_lines(log: str):
@@ -190,6 +204,9 @@ def main() -> int:
     ap.add_argument("--f64-threads", type=int, nargs="*", default=[],
                     help="threads a CTA to force on the float64 codec at "
                          "24 planes")
+    ap.add_argument("--only", nargs="*", default=[],
+                    help="time only the rows of these kernels (zfp, "
+                         "stencil, zfp64, stencil64, sscan, sscan_train)")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve() / "src"))
 
@@ -218,8 +235,14 @@ def main() -> int:
         print(json.dumps({"label": args.label, "source": name,
                           "ptxas": entries}), flush=True)
 
+    def wanted(group: str) -> bool:
+        return not args.only or group in args.only
+
     def emit(kernel, shape, launches, fn, name, **extra):
-        dev = device_ms(torch, fn, name, args.reps)
+        # one kernel: its time a launch; several (one call's): a call's
+        names = name if isinstance(name, tuple) else (name,)
+        total, count = device_ms(torch, fn, names, args.reps)
+        dev = total / (args.reps if isinstance(name, tuple) else count)
         row = {"label": args.label, "kernel": kernel, "shape": list(shape)}
         row.update(extra)
         row["launches_on_path"] = launches
@@ -290,11 +313,16 @@ def main() -> int:
             del pp, pc, v2
             torch.cuda.empty_cache()
 
-    codec(CODEC, torch.float32, "", "")
-    stencil(STENCIL, torch.float32, "", "")
-    if "encode_f64" in zfp_kernel.launches:
-        codec(CODEC64, torch.float64, "_f64", "64")
-        stencil(STENCIL64, torch.float64, "_f64", "64")
+    if wanted("zfp"):
+        codec(CODEC, torch.float32, "", "")
+    if wanted("stencil"):
+        stencil(STENCIL, torch.float32, "", "")
+    f64 = wanted("zfp64") or wanted("stencil64")
+    if f64 and "encode_f64" in zfp_kernel.launches:
+        if wanted("zfp64"):
+            codec(CODEC64, torch.float64, "_f64", "64")
+        if wanted("stencil64"):
+            stencil(STENCIL64, torch.float64, "_f64", "64")
         if args.f64_zlens and hasattr(stencil_kernel, "z_chunk"):
             chosen = stencil_kernel.z_chunk
             for zlen in args.f64_zlens:
@@ -309,19 +337,45 @@ def main() -> int:
                 codec([r for r in CODEC64 if r[2] == 24], torch.float64,
                       "_f64", "64", threads_forced=threads)
             zfp_kernel.f64_threads = chosen
-    else:
+    elif f64:
         print(json.dumps({"label": args.label,
                           "skipped": "no float64 kernels in this tree"}),
               flush=True)
-    for shape, launches in SCAN:
+    def scan_inputs(shape):
         bsz, s, d, n = shape
         dt = torch.nn.functional.softplus(normal((bsz, s, d)))
         a = -torch.exp(normal((d, n), 0.3))
         b_in, c_in = normal((bsz, s, n)), normal((bsz, s, n))
         x = normal((bsz, s, d))
-        h0 = normal((bsz, d, n), 0.1)
-        fn = lambda: sscan_kernel.selective_scan(dt, a, b_in, c_in, x, h0)
+        return dt, a, b_in, c_in, x, normal((bsz, d, n), 0.1)
+
+    for shape, launches in SCAN if wanted("sscan") else ():
+        ins = scan_inputs(shape)
+        fn = lambda: sscan_kernel.selective_scan(*ins)
         emit("sscan", shape, launches, fn, "sscan_kernel")
+    if wanted("sscan_train"):
+        bsz, s, d, n = shape = TRAIN_SCAN
+        ins = scan_inputs(shape)
+        gy = normal((bsz, s, d))
+        states = torch.empty(sscan_kernel.states_shape(*shape),
+                             device="cuda")
+        # the forward's bytes, its checkpoints written; the backward's:
+        # dt, x, gy read and dx, ddt written (B, S, D), B, C, dB, dC, A,
+        # dA, dh0 and the checkpoints once
+        elems = 4 * (3 * bsz * s * d + 2 * bsz * s * n + 2 * bsz * d * n
+                     + d * n) + states.numel() * 4
+        fwd = lambda: sscan_kernel.selective_scan(*ins, states_out=states)
+        emit("sscan_states", shape, 8, fwd, "sscan_kernel",
+             bound_ms=elems / HBM_BYTES_PER_S * 1e3)
+        nbytes = 4 * (5 * bsz * s * d + 4 * bsz * s * n + 2 * d * n
+                      + bsz * d * n) + states.numel() * 4
+        extra = {}
+        if hasattr(sscan_kernel, "bwd_residency"):
+            extra["residency"] = sscan_kernel.bwd_residency()
+        bwd = lambda: sscan_kernel.selective_scan_bwd(*ins, states, gy)
+        emit("sscan_bwd", shape, 4, bwd, ("sscan_bwd_kernel",
+                                          "sum_parts_kernel"),
+             bound_ms=nbytes / HBM_BYTES_PER_S * 1e3, **extra)
     return 0
 
 
