@@ -235,10 +235,10 @@ non-zero:
    the prompt (printed); (e) the device time by kernel over 32 steady
    decode steps, the idle share and the expert ``bmm``s' share
    (``torch.profiler`` with input shapes), and the peak allocation;
-9h. hybrid, the zamba2 family at full width and depth (the launch counts
-   zeroed first, path ``hybrid_serving``): zamba2-2.7b in float32 (54
-   Mamba-2 layers in 9 groups, d 2560, 80 SSD heads of 64, N 64, the
-   shared attention block after each group; 2.42B parameters, 9.7 GB),
+9h. hybrid, the zamba2 family at full width (the launch counts zeroed
+   first, path ``hybrid_serving``): zamba2-2.7b in float32 (18 of its 54
+   Mamba-2 layers in 3 of 9 groups, d 2560, 80 SSD heads of 64, N 64, the
+   shared attention block after each group),
    random weights from a seeded generator on the card: (a) 8 requests in
    8 slots in lockstep (64-token prompts, 32 new tokens, greedy,
    ``max_len`` 128) through ``ServeEngine``: wall, new and fed tokens/s,
@@ -281,9 +281,8 @@ non-zero:
    ``make_train_step`` from seeded random weights on the card: step 1's
    loss bit for bit remat none's; every residual step 1 saved (payload
    and emax) and every quantized gradient of step 1 bit for bit the
-   plain codec's on the same leaf, on the card; the 3 steps replayed
-   from the same weights with ``backend="ref"``, losses and gradient
-   norms within 1e-4 relative (the largest weight difference printed);
+   plain codec's on the same leaf, on the card (the 3 steps' replay on
+   the plain versions was cut to keep the smoke within its time limit);
    encode and decode launches a step the code's count (13 residuals a
    layer, one a quantized leaf). Printed: step walls, tokens/s, the
    device idle share of the last step (``torch.profiler``), residual
@@ -318,6 +317,23 @@ non-zero:
    step under ``distributed.sharding.use_rules`` on a one-rank (1, 1)
    ``launch.mesh`` mesh (a gloo group of one) bit for bit the step
    without;
+10e. moe_ep, ``models.moe``'s expert-parallel branch over two gloo ranks
+   on the card (two processes, ``--moe-ep-rank``): one Qwen3-MoE layer's
+   experts at full width (E 128, top-8, d 4096, f 1536), bf16, on a
+   (data 1, model 2) and a (2, 1) mesh, a decode batch of 8 tokens and a
+   prefill batch of 8 x 128: float32 ``y`` within ``MOE_ORACLE_TOL`` of
+   ``moe_oracle`` at each token shard's capacity; on (1, 2) the kept set
+   the single-device branch's, ``y`` within ``MOE_EP_Y_TOL`` of it and
+   the backward's gradients within ``MOE_EP_GRAD_TOL``; ``y`` the same
+   bits on both ranks and run to run. Printed: the walls, the expert
+   bytes a rank, the local experts' and the all-reduce's device ms;
+10d. dryrun, ``launch/dryrun.py``'s cells (qwen3-moe-235b-a22b x
+   decode_32k, qwen2-1.5b x train_4k) on the 16x16 mesh over a fake
+   process group of 256 ranks, in a process started after the build
+   that sees no card (``--dryrun-cells``), each ``status == "ok"``, and
+   ``launch/report.py``'s tables; then the card's bf16 8192^3 GEMM rate
+   and a 4 GiB device copy's bandwidth as shares of
+   ``roofline.H100_SXM``'s data-sheet constants;
 11. the kernels line: every kernel with its launches on the main paths
    (the out-of-core wave of phases 4 and 5, the live engine of phase
    5b, its checkpoints of phase 5c, the sharded engine of phase 5s, the
@@ -346,6 +362,7 @@ import functools
 import gc
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -3604,9 +3621,10 @@ def moe_slice():
 # ----------------------------------------------------------------------
 
 HYB_ARCH = "zamba2-2.7b"
-# full width and depth: 54 Mamba-2 layers in 9 groups; float32, as phase
-# 9's float32 pass (random bf16 layers drift ~5% alone)
-HYB_LAYERS = 54
+# full width, 18 of its 54 Mamba-2 layers (3 of 9 groups: cut to keep the
+# smoke within its time limit once phases moe_ep and dryrun joined);
+# float32, as phase 9's float32 pass (random bf16 layers drift ~5% alone)
+HYB_LAYERS = 18
 HYB_SLOTS, HYB_PROMPT, HYB_NEW, HYB_MAX_LEN = 8, 64, 32, 128
 # profiled decode steps: warm-up, then the window. A step launches ~4,500
 # kernels, and the profiler's own processing took ~4.5 s a profiled step
@@ -4179,12 +4197,7 @@ def train_qwen(results):
     del kopt
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    pmodel, popt, pmet, pwalls, _ = run_steps(cfg, init, batches, "ref")
-    replay_s = time.perf_counter() - t0
-    param_diff = max(rel_leaf(a, b) for a, b in zip(kmodel.parameters(),
-                                                    pmodel.parameters()))
-    del kmodel, pmodel, popt
+    del kmodel
     torch.cuda.empty_cache()
 
     grads, peaks = {}, {}
@@ -4210,12 +4223,8 @@ def train_qwen(results):
            "losses": [m["loss"] for m in kmet],
            "gnorms": [m["gnorm"] for m in kmet],
            "lrs": [m["lr"] for m in kmet],
-           "plain_losses": [m["loss"] for m in pmet],
-           "plain_gnorms": [m["gnorm"] for m in pmet],
            "step_wall_s": walls, "tokens_per_s": [tokens / w for w in walls],
            f"step{TRAIN_STEPS}_profile": prof,
-           "plain_step_wall_s": pwalls, "plain_replay_s": replay_s,
-           "largest_param_rel_diff": param_diff,
            "residuals_step1": len(witness.residuals),
            "residual_bytes_per_layer": layer_packed,
            "residual_raw_bytes_per_layer": layer_raw,
@@ -4233,10 +4242,6 @@ def train_qwen(results):
     check(len(witness.grads) == q_leaves and all(
         ok for _, ok in witness.grads),
           "train (b): a quantized gradient differs from ref.quantize")
-    for a, b in zip(kmet, pmet):
-        for k in ("loss", "gnorm"):
-            check(abs(a[k] - b[k]) <= TRAIN_REPLAY_TOL * abs(b[k]),
-                  f"train (b): {k} {a[k]} against the plain replay's {b[k]}")
     per_step = res_leaves + q_leaves
     for kind in ("encode", "decode"):
         check(counts.get(f"zfp_{kind} ndim1", 0) == per_step * TRAIN_STEPS
@@ -4631,6 +4636,456 @@ def train_ssm_slice(results):
     return dict(counts)
 
 
+# ----------------------------------------------------------------------
+# phase moe_ep: the expert-parallel MoE branch over two gloo ranks
+# ----------------------------------------------------------------------
+
+# one Qwen3-MoE layer's experts at full width (E 128, top-8, d 4096,
+# f 1536), bf16; a decode batch (no drop) and a prefill batch (8 x 128
+# tokens, 8,192 assignments: capacity 80 on one device, drops)
+MOE_EP_BATCHES = {"decode": (8, 1), "prefill": (8, 128)}
+MOE_EP_MESHES = ((1, 2), (2, 1))  # (data, model) over the two ranks
+# |y_ep - y_single| / max |y_single|, bf16 on (1, 2): the float32 partial
+# sums are added in another order before the bf16 cast, one bf16 ulp
+MOE_EP_Y_TOL = 2.0 ** -7
+# gradients of (1, 2)'s backward against the single-device branch's,
+# max |d| / max |g| a leaf, bf16: two bf16 ulps (x's gradient sums the
+# ranks' partial sums, and each rank's in its own order)
+MOE_EP_GRAD_TOL = 2.0 ** -6
+MOE_EP_DIR = Path(__file__).resolve().parent / "build" / "smoke_moe_ep"
+MOE_EP_TIMEOUT = 600
+
+
+def moe_ep_layer(cfg):
+    """The layer's router and experts (bf16, from the seed, the scales
+    of ``init_params``) and the batches' inputs, the same on each rank."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 11)
+    e, d, f = cfg.num_experts, cfg.d_model, cfg.d_ff
+    bf = torch.bfloat16
+
+    def draw(shape, fan):
+        return (torch.randn(shape, generator=gen, device="cuda")
+                * fan ** -0.5).to(bf)
+
+    lp = types.SimpleNamespace(router=draw((d, e), d),
+                               wg_e=draw((e, d, f), d),
+                               wu_e=draw((e, d, f), d),
+                               wd_e=draw((e, f, d), f))
+    xs = {name: torch.randn((b, s, d), generator=gen, device="cuda").to(bf)
+          for name, (b, s) in MOE_EP_BATCHES.items()}
+    r = {name: torch.randn(x.shape, generator=gen, device="cuda").to(bf)
+         for name, x in xs.items()}
+    return lp, xs, r
+
+
+def moe_ep_grads(fn, leaves, r):
+    """The gradients of ``sum(fn(*leaves) * r)`` for every leaf (an
+    inference-mode tensor copied out first)."""
+    leaves = [(t.clone() if t.is_inference() else t.detach())
+              .requires_grad_(True) for t in leaves]
+    y = fn(*leaves)
+    return torch.autograd.grad((y.float() * r.float()).sum(), leaves)
+
+
+def moe_ep_case(cfg, lp, x, r, mesh, label):
+    """One batch on one mesh, on this rank, bf16: the branch against the
+    single-device branch (y, aux, kept set, time), run to run, the
+    local experts' and the all-reduce's times; on (1, 2) also the
+    backward."""
+    import hashlib
+
+    import torch.distributed as dist
+
+    k, e, cf = cfg.experts_per_token, cfg.num_experts, cfg.capacity_factor
+    rules = sharding.DEFAULT_RULES
+    kw = dict(k=k, capacity_factor=cf)
+    ws = (lp.router, lp.wg_e, lp.wu_e, lp.wd_e)
+    b, s, d = x.shape
+    t = b * s
+    axis = moe_mod.expert_axis(mesh, rules, e)
+    check(axis == "model", f"moe_ep {label}: the expert-parallel branch "
+                           f"was not taken")
+    tspec, dp = moe_mod.token_spec(t, rules, mesh)
+    cap = moe_mod._capacity(max(1, t // dp), k, e, cf)
+    cap_single = moe_mod._capacity(t, k, e, cf)
+    e_l = e // mesh.size(mesh.mesh_dim_names.index("model"))
+    lo = mesh.get_local_rank("model") * e_l
+    shard = mesh.get_local_rank("data") * (t // dp)
+    rows = slice(shard, shard + t // dp)
+    with torch.inference_mode():
+        y_single, aux_single = moe_mod.moe_ffn(x, *ws, **kw)
+        torch.cuda.synchronize()
+        walls, ys = [], []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            with sharding.use_rules(mesh, rules):
+                y, aux = moe_mod.moe_ffn(x, *ws, **kw)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            ys.append(y)
+        tokens = x.reshape(t, d)
+        top_w, top_i, _ = moe_mod.route(tokens, lp.router, k)
+        local = (tokens[rows], top_w[rows], top_i[rows],
+                 lp.wg_e[lo:lo + e_l], lp.wu_e[lo:lo + e_l],
+                 lp.wd_e[lo:lo + e_l])
+        experts_ms = median_ms(lambda: moe_mod._expert_sum(
+            *local, k=k, capacity=cap, lo=lo), 5)
+        part = torch.zeros((t // dp, d), dtype=torch.float32, device="cuda")
+        group = mesh.get_group("model")
+        allreduce_ms = median_ms(lambda: dist.all_reduce(part, group=group),
+                                 5)
+        tw = time.perf_counter()
+        dist.all_reduce(part, group=group)
+        torch.cuda.synchronize()
+        allreduce_wall_ms = (time.perf_counter() - tw) * 1e3
+        single_ms = median_ms(lambda: moe_mod.moe_ffn(x, *ws, **kw), 5)
+        keep_single = moe_mod.dispatch(top_i, e, cap_single).keep
+    scale = float(y_single.float().abs().max())
+    row = {"mesh": list(mesh.mesh.shape), "batch": label, "tokens": t,
+           "assignments": t * k, "capacity": cap,
+           "capacity_single": cap_single,
+           "dropped_single": int((~keep_single).sum()),
+           "experts_local": e_l,
+           "expert_bytes_local": sum(w[lo:lo + e_l].numel()
+                                     * w.element_size()
+                                     for w in ws[1:]),
+           "wall_s": walls, "single_device_ms": single_ms,
+           "experts_device_ms": experts_ms,
+           "allreduce_device_ms": allreduce_ms,
+           "allreduce_wall_ms": allreduce_wall_ms,
+           "run_to_run_bitwise": all(torch.equal(ys[0].view(torch.int16),
+                                                 q.view(torch.int16))
+                                     for q in ys[1:]),
+           "y_sha256": hashlib.sha256(
+               ys[0].view(torch.int16).cpu().numpy().tobytes()).hexdigest(),
+           "y_rel_vs_single": float((ys[0].float() - y_single.float())
+                                    .abs().max()) / scale,
+           "aux_vs_single": abs(float(aux) - float(aux_single))}
+    if list(mesh.mesh.shape) == [1, 2]:
+        # the backward, and the kept set: the assignments whose weight
+        # gets a gradient, through the branch and through the single
+        # device's
+        def branch(xt, w, g, u, dd):
+            return moe_mod.expert_parallel(
+                xt, w, top_i, g, u, dd, k=k, capacity=cap, mesh=mesh,
+                axis=axis, tspec=tspec)
+
+        def single(xt, w, g, u, dd):
+            return moe_mod.expert_ffn(xt, w, top_i, g, u, dd, k=k,
+                                      capacity=cap_single)
+
+        leaves = (tokens, top_w, *ws[1:])
+        with sharding.use_rules(mesh, rules):
+            g_ep = moe_ep_grads(branch, leaves, r.reshape(t, d))
+        g_single = moe_ep_grads(single, leaves, r.reshape(t, d))
+        names = ("x", "top_w", "wg", "wu", "wd")
+        row["grad_rel_vs_single"] = {
+            n: float((a.float() - q.float()).abs().max())
+            / max(float(q.float().abs().max()), 1e-30)
+            for n, a, q in zip(names, g_ep, g_single)}
+        row["kept_equal_single"] = bool(torch.equal(
+            g_ep[1] != 0, g_single[1] != 0))
+        row["kept_single_by_dispatch"] = bool(torch.equal(
+            g_single[1].reshape(-1) != 0, keep_single))
+        row["dropped"] = int((g_ep[1] == 0).sum())
+        del g_ep, g_single
+    torch.cuda.empty_cache()
+    return row
+
+
+@contextlib.contextmanager
+def one_rank_at_a_time():
+    """Inside, the ranks' local expert functions run one after the
+    other (a barrier between), each freeing its buffers before the next
+    starts: two float32 copies of the layer and the (2, 1) prefill's
+    4,096-slot buffers do not fit one card's memory at once. The values
+    are the same; no time is read inside."""
+    import torch.distributed as dist
+
+    inner = moe_mod._expert_sum
+
+    def turns(*args, **kwargs):
+        out = None
+        for turn in range(dist.get_world_size()):
+            if turn == dist.get_rank():
+                out = inner(*args, **kwargs)
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+            dist.barrier()
+        return out
+
+    moe_mod._expert_sum = turns
+    try:
+        yield
+    finally:
+        moe_mod._expert_sum = inner
+
+
+def moe_ep_oracle_case(cfg, lp32, x32, mesh, oracle):
+    """Float32 ``y`` through the branch (both ranks: it holds an
+    all-reduce) against ``moe_oracle`` at each token shard's capacity,
+    on rank 0 (``oracle``). Returns the row's oracle keys."""
+    k, e, cf = cfg.experts_per_token, cfg.num_experts, cfg.capacity_factor
+    b, s, d = x32.shape
+    t = b * s
+    _, dp = moe_mod.token_spec(t, sharding.DEFAULT_RULES, mesh)
+    cap = moe_mod._capacity(max(1, t // dp), k, e, cf)
+    with torch.inference_mode(), one_rank_at_a_time(), \
+            sharding.use_rules(mesh, sharding.DEFAULT_RULES):
+        y32, _ = moe_mod.moe_ffn(x32, lp32.router, lp32.wg_e, lp32.wu_e,
+                                 lp32.wd_e, k=k, capacity_factor=cf)
+    if not oracle:
+        return {}
+    with torch.inference_mode():
+        t32 = x32.reshape(t, d)
+        w32, i32, _ = moe_mod.route(t32, lp32.router, k)
+        parts, kept = [], []
+        for j in range(dp):
+            sl = slice(j * (t // dp), (j + 1) * (t // dp))
+            want, keep = moe_oracle(t32[sl], w32[sl], i32[sl], lp32, cap)
+            parts.append(want)
+            kept.append(keep)
+    want = torch.cat(parts)
+    out = {"oracle_rel": float((y32.reshape(t, d).double() - want)
+                               .abs().max() / want.abs().max()),
+           "oracle_dropped": int((~torch.cat(kept)).sum())}
+    del y32, want
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_ep_rank(rank: int, store: str, out: str) -> int:
+    """One of phase moe_ep's two ranks (``chip_smoke.py --moe-ep-rank
+    RANK STORE OUT``): a gloo group over a ``FileStore``, both on the
+    card; each mesh of ``MOE_EP_MESHES`` and each batch; the rows to
+    ``OUT`` as JSON."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    cfg = get_config(MOE_ARCH)
+    lp, xs, r = moe_ep_layer(cfg)
+    dist.init_process_group("gloo", store=dist.FileStore(store, 2),
+                            rank=rank, world_size=2)
+    reset_counts()
+    try:
+        meshes = [mesh_mod.make_mesh_for_devices(2, mp, device="cuda")
+                  for _, mp in MOE_EP_MESHES]
+        rows = [moe_ep_case(cfg, lp, x, r[label], mesh, label)
+                for mesh in meshes for label, x in xs.items()]
+        # then float32, the bf16 layer freed first
+        lp32 = types.SimpleNamespace(**{n: getattr(lp, n).float() for n in (
+            "router", "wg_e", "wu_e", "wd_e")})
+        del lp
+        torch.cuda.empty_cache()
+        cases = [(mesh, x) for mesh in meshes for x in xs.values()]
+        for row, (mesh, x) in zip(rows, cases):
+            row.update(moe_ep_oracle_case(cfg, lp32, x.float(), mesh,
+                                          oracle=rank == 0))
+    finally:
+        dist.destroy_process_group()
+    Path(out).write_text(json.dumps({
+        "rank": rank, "rows": rows, "launches": path_counts(),
+        "peak_allocated_bytes": torch.cuda.max_memory_allocated()}))
+    return 0
+
+
+def moe_ep_slice():
+    """Phase moe_ep: ``moe_ffn``'s expert-parallel branch over two gloo
+    ranks on the card (NCCL takes one rank a card), one Qwen3-MoE
+    layer's experts at full width, bf16, on a (1, 2) and a (2, 1) mesh:
+    each rank's ``y`` the same bits as the other's and run to run;
+    float32 ``y`` within MOE_ORACLE_TOL of ``moe_oracle`` at each token
+    shard's capacity; on (1, 2) the kept set the single-device branch's,
+    ``y`` within MOE_EP_Y_TOL of it and the backward's gradients within
+    MOE_EP_GRAD_TOL. Prints the wall, the expert bytes a rank and the
+    device times of the local experts and of the all-reduce."""
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(MOE_EP_DIR, ignore_errors=True)
+    MOE_EP_DIR.mkdir(parents=True)
+    store = MOE_EP_DIR / "store"
+    procs = [subprocess.Popen(
+        [sys.executable, "-X", "faulthandler", str(Path(__file__).resolve()),
+         "--moe-ep-rank", str(rank), str(store),
+         str(MOE_EP_DIR / f"rank{rank}.json")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for rank in range(2)]
+    logs = []
+    try:
+        for p in procs:
+            out, _ = p.communicate(timeout=MOE_EP_TIMEOUT)
+            logs.append(f"exit {p.returncode}: {out[-3000:]}")
+    finally:
+        for p in procs:
+            p.kill()
+    check(all(p.returncode == 0 for p in procs),
+          f"moe_ep: a rank failed: {logs}")
+    ranks = [json.loads((MOE_EP_DIR / f"rank{r}.json").read_text())
+             for r in range(2)]
+    shutil.rmtree(MOE_EP_DIR, ignore_errors=True)
+    rows = ranks[0]["rows"]
+    for row, other in zip(rows, ranks[1]["rows"]):
+        label = f"moe_ep {row['batch']} on {row['mesh']}"
+        row["ranks_bitwise"] = row["y_sha256"] == other["y_sha256"]
+        row["rank1"] = {k: other[k] for k in (
+            "wall_s", "experts_device_ms", "allreduce_device_ms",
+            "allreduce_wall_ms", "run_to_run_bitwise")}
+        emit({"phase": "moe_ep", **row, "tol": {
+            "oracle": MOE_ORACLE_TOL, "y_vs_single": MOE_EP_Y_TOL,
+            "grads_vs_single": MOE_EP_GRAD_TOL}})
+        check(row["ranks_bitwise"], f"{label}: the ranks' y differ")
+        check(row["run_to_run_bitwise"] and other["run_to_run_bitwise"],
+              f"{label}: two runs differ")
+        check(row["oracle_rel"] < MOE_ORACLE_TOL,
+              f"{label}: float32 y off the oracle by {row['oracle_rel']}")
+        if row["batch"] == "decode":
+            check(row["oracle_dropped"] == 0, f"{label}: decode dropped")
+        if row["mesh"] == [1, 2]:
+            check(row["y_rel_vs_single"] <= MOE_EP_Y_TOL,
+                  f"{label}: y off the single device's by "
+                  f"{row['y_rel_vs_single']}")
+            check(row["kept_equal_single"] and row[
+                "kept_single_by_dispatch"],
+                f"{label}: the kept set differs from the single device's")
+            check(max(row["grad_rel_vs_single"].values()) <= MOE_EP_GRAD_TOL,
+                  f"{label}: gradients off the single device's: "
+                  f"{row['grad_rel_vs_single']}")
+    prefill = [r for r in rows if r["batch"] == "prefill"]
+    check(all(r["dropped_single"] > 0 for r in prefill),
+          "moe_ep: the prefill batch dropped nothing")
+    counts = {}
+    for rk in ranks:
+        for name, v in rk["launches"].items():
+            counts[name] = counts.get(name, 0) + v
+    emit({"phase": "moe_ep_seconds", "seconds": time.perf_counter() - t0,
+          "card": device_mod.card_line(),
+          "peak_allocated_bytes_by_rank": [
+              rk["peak_allocated_bytes"] for rk in ranks]})
+    return counts
+
+
+# ----------------------------------------------------------------------
+# phase dryrun: launch/dryrun.py's cells on a fake process group, and the
+# card's own matrix and copy rates beside the roofline's data sheet
+# ----------------------------------------------------------------------
+
+DRYRUN_CELLS = (("qwen3-moe-235b-a22b", "decode_32k"),
+                ("qwen2-1.5b", "train_4k"))
+DRYRUN_DIR = Path(__file__).resolve().parent / "build" / "smoke_dryrun"
+DRYRUN_TIMEOUT = 600
+GEMM_N = 8192  # a bf16 (N, N) @ (N, N)
+COPY_BYTES = 4 << 30  # a device-to-device copy
+
+
+def card_rates():
+    """The card's bf16 matrix rate and device-to-device copy bandwidth
+    (read and write bytes), by CUDA events, beside ``roofline.H100_SXM``'s
+    data-sheet constants."""
+    from repro_torch.launch import roofline
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    a = torch.randn((GEMM_N, GEMM_N), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    b = torch.randn((GEMM_N, GEMM_N), generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    gemm_ms = median_ms(lambda: a @ b, 10)
+    del a, b
+    src = torch.empty(COPY_BYTES, dtype=torch.uint8, device="cuda")
+    dst = torch.empty_like(src)
+    copy_ms = median_ms(lambda: dst.copy_(src), 10)
+    del src, dst
+    torch.cuda.empty_cache()
+    hw = roofline.H100_SXM
+    flops = 2.0 * GEMM_N ** 3 / (gemm_ms / 1e3)
+    bw = 2.0 * COPY_BYTES / (copy_ms / 1e3)
+    return {"gemm_n": GEMM_N, "gemm_ms": gemm_ms, "bf16_flop_per_s": flops,
+            "peak_flops": hw.peak_flops, "gemm_share": flops / hw.peak_flops,
+            "copy_bytes": COPY_BYTES, "copy_ms": copy_ms,
+            "copy_bytes_per_s": bw, "hbm_bytes_per_s": hw.hbm_bytes_per_s,
+            "copy_share": bw / hw.hbm_bytes_per_s, "hardware": hw.name}
+
+
+def dryrun_cells(out_dir: str) -> int:
+    """The dry run's cells, in a process of its own (``chip_smoke.py
+    --dryrun-cells OUT_DIR``, started with no card visible): each
+    ``run_cell`` of DRYRUN_CELLS writes its record into ``OUT_DIR``, and
+    ``OUT_DIR/summary.json`` holds the cells' tracebacks and whether
+    CUDA was ever initialised."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    tracebacks = []
+    try:
+        for arch, shape in DRYRUN_CELLS:
+            rec = dryrun.run_cell(arch, shape, False, out_dir=out_dir)
+            tracebacks.append(rec.get("traceback", ""))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (Path(out_dir) / "summary.json").write_text(json.dumps({
+        "tracebacks": tracebacks,
+        "cuda_initialized": torch.cuda.is_initialized()}))
+    return 0
+
+
+def start_dryrun():
+    """Start the dry run's process beside the card's phases: it runs on
+    one host core for ~40 s and sees no card (``CUDA_VISIBLE_DEVICES``
+    empty)."""
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    DRYRUN_DIR.mkdir(parents=True)
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    return subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dryrun-cells",
+         str(DRYRUN_DIR)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, env=env), time.perf_counter()
+
+
+def dryrun_slice(started=None):
+    """Phase dryrun: ``launch/dryrun.py``'s DRYRUN_CELLS on the 16x16
+    production mesh over a fake group of 256 ranks (``meta`` tensors, in
+    a process that sees no card: ``start_dryrun``, started early in the
+    smoke), each ``status == "ok"``, and ``launch/report.py``'s two
+    tables over their records; then the card's own bf16 matrix rate and
+    copy bandwidth as shares of the roofline's data-sheet constants."""
+    from repro_torch.launch import report
+
+    t0 = time.perf_counter()
+    proc, t_start = started or start_dryrun()
+    try:
+        log, _ = proc.communicate(timeout=DRYRUN_TIMEOUT)
+    finally:
+        proc.kill()
+    waited = time.perf_counter() - t0
+    check(proc.returncode == 0,
+          f"dryrun: its process failed: {log[-3000:]}")
+    summary = json.loads((DRYRUN_DIR / "summary.json").read_text())
+    cells = []
+    for arch, shape in DRYRUN_CELLS:
+        rec = json.loads((DRYRUN_DIR / f"{arch}__{shape}__16x16__baseline"
+                          ".json").read_text())
+        cells.append({k: rec.get(k) for k in (
+            "arch", "shape", "mesh", "status", "error", "lower_compile_s",
+            "memory", "collectives", "hlo_costs", "roofline")})
+    tables = {"dryrun": report.dryrun_table(str(DRYRUN_DIR)).splitlines(),
+              "roofline": report.roofline_table(
+                  str(DRYRUN_DIR)).splitlines()}
+    shutil.rmtree(DRYRUN_DIR, ignore_errors=True)
+    emit({"phase": "dryrun", "cells": cells, "report": tables,
+          "process_seconds": time.perf_counter() - t_start,
+          "waited_seconds": waited,
+          "cuda_initialized": summary["cuda_initialized"]})
+    for c, tb in zip(cells, summary["tracebacks"]):
+        check(c["status"] == "ok", f"dryrun {c['arch']} x {c['shape']}: "
+                                   f"{c['error']}\n{tb}")
+    check(not summary["cuda_initialized"],
+          "dryrun: its process initialised CUDA")
+    emit({"phase": "card_rates", "card": device_mod.card_line(),
+          **card_rates()})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -4649,6 +5104,7 @@ def main() -> int:
           "ptxas": {k: ptxas_summary(v or build_log(k))
                     for k, v in logs.items()}})
 
+    dryrun_started = start_dryrun()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     results = {}
     for planes in (12, 16):
@@ -4745,6 +5201,11 @@ def main() -> int:
                  "zfp_decode ndim1"):
         check(train_ssm_counts.get(name, 0) > 0,
               f"the train_ssm phase never launched {name}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    moe_ep_counts = moe_ep_slice()
+    emit({"phase": "launches", "path": "moe_ep", **moe_ep_counts})
+    dryrun_slice(dryrun_started)
 
     rows = [
         ("zfp_encode", "zfp_encode", "src/repro/kernels/zfp/kernel.py:90",
@@ -4880,4 +5341,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--moe-ep-rank"]:
+        sys.exit(moe_ep_rank(int(sys.argv[2]), sys.argv[3], sys.argv[4]))
+    if sys.argv[1:2] == ["--dryrun-cells"]:
+        sys.exit(dryrun_cells(sys.argv[2]))
     sys.exit(main())

@@ -162,6 +162,13 @@ def placements(spec: Spec, mesh) -> Tuple[Any, ...]:
                  for a in axis_sizes(mesh))
 
 
+def is_dtensor(t) -> bool:
+    """``t`` is a DTensor (the classes load only when asked)."""
+    from torch.distributed.tensor import DTensor
+
+    return isinstance(t, DTensor)
+
+
 def logical(x: torch.Tensor, *axes: Optional[str]) -> torch.Tensor:
     """Annotate an activation with logical axes: ``x`` itself without
     rules or on a mesh of size-1 axes; under a mesh of more ranks a

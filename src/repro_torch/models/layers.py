@@ -20,7 +20,7 @@ from typing import Sequence
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import logical
+from repro_torch.distributed.sharding import is_dtensor, logical
 
 # ---------------------------------------------------------------------------
 # Norms
@@ -104,11 +104,14 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, s, h, d = q.shape
     kvh = k.shape[2]
     qpk = h // kvh
-    qr = q.reshape(b, s, kvh, qpk, d) * scale_in(d, q.dtype)
+    qr = divisible_shards(q, 2, kvh).reshape(b, s, kvh, qpk, d) * scale_in(
+        d, q.dtype)
     nchunk = -(-s // kv_chunk)
     pad = nchunk * kv_chunk - s
-    kp = F.pad(k, (0, 0, 0, 0, 0, pad))
-    vp = F.pad(v, (0, 0, 0, 0, 0, pad))
+    # no pad where the chunks tile the sequence (the same values; over
+    # DTensors some builds cannot place a pad of a sharded tensor)
+    kp = F.pad(k, (0, 0, 0, 0, 0, pad)) if pad else k
+    vp = F.pad(v, (0, 0, 0, 0, 0, pad)) if pad else v
     qpos = torch.arange(s, device=q.device)
     m = torch.full((b, kvh, qpk, s), float("-inf"), device=q.device)
     l = torch.zeros((b, kvh, qpk, s), device=q.device)
@@ -138,7 +141,7 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         acc = acc * corr[..., None] + pv
         m = m_new
     out = acc / torch.clamp(l, min=1e-37)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d)
+    return merged(out.permute(0, 3, 1, 2, 4).reshape(b, s, h, d), 2, kvh)
 
 
 # ---------------------------------------------------------------------------
@@ -153,14 +156,126 @@ def scale_in(head_dim: int, dtype: torch.dtype) -> float:
     return float(torch.tensor(1.0 / math.sqrt(head_dim), dtype=dtype))
 
 
+def divisible_shards(t: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """``t`` ready to have dimension ``dim`` split into ``parts`` leading
+    pieces: a DTensor sharded there over a mesh axis whose size does not
+    divide ``parts`` is first replicated along that axis (DTensor cannot
+    split an unevenly sharded dimension; the resolved spec of the pieces
+    replicates there too). A plain tensor is ``t`` itself."""
+    from torch.distributed.tensor import Replicate
+
+    if not is_dtensor(t):
+        return t
+    dim %= t.ndim
+    mesh, pl = t.device_mesh, list(t.placements)
+    keep = [Replicate() if p.is_shard(dim) and parts % mesh.size(i) else p
+            for i, p in enumerate(pl)]
+    return t if keep == pl else t.redistribute(mesh, keep)
+
+
+class _GradDivisible(torch.autograd.Function):
+    """The identity, whose backward makes the gradient
+    ``divisible_shards``: the gradient of a merge of dimensions is split
+    again by the merge's backward."""
+
+    @staticmethod
+    def forward(ctx, t, dim, parts):
+        ctx.dim, ctx.parts = dim, parts
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return divisible_shards(grad, ctx.dim, ctx.parts), None, None
+
+
+class _GradPlaced(torch.autograd.Function):
+    """The identity, whose backward redistributes the gradient to the
+    placements of the forward's tensor (a partial sum is reduced first)."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, t.placements
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if grad.placements == ctx.placements:
+            return grad
+        return grad.redistribute(ctx.mesh, ctx.placements)
+
+
+def grad_placed(t: torch.Tensor) -> torch.Tensor:
+    """``t``, whose gradient over DTensors arrives in ``t``'s own
+    placements: a gradient that reaches it as a partial sum (from a
+    Mamba layer's backward) cannot be turned into the masked partial an
+    embedding's backward takes. A plain tensor is ``t`` itself."""
+    if not is_dtensor(t) or not t.requires_grad:
+        return t
+    return _GradPlaced.apply(t)
+
+
+def merged(t: torch.Tensor, dim: int, parts: int) -> torch.Tensor:
+    """``t``, the result of merging ``parts`` leading pieces into
+    dimension ``dim``, made safe for its gradient: over DTensors the
+    gradient is ``divisible_shards`` before the merge's backward splits
+    it. A plain tensor is ``t`` itself."""
+    if not is_dtensor(t) or not t.requires_grad:
+        return t
+    return _GradDivisible.apply(t, dim, parts)
+
+
+def _on_device(t: torch.Tensor, dev: torch.device) -> torch.Tensor:
+    """``t`` on ``dev``, moved only if it is elsewhere (a DTensor's
+    ``.to(device)`` raises under inference mode, even to its own)."""
+    return t if t.device == dev else t.to(dev)
+
+
 def batched_cache_update(cache: torch.Tensor, new: torch.Tensor,
                          idx: torch.Tensor) -> torch.Tensor:
     """Write ``new`` (B, 1, KVH, D) into ``cache`` (B, Smax, KVH, D) at
     per-slot position ``idx`` (B,): per-slot continuous batching.
-    Unlike the reference, writes ``cache`` in place and returns it."""
+    Unlike the reference, writes ``cache`` in place and returns it. A
+    DTensor cache (the dry run's, sharded over batch and positions)
+    is written shard by shard (``_sharded_cache_update``)."""
+    if is_dtensor(cache):
+        return _sharded_cache_update(cache, new, idx)
     rows = torch.arange(cache.shape[0], device=cache.device)
-    cache[rows, idx.to(cache.device).long()] = new[:, 0].to(cache.dtype)
+    cache[rows, _on_device(idx, cache.device).long()] = new[:, 0].to(
+        cache.dtype)
     return cache
+
+
+def _sharded_cache_update(cache, new, idx):
+    """``batched_cache_update`` on each rank's shard of a DTensor cache:
+    a slot whose position lies in the shard's positions is written
+    there; elsewhere the shard's own row at the clamped position is
+    written back, so no shape depends on the data."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = cache.device_mesh, cache.placements
+    local_shape, offset = compute_local_shape_and_global_offset(
+        cache.shape, mesh, pl)
+    row_pl = [p if p.is_shard(0) else Replicate() for p in pl]
+    new_pl = [p if p.is_shard(0) or p.is_shard(2) else Replicate()
+              for p in pl]
+
+    def write(c, n, i):
+        rows = torch.arange(c.shape[0], device=c.device)
+        at = i.long() - offset[1]
+        here = (at >= 0) & (at < local_shape[1])
+        at = at.clamp(0, local_shape[1] - 1)
+        val = torch.where(here[:, None, None], n[:, 0].to(c.dtype),
+                          c[rows, at])
+        c[rows, at] = val
+        return c
+
+    return local_map(write, out_placements=list(pl),
+                     in_placements=(pl, new_pl, row_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(
+        cache, new, idx)
 
 
 def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
@@ -172,10 +287,11 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     b, _, h, d = q.shape
     kvh = k_cache.shape[2]
     qpk = h // kvh
-    qr = q.reshape(b, kvh, qpk, d) * scale_in(d, q.dtype)
+    qr = divisible_shards(q, 2, kvh).reshape(b, kvh, qpk, d) * scale_in(
+        d, q.dtype)
     logits = torch.einsum("bgqd,btgd->bgqt", qr.float(), k_cache.float())
     pos = torch.arange(k_cache.shape[1], device=q.device)
-    mask = pos[None, :] < length.to(q.device)[:, None]
+    mask = pos[None, :] < _on_device(length, q.device)[:, None]
     logits = logits.masked_fill(~mask[:, None, None], float("-inf"))
     p = torch.softmax(logits, dim=-1)
     out = torch.einsum("bgqt,btgd->bgqd", p.to(v_cache.dtype).float(),

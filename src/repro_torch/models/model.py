@@ -53,9 +53,14 @@ cache is the raw one whatever ``kv_compress_planes`` says (the
 reference's ``init_cache``): ``conv`` and ``h`` a Mamba-2 layer, K and
 V a group.
 
-Not ported yet (ROADMAP.md queue 1): MoE's expert-parallel branch;
-training an MoE model at full width waits for a multi-card trainer
-(item 24).
+Under ``use_rules`` on a mesh of ranks an MoE layer takes ``moe_ffn``'s
+expert-parallel branch, and every function here also runs on DTensors
+(the dry run, ``launch.dryrun``, on ``meta`` over a fake process group):
+where DTensor cannot place an operator as written, a DTensor takes
+another road to the same values (``layers.divisible_shards`` before a
+head split, ``layers.batched_cache_update`` shard by shard, the
+reference's one-hot gold logit in ``chunked_xent``); a plain tensor
+takes the road it always took.
 """
 
 from __future__ import annotations
@@ -69,7 +74,7 @@ from torch import nn
 
 from repro_torch import device as device_mod
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import logical
+from repro_torch.distributed.sharding import is_dtensor, logical
 from repro_torch.kernels.cdecode import ops as cdecode_ops
 from repro_torch.models import kvcache as KVC
 from repro_torch.models import layers as L
@@ -278,8 +283,13 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     the Mamba constants as ``_mamba1_layer_init`` / ``_mamba2_layer_init``,
     the embedding at 0.02), from ``generator`` (seed 0 on the device when
     none is given). The numbers differ from ``jax.random``'s; carry the
-    reference's own weights over with ``convert.params_from_reference``."""
+    reference's own weights over with ``convert.params_from_reference``.
+    On ``meta`` every parameter has ``param_specs``' shape and type and
+    nothing is drawn: no generator or card is needed (the dry run's
+    parameters)."""
     dev = device_mod.resolve(device)
+    if dev.type == "meta":
+        return Model(cfg, device=dev, dtype=dtype_of(cfg))
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     model = Model(cfg, device=dev, dtype=dtype_of(cfg))
@@ -395,14 +405,20 @@ def param_logical_axes(cfg: ModelConfig) -> Dict[str, tuple]:
 # ---------------------------------------------------------------------------
 
 
+def _split_heads(t: torch.Tensor, heads: int, head_dim: int):
+    """(B, S, heads · head_dim) -> (B, S, heads, head_dim)."""
+    b, s, _ = t.shape
+    return L.divisible_shards(t, -1, heads).reshape(b, s, heads, head_dim)
+
+
 def _qkv(cfg, p, h, positions):
     b, s, _ = h.shape
     q, k, v = h @ p.wq, h @ p.wk, h @ p.wv
     if cfg.qkv_bias:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, cfg.num_heads, cfg.head_dim)
-    k = k.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
-    v = v.reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    q = _split_heads(q, cfg.num_heads, cfg.head_dim)
+    k = _split_heads(k, cfg.num_kv_heads, cfg.head_dim)
+    v = _split_heads(v, cfg.num_kv_heads, cfg.head_dim)
     q = L.apply_rope(q, positions, cfg.rope_theta, cfg.mrope_sections)
     k = L.apply_rope(k, positions, cfg.rope_theta, cfg.mrope_sections)
     q = logical(q, "batch", "seq", "heads", None)
@@ -429,8 +445,9 @@ def _attn_block(cfg, p, x, positions, kv_cache=None, cache_len=None):
         v_cache = L.batched_cache_update(v_cache, v, idx)
         attn = L.decode_attention(q, k_cache, v_cache, cache_len)
         new_kv = (k_cache, v_cache)
-    out = attn.reshape(b, s, cfg.num_heads * cfg.head_dim) @ p.wo
-    return out, new_kv
+    flat = L.merged(attn.reshape(b, s, cfg.num_heads * cfg.head_dim), -1,
+                    cfg.num_heads)
+    return flat @ p.wo, new_kv
 
 
 def _ffn_block(cfg, p, h):
@@ -483,7 +500,13 @@ def _mamba_layer(cfg, p, x, state=None, *, backend="ref", h_out=None):
 def _embed_in(cfg, params: Model, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.embeds_input:
         return tokens.to(dtype_of(cfg))
-    return logical(params.embed[tokens.long()], "batch", "seq", "embed")
+    if not is_dtensor(params.embed):
+        return logical(params.embed[tokens.long()], "batch", "seq", "embed")
+    # over DTensors (the dry run) the embedding operator, whose backward
+    # DTensor places on a sharded table, fed a gradient in the rows' own
+    # placements; the same rows
+    rows = torch.nn.functional.embedding(tokens.long(), params.embed)
+    return L.grad_placed(logical(rows, "batch", "seq", "embed"))
 
 
 def _final_hidden_to_logits(cfg, params: Model, x: torch.Tensor):
@@ -584,7 +607,9 @@ def _on(a, dev: torch.device) -> torch.Tensor:
     """A tensor, or a copy of a numpy array (the pipelines' positions are
     read-only broadcasts), on ``dev``."""
     if isinstance(a, torch.Tensor):
-        return a.to(dev)
+        # a DTensor's ``.to`` raises under inference mode, even to its
+        # own device (the dry run's prefill and decode)
+        return a if a.device == dev else a.to(dev)
     return torch.from_numpy(np.array(a)).to(dev)
 
 
@@ -775,8 +800,11 @@ def chunked_xent(cfg: ModelConfig, params: Model, hidden: torch.Tensor,
     nchunk = -(-s // chunk)
     pad = nchunk * chunk - s
     labels = _on(labels, hidden.device)
-    hp = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
-    lp = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    if pad:  # (over DTensors some builds cannot place a pad at all)
+        hp = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
+        lp = torch.nn.functional.pad(labels, (0, pad), value=-1)
+    else:
+        hp, lp = hidden, labels
     tot = torch.zeros((), dtype=torch.float32, device=hidden.device)
     cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for c in range(nchunk):
@@ -784,7 +812,16 @@ def chunked_xent(cfg: ModelConfig, params: Model, hidden: torch.Tensor,
         y = lp[:, c * chunk:(c + 1) * chunk]
         logits = _final_hidden_to_logits(cfg, params, h).to(torch.float32)
         lse = torch.logsumexp(logits, dim=-1)
-        gold = logits.gather(-1, y.clamp(min=0).long()[..., None])[..., 0]
+        if is_dtensor(logits):
+            # over DTensors (the dry run) the reference's one-hot sum:
+            # a gather across vocabulary shards does not place
+            vocab = torch.arange(logits.shape[-1], device=logits.device)
+            hot = (y.clamp(min=0).long()[..., None] == vocab).to(
+                logits.dtype)
+            gold = torch.sum(logits * hot, dim=-1)
+        else:
+            gold = logits.gather(-1, y.clamp(min=0).long()[..., None])[
+                ..., 0]
         valid = (y >= 0).to(torch.float32)
         tot = tot + torch.sum((lse - gold) * valid)
         cnt = cnt + torch.sum(valid)

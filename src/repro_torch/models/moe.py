@@ -23,20 +23,49 @@ input agree bit for bit, as a ``full``-remat recompute needs:
 - the load-balance hit counts add 1.0 by ``index_add_``, exact in any
   order.
 
-The expert-parallel branch (experts sharded over a mesh axis under
-``shard_map``, a ``psum`` combining the shards) is not ported yet:
-ROADMAP.md queue 1 item 24 (it reads ``distributed.sharding``'s
-``current_mesh()`` and ``current_rules()``).
+**The expert-parallel branch** (``repro``'s ``shard_map`` over
+``_expert_shard``). Under ``use_rules(mesh, rules)`` it is taken where
+``repro`` takes it: ``rules["moe_experts"]`` names an axis of the mesh
+whose size divides E, and the mesh is a ``DeviceMesh`` of an initialized
+process group (a JAX ``AbstractMesh``, which the CPU tests pass for
+specs, has no ranks: the single-device branch runs there). Routing runs
+on the whole token set, so the load-balance loss is the global one
+(over a sharded DTensor the hit counts are local counts summed over
+the token shards). Each rank of the expert axis holds the experts
+``lo = index · E/m ... lo + E/m`` and runs ``expert_ffn`` on its token
+shard (the tokens split over the data axes by ``resolve_spec(("batch",
+None))``) with every other expert's assignment in the drop bucket, at
+the capacity of ``t_local = T // dp_size`` tokens, as ``repro`` does;
+its float32 partial ``y`` is summed over the expert axis by one
+all-reduce. The form is ``torch.distributed.tensor``'s ``local_map``
+around the local function (``_expert_sum`` with ``lo``). DTensor inputs
+(the dry run) are redistributed to the shard placements, ``y`` leaves
+as ``Partial("sum")`` over the expert axis and DTensor's redistribute
+does the all-reduce and carries its gradient; the inputs' gradients
+leave as partial sums over the axes each rank saw only a part of (``x``
+and ``top_w`` over the expert axis, the experts over the data axes).
+Plain inputs (the CPU tests, the smoke) are the same whole tensors on
+every rank: each rank slices its rows and experts itself, and one
+all-reduce of zero-padded partials over every mesh dimension both
+combines the experts and gathers the token shards, and returns their
+gradients the same way. Each rank's local function is as deterministic
+as the single-device branch, and the all-reduce gives every rank the
+same bits.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed import sharding as SH
+
 NO_DROP_ASSIGNMENTS = 4096  # t·k at or under it: no assignment drops
+
+
 
 
 def top_k(scores: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -53,14 +82,34 @@ def route(x_tokens: torch.Tensor, router_w: torch.Tensor, k: int):
     top_w, top_i = top_k(scores, k)
     top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
     e = scores.shape[-1]
-    flat = top_i.reshape(-1)
-    hits = torch.zeros(e, dtype=torch.float32, device=scores.device)
-    hits.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32,
-                                        device=scores.device))
+    hits = (_dtensor_hits(top_i, e) if SH.is_dtensor(top_i)
+            else _hits(top_i, e))
     frac = hits / torch.clamp(hits.sum(), min=1.0)
     prob = scores.mean(0)
     aux = e * torch.sum(frac * prob)
     return top_w, top_i, aux
+
+
+def _hits(top_i: torch.Tensor, e: int) -> torch.Tensor:
+    """How many assignments each of the ``e`` experts has, float32."""
+    flat = top_i.reshape(-1)
+    hits = torch.zeros(e, dtype=torch.float32, device=top_i.device)
+    hits.index_add_(0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                                        device=top_i.device))
+    return hits
+
+
+def _dtensor_hits(top_i, e: int):
+    """``_hits`` of a DTensor's global assignments: each rank counts its
+    shard, partial over the mesh dimensions that shard the tokens."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    out = [Partial() if p.is_shard() else Replicate()
+           for p in top_i.placements]
+    return local_map(lambda t: _hits(t, e), out_placements=out,
+                     in_placements=(top_i.placements,),
+                     device_mesh=top_i.device_mesh)(top_i)
 
 
 def _capacity(t_local: int, k: int, e: int, cf: float) -> int:
@@ -85,20 +134,29 @@ class Dispatch(NamedTuple):
     filled: torch.Tensor
 
 
-def dispatch(top_i: torch.Tensor, num_experts: int, capacity: int) -> Dispatch:
+def dispatch(top_i: torch.Tensor, num_experts: int, capacity: int,
+             lo: Optional[int] = None) -> Dispatch:
     """The reference's dispatch: a stable sort of the assignments by
     expert (token order kept within an expert), each one's position in
     its expert's run from a left ``searchsorted``, kept while that
-    position is under ``capacity``."""
+    position is under ``capacity``. With ``lo`` (the expert-parallel
+    branch) the ``num_experts`` experts are ``lo ... lo + num_experts``
+    of a larger set: every other assignment goes to the drop bucket
+    ``num_experts``, as ``_expert_shard``'s ``le`` does."""
     flat = top_i.reshape(-1)
     n, dev = flat.numel(), flat.device
+    if lo is not None:
+        local = (flat >= lo) & (flat < lo + num_experts)
+        flat = torch.where(local, flat - lo, num_experts)
     order = torch.sort(flat, stable=True).indices
     se = flat[order]
     starts = torch.searchsorted(
         se, torch.arange(num_experts + 1, device=dev, dtype=se.dtype))
     pos = torch.arange(n, device=dev) - starts[se]
     full = num_experts * capacity
-    slot_sorted = torch.where(pos < capacity, se * capacity + pos, full)
+    kept = pos < capacity if lo is None else (pos < capacity) & (
+        se < num_experts)
+    slot_sorted = torch.where(kept, se * capacity + pos, full)
     slot = torch.empty_like(slot_sorted).scatter_(0, order, slot_sorted)
     # slot (e, c) holds sorted position starts[e] + c while c < count[e]
     at = starts[:-1, None] + torch.arange(capacity, device=dev)[None]
@@ -112,9 +170,18 @@ def expert_ffn(x: torch.Tensor, top_w: torch.Tensor, top_i: torch.Tensor,
                k: int, capacity: int) -> torch.Tensor:
     """``_expert_shard`` with ``axis=None``: x (T, d) -> y (T, d) in x's
     type, Σ over each token's kept assignments of weight · expert GLU."""
+    return _expert_sum(x, top_w, top_i, wg, wu, wd, k=k,
+                       capacity=capacity).to(x.dtype)
+
+
+def _expert_sum(x, top_w, top_i, wg, wu, wd, *, k: int, capacity: int,
+                lo: Optional[int] = None) -> torch.Tensor:
+    """``expert_ffn``'s float32 sum, before the cast; with ``lo`` only
+    experts ``lo ... lo + E_local`` (``wg``'s) contribute (the
+    expert-parallel branch's local function)."""
     t, d = x.shape
     e = wg.shape[0]
-    plan = dispatch(top_i, e, capacity)
+    plan = dispatch(top_i, e, capacity, lo)
     buf = torch.where(plan.filled[..., None], x[plan.rows // k], 0)
     h = F.silu(torch.bmm(buf, wg)) * torch.bmm(buf, wu)
     out = torch.bmm(h, wd).reshape(e * capacity, d)
@@ -127,18 +194,134 @@ def expert_ffn(x: torch.Tensor, top_w: torch.Tensor, top_i: torch.Tensor,
     y = torch.zeros((t, d), dtype=torch.float32, device=x.device)
     for j in range(k):
         y = y + vals[:, j].float()
-    return y.to(x.dtype)
+    return y
+
+
+def expert_axis(mesh, rules, num_experts: int) -> Optional[str]:
+    """The mesh axis the experts shard over under ``use_rules(mesh,
+    rules)``, or None for the single-device branch: ``repro``'s
+    condition (``rules["moe_experts"]`` an axis of the mesh whose size
+    divides E) on a ``DeviceMesh`` of an initialized process group."""
+    axis = rules.get("moe_experts") if rules else None
+    if mesh is None or axis is None or not isinstance(axis, str):
+        return None
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh):
+        return None
+    sizes = SH.axis_sizes(mesh)
+    if axis not in sizes or num_experts % sizes[axis]:
+        return None
+    return axis
+
+
+def token_spec(n_tokens: int, rules, mesh):
+    """The tokens' spec and the number of token shards: ``repro``'s
+    ``resolve_spec(("batch", None), ...)`` and ``dp_size``."""
+    tspec = SH.resolve_spec(("batch", None), (n_tokens, 1), rules, mesh)
+    sizes = SH.axis_sizes(mesh)
+    dp = tspec[0]
+    dp_size = 1
+    for a in (dp if isinstance(dp, tuple) else (dp,)):
+        if a is not None and a in sizes:
+            dp_size *= sizes[a]
+    return tspec, dp_size
+
+
+def expert_parallel(tokens, top_w, top_i, wg, wu, wd, *, k: int,
+                    capacity: int, mesh, axis: str, tspec):
+    """``repro``'s ``shard_map`` of ``_expert_shard``: tokens (T, d),
+    top_w/top_i (T, k), experts (E, ...) -> y (T, d) in the tokens'
+    type, each rank's local experts on its token shard, the shards'
+    float32 partial ``y`` summed by all-reduce. DTensors give a DTensor
+    (the placements of ``tspec``): the inputs are redistributed to the
+    shards and one all-reduce over ``axis`` combines. Plain tensors (the
+    same whole tensor on every rank) give a plain ``y``: each rank takes
+    its rows and experts itself and writes its rows of a zero (T, d)
+    partial, and one all-reduce over every mesh dimension both combines
+    the experts and gathers the token shards (no all-gather, which the
+    functional collectives of some builds cannot run over gloo on CUDA
+    tensors); the gradients come back by all-reduce the same way."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    names = tuple(mesh.mesh_dim_names)
+    data = {a for entry in tspec if entry is not None
+            for a in (entry if isinstance(entry, tuple) else (entry,))}
+    if axis in data:
+        raise ValueError(f"the tokens and the experts both shard over "
+                         f"{axis!r}")
+    e_l = wg.shape[0] // SH.axis_sizes(mesh)[axis]
+    lo = mesh.get_local_rank(axis) * e_l
+    dtype = tokens.dtype
+    rep, part = Replicate(), Partial()
+    if not SH.is_dtensor(tokens):
+        t = tokens.shape[0]
+        n_shards = math.prod(mesh.size(names.index(a)) for a in data)
+        shard = 0
+        for a in names:  # this rank's token shard, data axes major first
+            if a in data:
+                shard = shard * mesh.size(names.index(a)) + \
+                    mesh.get_local_rank(a)
+        rows = slice(shard * (t // n_shards), (shard + 1) * (t // n_shards))
+
+        def padded(x, w, i, g, u, d):
+            y = _expert_sum(x[rows], w[rows], i[rows], g[lo:lo + e_l],
+                            u[lo:lo + e_l], d[lo:lo + e_l], k=k,
+                            capacity=capacity, lo=lo)
+            return F.pad(y, (0, 0, rows.start, t - rows.stop))
+
+        whole, sums = [rep] * mesh.ndim, [part] * mesh.ndim
+        fn = local_map(padded, out_placements=sums,
+                       in_placements=(whole,) * 6,
+                       in_grad_placements=(sums, sums, whole, sums, sums,
+                                           sums),
+                       device_mesh=mesh)
+        y = fn(*(DTensor.from_local(a, mesh, whole, run_check=False)
+                 for a in (tokens, top_w, top_i, wg, wu, wd)))
+        return y.redistribute(mesh, whole).to(dtype).to_local()
+    tok = tuple(Shard(0) if n in data else rep for n in names)
+    exp = tuple(Shard(0) if n == axis else rep for n in names)
+    # y, and the gradient of what a rank sees only part of (x and top_w:
+    # its experts; the experts' weights: its tokens), is a partial sum
+    # over that axis
+    tok_part = tuple(part if n == axis else p for n, p in zip(names, tok))
+    exp_part = tuple(part if n in data else p for n, p in zip(names, exp))
+
+    def local(x, w, i, g, u, d):
+        return _expert_sum(x, w, i, g, u, d, k=k, capacity=capacity, lo=lo)
+
+    fn = local_map(local, out_placements=list(tok_part),
+                   in_placements=(tok, tok, tok, exp, exp, exp),
+                   in_grad_placements=(tok_part, tok_part, tok, exp_part,
+                                       exp_part, exp_part),
+                   device_mesh=mesh)
+    y = fn(*(a.redistribute(mesh, tok) for a in (tokens, top_w, top_i)),
+           *(w.redistribute(mesh, exp) for w in (wg, wu, wd)))
+    return y.redistribute(mesh, tok).to(dtype)
 
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
             wu: torch.Tensor, wd: torch.Tensor, *, k: int,
             capacity_factor: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, d), router_w (d, E), wg/wu (E, d, f), wd (E, f, d) ->
-    (y (B, S, d), aux loss)."""
+    (y (B, S, d), aux loss). Under ``use_rules`` on a mesh of ranks the
+    expert-parallel branch (``expert_axis``), else the single-device
+    one."""
     b, s, d = x.shape
     e = router_w.shape[1]
     tokens = x.reshape(b * s, d)
     top_w, top_i, aux = route(tokens, router_w, k)
+    mesh, rules = SH.current_mesh(), SH.current_rules()
+    axis = expert_axis(mesh, rules, e)
+    if axis is not None:
+        tspec, dp_size = token_spec(b * s, rules, mesh)
+        capacity = _capacity(max(1, (b * s) // dp_size), k, e,
+                             capacity_factor)
+        y = expert_parallel(tokens, top_w, top_i, wg, wu, wd, k=k,
+                            capacity=capacity, mesh=mesh, axis=axis,
+                            tspec=tspec)
+        return y.reshape(b, s, d), aux
     capacity = _capacity(b * s, k, e, capacity_factor)
     y = expert_ffn(tokens, top_w, top_i, wg, wu, wd, k=k, capacity=capacity)
     return y.reshape(b, s, d), aux

@@ -169,6 +169,21 @@ def test_every_arch_resolves_and_other_families_raise_at_init():
             assert tuple(got.shape) == w.shape, (arch, name)
 
 
+@pytest.mark.parametrize("arch", ARCH_IDS)
+def test_init_params_on_meta_matches_param_specs(arch):
+    """``init_params(cfg, device="meta")`` (the dry run's parameters):
+    every parameter with ``param_specs``' name, shape and type, on
+    ``meta``, at full width and depth, no generator and no card."""
+    cfg = get_config(arch)
+    got = dict(TM.init_params(cfg, device="meta").named_parameters())
+    want = TM.param_specs(cfg)
+    assert list(got) == list(want)
+    for name, spec in want.items():
+        t = got[name]
+        assert (t.device.type, t.shape, t.dtype) == (
+            "meta", spec.shape, spec.dtype), (arch, name)
+
+
 def test_bfloat16_params_carry_over_bitwise():
     """The config's own bfloat16 crosses as its bits (numpy's bfloat16
     has no torch counterpart)."""

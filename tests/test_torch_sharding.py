@@ -296,14 +296,31 @@ def test_meshes_need_their_process_group():
     """``launch/mesh.py``'s shapes and names, and without a process
     group of that size the ranks that are missing."""
     with pytest.raises(RuntimeError, match=r"ranks 0\.\.255 are missing"):
-        tmesh.make_production_mesh()
+        tmesh.make_production_mesh(device="cpu")
     with pytest.raises(RuntimeError, match=r"ranks 0\.\.511 are missing"):
-        tmesh.make_production_mesh(multi_pod=True)
+        tmesh.make_production_mesh(multi_pod=True, device="cpu")
     with pytest.raises(RuntimeError, match=r"\(4, 2\) mesh over \('data', "
                                            r"'model'\)"):
-        tmesh.make_mesh_for_devices(8, 2)
+        tmesh.make_mesh_for_devices(8, 2, device="cpu")
     with pytest.raises(ValueError, match="model-parallel"):
-        tmesh.make_mesh_for_devices(8, 3)
+        tmesh.make_mesh_for_devices(8, 3, device="cpu")
+
+
+def test_meshes_run_on_the_cpu_only_when_asked():
+    """Without a card and without ``device="cpu"``, ``launch/mesh.py``
+    raises ``NoCudaDevice``, as every entry point of the port does,
+    before it looks for a process group."""
+    from repro_torch.device import NoCudaDevice
+
+    if torch.cuda.is_available():
+        pytest.skip("checks the machine without a card")
+
+    with pytest.raises(NoCudaDevice):
+        tmesh.make_production_mesh()
+    with pytest.raises(NoCudaDevice):
+        tmesh.make_production_mesh(multi_pod=True)
+    with pytest.raises(NoCudaDevice):
+        tmesh.make_mesh_for_devices(8, 2)
 
 
 def test_place_shards_over_two_gloo_ranks(tmp_path):

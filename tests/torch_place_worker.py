@@ -29,7 +29,7 @@ def run(rank: int, store_path: str, out_path: str) -> None:
         axes = M.param_logical_axes(cfg)
         out = {}
         for mp in (1, 2):
-            mesh = tmesh.make_mesh_for_devices(2, mp)
+            mesh = tmesh.make_mesh_for_devices(2, mp, device="cpu")
             sizes = sh.axis_sizes(mesh)
             placed = ckpt.place(tree, axes, mesh, sh.DEFAULT_RULES)
             for name, t in placed.items():

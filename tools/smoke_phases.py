@@ -10,8 +10,11 @@ its depth after the colon, the smoke's own ``SSM_LAYERS`` without one),
 ``hybrid`` (phase ``hybrid``: zamba2-2.7b, its depth after the colon,
 ``HYB_LAYERS`` without one), ``embeds`` (phase ``embeds``: qwen2-vl-7b
 and musicgen-medium), ``train`` (phase 10: the launcher and Qwen2-1.5B's
-steps) or ``train_ssm`` (phase 10s: the scan's backward kernel,
-falcon-mamba's and zamba2's steps).
+steps), ``train_ssm`` (phase 10s: the scan's backward kernel,
+falcon-mamba's and zamba2's steps), ``moe_ep`` (phase ``moe_ep``: the
+expert-parallel MoE branch over two gloo ranks) or ``dryrun`` (phase
+``dryrun``: ``launch/dryrun.py``'s cells on a fake process group, and
+the card's bf16 matrix rate and copy bandwidth).
 Needs one CUDA device and ``nvcc``; builds every kernel first. Prints the
 card line (``nvidia-smi`` name and power limit), the phases' own JSON
 lines, and after each one ``{"phase_seconds": ..., "phase": ...}``: the
@@ -51,7 +54,8 @@ def main(argv) -> int:
               "moe": smoke.moe_slice, "hybrid": smoke.hybrid_slice,
               "embeds": smoke.embeds_slice,
               "train": lambda: smoke.train_slice({}),
-              "train_ssm": lambda: smoke.train_ssm_slice({})}
+              "train_ssm": lambda: smoke.train_ssm_slice({}),
+              "moe_ep": smoke.moe_ep_slice, "dryrun": smoke.dryrun_slice}
     depths = {"ssm": ("SSM_LAYERS", smoke.SSM_LAYERS),
               "hybrid": ("HYB_LAYERS", smoke.HYB_LAYERS)}
     for arg in argv:
