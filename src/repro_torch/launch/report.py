@@ -4,7 +4,11 @@ Port of ``repro.launch.report``, over the port's records
 (``launch.dryrun``) and ``configs``: given the same records it prints
 the same two tables. The "compile" column holds a record's
 ``lower_compile_s``, which the port's dry run fills with the seconds of
-its meta run.
+its meta run. The port's "memory" term is the HBM proxy of one eager
+run (``roofline.StepCounter``: each operator's result, nothing fused),
+an upper bound that is not ``repro``'s fused count; "dominant" and
+"next move" rest on it. Over the port's records (their ``hlo_costs``
+count ``launches``) the command line says so under the tables.
 
   PYTHONPATH=src python -m repro_torch.launch.report experiments/dryrun
 """
@@ -145,6 +149,17 @@ def main() -> None:
     print(dryrun_table(out_dir))
     print("\n## Roofline table (single-pod 16x16)\n")
     print(roofline_table(out_dir))
+    if _eager_counts(out_dir):
+        print("\nmemory: the HBM proxy of one eager run (each operator's "
+              "result, nothing fused), an upper bound on the traffic, "
+              "not comparable with a fused program's count; 'dominant' "
+              "and 'next move' rest on it")
+
+
+def _eager_counts(out_dir: str) -> bool:
+    """Whether any record holds the port's eager count."""
+    return any("launches" in json.loads(p.read_text()).get("hlo_costs", {})
+               for p in pathlib.Path(out_dir).glob("*.json"))
 
 
 if __name__ == "__main__":

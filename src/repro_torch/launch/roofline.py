@@ -28,7 +28,11 @@ all-to-all): counted as the all-gather it is. It counts, under
 - ``buffer_bytes``: the HBM proxy, twice the bytes of each
   materialised result (views, allocations and aliases excluded; an
   operator in place counts its update, as ``parse_hlo``'s scatter and
-  dynamic-update-slice do);
+  dynamic-update-slice do). The results are an eager run's, one buffer
+  an operator, where ``parse_hlo`` reads XLA's fused program: an
+  unfused upper bound, 1.03-1.90 times ``parse_hlo``'s on the families'
+  smoke train steps (``tests/test_torch_roofline.py``), so the memory
+  term and a "memory" dominant are not comparable with ``repro``'s;
 - ``collectives``: wire bytes by kind: an all-gather's result, a
   reduce-scatter's result times the group size, an all-reduce's result;
 - ``launches``: the operators counted into ``buffer_bytes``, one

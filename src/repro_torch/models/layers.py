@@ -108,8 +108,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         d, q.dtype)
     nchunk = -(-s // kv_chunk)
     pad = nchunk * kv_chunk - s
-    # no pad where the chunks tile the sequence (the same values; over
-    # DTensors some builds cannot place a pad of a sharded tensor)
+    # no pad where the chunks tile the sequence (the same values; the
+    # card's torch 2.11 cannot place a pad of a sharded tensor)
     kp = F.pad(k, (0, 0, 0, 0, 0, pad)) if pad else k
     vp = F.pad(v, (0, 0, 0, 0, 0, pad)) if pad else v
     qpos = torch.arange(s, device=q.device)
@@ -235,8 +235,8 @@ def batched_cache_update(cache: torch.Tensor, new: torch.Tensor,
     """Write ``new`` (B, 1, KVH, D) into ``cache`` (B, Smax, KVH, D) at
     per-slot position ``idx`` (B,): per-slot continuous batching.
     Unlike the reference, writes ``cache`` in place and returns it. A
-    DTensor cache (the dry run's, sharded over batch and positions)
-    is written shard by shard (``_sharded_cache_update``)."""
+    sharded cache (a DTensor over batch and positions) is written
+    shard by shard (``_sharded_cache_update``)."""
     if is_dtensor(cache):
         return _sharded_cache_update(cache, new, idx)
     rows = torch.arange(cache.shape[0], device=cache.device)

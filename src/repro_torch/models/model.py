@@ -54,13 +54,14 @@ reference's ``init_cache``): ``conv`` and ``h`` a Mamba-2 layer, K and
 V a group.
 
 Under ``use_rules`` on a mesh of ranks an MoE layer takes ``moe_ffn``'s
-expert-parallel branch, and every function here also runs on DTensors
-(the dry run, ``launch.dryrun``, on ``meta`` over a fake process group):
-where DTensor cannot place an operator as written, a DTensor takes
+expert-parallel branch, and every function here also runs on sharded
+tensors (DTensors placed by ``launch.steps.shardings_for``): where
+DTensor cannot place an operator as written, a sharded tensor takes
 another road to the same values (``layers.divisible_shards`` before a
-head split, ``layers.batched_cache_update`` shard by shard, the
-reference's one-hot gold logit in ``chunked_xent``); a plain tensor
-takes the road it always took.
+head split, the embedding table gathered along its embedding dimension,
+``layers.batched_cache_update`` shard by shard, the reference's one-hot
+gold logit in ``chunked_xent``); a plain tensor takes the road it
+always took.
 """
 
 from __future__ import annotations
@@ -285,8 +286,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     none is given). The numbers differ from ``jax.random``'s; carry the
     reference's own weights over with ``convert.params_from_reference``.
     On ``meta`` every parameter has ``param_specs``' shape and type and
-    nothing is drawn: no generator or card is needed (the dry run's
-    parameters)."""
+    nothing is drawn: no generator or card is needed."""
     dev = device_mod.resolve(device)
     if dev.type == "meta":
         return Model(cfg, device=dev, dtype=dtype_of(cfg))
@@ -500,12 +500,12 @@ def _mamba_layer(cfg, p, x, state=None, *, backend="ref", h_out=None):
 def _embed_in(cfg, params: Model, tokens: torch.Tensor) -> torch.Tensor:
     if cfg.embeds_input:
         return tokens.to(dtype_of(cfg))
-    if not is_dtensor(params.embed):
-        return logical(params.embed[tokens.long()], "batch", "seq", "embed")
-    # over DTensors (the dry run) the embedding operator, whose backward
-    # DTensor places on a sharded table, fed a gradient in the rows' own
-    # placements; the same rows
-    rows = torch.nn.functional.embedding(tokens.long(), params.embed)
+    # a sharded table is gathered along its embedding dimension first
+    # (FSDP's gather: whole in one piece there; DTensor's embedding cannot
+    # mask a lookup whose rows are split both ways), and its gradient
+    # arrives in the rows' own placements
+    table = L.divisible_shards(params.embed, 1, 1)
+    rows = torch.nn.functional.embedding(tokens.long(), table)
     return L.grad_placed(logical(rows, "batch", "seq", "embed"))
 
 
@@ -608,7 +608,7 @@ def _on(a, dev: torch.device) -> torch.Tensor:
     read-only broadcasts), on ``dev``."""
     if isinstance(a, torch.Tensor):
         # a DTensor's ``.to`` raises under inference mode, even to its
-        # own device (the dry run's prefill and decode)
+        # own device
         return a if a.device == dev else a.to(dev)
     return torch.from_numpy(np.array(a)).to(dev)
 
@@ -800,7 +800,7 @@ def chunked_xent(cfg: ModelConfig, params: Model, hidden: torch.Tensor,
     nchunk = -(-s // chunk)
     pad = nchunk * chunk - s
     labels = _on(labels, hidden.device)
-    if pad:  # (over DTensors some builds cannot place a pad at all)
+    if pad:  # (the card's torch 2.11 cannot place a pad of a sharded tensor)
         hp = torch.nn.functional.pad(hidden, (0, 0, 0, pad))
         lp = torch.nn.functional.pad(labels, (0, pad), value=-1)
     else:
@@ -813,8 +813,9 @@ def chunked_xent(cfg: ModelConfig, params: Model, hidden: torch.Tensor,
         logits = _final_hidden_to_logits(cfg, params, h).to(torch.float32)
         lse = torch.logsumexp(logits, dim=-1)
         if is_dtensor(logits):
-            # over DTensors (the dry run) the reference's one-hot sum:
-            # a gather across vocabulary shards does not place
+            # over sharded logits the reference's one-hot sum: a gather
+            # across vocabulary shards does not place (the gather is
+            # cheaper where the logits are whole)
             vocab = torch.arange(logits.shape[-1], device=logits.device)
             hot = (y.clamp(min=0).long()[..., None] == vocab).to(
                 logits.dtype)

@@ -38,24 +38,25 @@ None))``) with every other expert's assignment in the drop bucket, at
 the capacity of ``t_local = T // dp_size`` tokens, as ``repro`` does;
 its float32 partial ``y`` is summed over the expert axis by one
 all-reduce. The form is ``torch.distributed.tensor``'s ``local_map``
-around the local function (``_expert_sum`` with ``lo``). DTensor inputs
-(the dry run) are redistributed to the shard placements, ``y`` leaves
-as ``Partial("sum")`` over the expert axis and DTensor's redistribute
-does the all-reduce and carries its gradient; the inputs' gradients
-leave as partial sums over the axes each rank saw only a part of (``x``
-and ``top_w`` over the expert axis, the experts over the data axes).
-Plain inputs (the CPU tests, the smoke) are the same whole tensors on
-every rank: each rank slices its rows and experts itself, and one
-all-reduce of zero-padded partials over every mesh dimension both
-combines the experts and gathers the token shards, and returns their
-gradients the same way. Each rank's local function is as deterministic
-as the single-device branch, and the all-reduce gives every rank the
-same bits.
+around the local function (``_expert_sum`` with ``lo``), whatever the
+inputs. Sharded DTensors are redistributed to the shard placements;
+``y`` leaves as ``Partial("sum")`` over the expert axis and DTensor's
+redistribute does the all-reduce and carries its gradient; the inputs'
+gradients leave as partial sums over the axes each rank saw only a part
+of (``x`` and ``top_w`` over the expert axis, the experts over the data
+axes). Plain tensors, the same whole tensor on every rank, enter the
+same ``local_map`` as views of this rank's shards and leave whole by
+one all-reduce of each rank's part padded with zeros, exact, which
+also brings their gradients back whole: no all-gather (the card's
+torch 2.11 crashes in the functional all-gather over gloo on CUDA
+tensors) and no copy of the expert shards. Each rank's local function
+is as deterministic as the single-device branch, and the collectives
+give every rank the same bits.
 """
 
 from __future__ import annotations
 
-import math
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -233,16 +234,12 @@ def expert_parallel(tokens, top_w, top_i, wg, wu, wd, *, k: int,
     """``repro``'s ``shard_map`` of ``_expert_shard``: tokens (T, d),
     top_w/top_i (T, k), experts (E, ...) -> y (T, d) in the tokens'
     type, each rank's local experts on its token shard, the shards'
-    float32 partial ``y`` summed by all-reduce. DTensors give a DTensor
-    (the placements of ``tspec``): the inputs are redistributed to the
-    shards and one all-reduce over ``axis`` combines. Plain tensors (the
-    same whole tensor on every rank) give a plain ``y``: each rank takes
-    its rows and experts itself and writes its rows of a zero (T, d)
-    partial, and one all-reduce over every mesh dimension both combines
-    the experts and gathers the token shards (no all-gather, which the
-    functional collectives of some builds cannot run over gloo on CUDA
-    tensors); the gradients come back by all-reduce the same way."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    float32 partial ``y`` summed over ``axis`` by all-reduce. DTensors
+    give a DTensor in the tokens' placements. Plain tensors, the
+    same whole tensor on every rank, enter as views of this rank's
+    shards (``_ShardOf``) and give the whole plain ``y`` (``_Whole``):
+    all-reduces only, both ways."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
     names = tuple(mesh.mesh_dim_names)
@@ -254,34 +251,9 @@ def expert_parallel(tokens, top_w, top_i, wg, wu, wd, *, k: int,
     e_l = wg.shape[0] // SH.axis_sizes(mesh)[axis]
     lo = mesh.get_local_rank(axis) * e_l
     dtype = tokens.dtype
-    rep, part = Replicate(), Partial()
-    if not SH.is_dtensor(tokens):
-        t = tokens.shape[0]
-        n_shards = math.prod(mesh.size(names.index(a)) for a in data)
-        shard = 0
-        for a in names:  # this rank's token shard, data axes major first
-            if a in data:
-                shard = shard * mesh.size(names.index(a)) + \
-                    mesh.get_local_rank(a)
-        rows = slice(shard * (t // n_shards), (shard + 1) * (t // n_shards))
-
-        def padded(x, w, i, g, u, d):
-            y = _expert_sum(x[rows], w[rows], i[rows], g[lo:lo + e_l],
-                            u[lo:lo + e_l], d[lo:lo + e_l], k=k,
-                            capacity=capacity, lo=lo)
-            return F.pad(y, (0, 0, rows.start, t - rows.stop))
-
-        whole, sums = [rep] * mesh.ndim, [part] * mesh.ndim
-        fn = local_map(padded, out_placements=sums,
-                       in_placements=(whole,) * 6,
-                       in_grad_placements=(sums, sums, whole, sums, sums,
-                                           sums),
-                       device_mesh=mesh)
-        y = fn(*(DTensor.from_local(a, mesh, whole, run_check=False)
-                 for a in (tokens, top_w, top_i, wg, wu, wd)))
-        return y.redistribute(mesh, whole).to(dtype).to_local()
-    tok = tuple(Shard(0) if n in data else rep for n in names)
-    exp = tuple(Shard(0) if n == axis else rep for n in names)
+    part = Partial()
+    tok = tuple(Shard(0) if n in data else Replicate() for n in names)
+    exp = tuple(Shard(0) if n == axis else Replicate() for n in names)
     # y, and the gradient of what a rank sees only part of (x and top_w:
     # its experts; the experts' weights: its tokens), is a partial sum
     # over that axis
@@ -291,14 +263,88 @@ def expert_parallel(tokens, top_w, top_i, wg, wu, wd, *, k: int,
     def local(x, w, i, g, u, d):
         return _expert_sum(x, w, i, g, u, d, k=k, capacity=capacity, lo=lo)
 
+    places = (tok, tok, tok, exp, exp, exp)
     fn = local_map(local, out_placements=list(tok_part),
-                   in_placements=(tok, tok, tok, exp, exp, exp),
+                   in_placements=places,
                    in_grad_placements=(tok_part, tok_part, tok, exp_part,
                                        exp_part, exp_part),
                    device_mesh=mesh)
-    y = fn(*(a.redistribute(mesh, tok) for a in (tokens, top_w, top_i)),
-           *(w.redistribute(mesh, exp) for w in (wg, wu, wd)))
-    return y.redistribute(mesh, tok).to(dtype)
+    args = (tokens, top_w, top_i, wg, wu, wd)
+    if not SH.is_dtensor(tokens):
+        y = fn(*(_ShardOf.apply(a, mesh, p) for a, p in zip(args, places)))
+        return _Whole.apply(y).to(dtype)
+    y = fn(*(a.redistribute(mesh, p) for a, p in zip(args, places)))
+    # back in the tokens' own placements
+    return y.redistribute(mesh, tokens.placements).to(dtype)
+
+
+def _box(shape, mesh, placements):
+    """The index of this rank's shard of a tensor of ``shape``."""
+    from torch.distributed.tensor._utils import (
+        compute_local_shape_and_global_offset)
+
+    n, at = compute_local_shape_and_global_offset(shape, mesh, placements)
+    return tuple(slice(a, a + m) for a, m in zip(at, n))
+
+
+def _summed(local, placements, shape, mesh):
+    """The whole tensor of ``shape`` from each rank's ``local`` part:
+    the parts written into zeros at their places and summed by
+    all-reduce over the mesh dimensions that shard or split them into
+    partial sums (exact: a part meets only zeros from the ranks that
+    hold other rows)."""
+    import torch.distributed as dist
+
+    out = local.new_zeros(shape)
+    out[_box(shape, mesh, placements)] = local
+    for i, p in enumerate(placements):
+        if not p.is_replicate() and mesh.size(i) > 1:
+            dist.all_reduce(out, group=mesh.get_group(i))
+    return out
+
+
+class _ShardOf(torch.autograd.Function):
+    """A plain tensor, the same whole tensor on every rank, as the
+    DTensor of this rank's shard under ``placements`` (a view: no copy,
+    no collective); its gradient comes back whole on every rank by
+    ``_summed``."""
+
+    @staticmethod
+    def forward(ctx, whole, mesh, placements):
+        from torch.distributed.tensor import DTensor
+
+        ctx.mesh, ctx.shape = mesh, whole.shape
+        return DTensor.from_local(
+            whole[_box(whole.shape, mesh, placements)], mesh, placements,
+            run_check=False, shape=whole.shape, stride=whole.stride())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return (_summed(grad.to_local(), grad.placements, ctx.shape,
+                        ctx.mesh), None, None)
+
+
+class _Whole(torch.autograd.Function):
+    """A DTensor (rows sharded, partial sums over the expert axis) as the
+    whole plain tensor on every rank, by ``_summed``; its gradient is
+    this rank's part of the whole's."""
+
+    @staticmethod
+    def forward(ctx, t):
+        ctx.mesh, ctx.placements = t.device_mesh, t.placements
+        ctx.shape, ctx.stride = t.shape, t.stride()
+        return _summed(t.to_local(), t.placements, t.shape, t.device_mesh)
+
+    @staticmethod
+    def backward(ctx, grad):
+        from torch.distributed.tensor import DTensor, Replicate
+
+        # the gradient of a partial sum is the whole sum's: replicated
+        whole = [Replicate() if p.is_partial() else p for p in ctx.placements]
+        part = grad[_box(ctx.shape, ctx.mesh, ctx.placements)]
+        return DTensor.from_local(part.contiguous(), ctx.mesh, whole,
+                                  run_check=False, shape=ctx.shape,
+                                  stride=ctx.stride)
 
 
 def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
@@ -307,7 +353,7 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
     """x (B, S, d), router_w (d, E), wg/wu (E, d, f), wd (E, f, d) ->
     (y (B, S, d), aux loss). Under ``use_rules`` on a mesh of ranks the
     expert-parallel branch (``expert_axis``), else the single-device
-    one."""
+    one (over DTensors on every rank's replicated copy)."""
     b, s, d = x.shape
     e = router_w.shape[1]
     tokens = x.reshape(b * s, d)
@@ -323,5 +369,22 @@ def moe_ffn(x: torch.Tensor, router_w: torch.Tensor, wg: torch.Tensor,
                             tspec=tspec)
         return y.reshape(b, s, d), aux
     capacity = _capacity(b * s, k, e, capacity_factor)
-    y = expert_ffn(tokens, top_w, top_i, wg, wu, wd, k=k, capacity=capacity)
+    ffn = functools.partial(expert_ffn, k=k, capacity=capacity)
+    if SH.is_dtensor(tokens):
+        y = _on_every_rank(ffn, tokens, top_w, top_i, wg, wu, wd)
+    else:
+        y = ffn(tokens, top_w, top_i, wg, wu, wd)
     return y.reshape(b, s, d), aux
+
+
+def _on_every_rank(fn, *args):
+    """``fn`` of DTensors run whole on every rank, on their replicated
+    values: the single-device branch over sharded tensors."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = args[0].device_mesh
+    whole = tuple(Replicate() for _ in range(mesh.ndim))
+    return local_map(fn, out_placements=list(whole),
+                     in_placements=(whole,) * len(args), device_mesh=mesh,
+                     redistribute_inputs=True)(*args)

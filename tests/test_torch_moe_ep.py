@@ -25,7 +25,10 @@ within rtol 1e-4 / atol 1e-5 of ``jax.grad`` (the model tests' bound);
 the kept set (the assignments whose ``top_w`` gets a gradient) exactly;
 ``y`` the same bits on every rank and in two calls; where the
 single-device branch runs, ``y`` bit for bit the port's call without
-rules.
+rules. Each check runs on plain inputs (the whole tensor on every rank)
+and on DTensors placed by the model's logical axes (tokens sharded over
+the data axes, experts over ``model`` and FSDP over ``data``), which
+take the same ``local_map`` path.
 """
 
 import json
@@ -132,33 +135,56 @@ def _world(mesh):
     return dp * mp
 
 
-@pytest.mark.parametrize("case,mesh", RUNS)
-def test_branch_y_aux_and_kept_set_match_the_reference(runs, case, mesh):
+def _branch_matches(runs, case, mesh, form):
     ranks = runs["ranks"][_world(mesh)]
     got, ref = ranks[0], runs["ref"]
-    key = f"{case}/{mesh}/"
+    key = f"{case}/{mesh}/{form}"
     e = CASES[case][3]
     dp, mp = (int(v) for v in mesh.split("x"))
     want_ep = CASES[case][6] is not None and e % mp == 0
     assert bool(got[key + "expert_parallel"]) == want_ep
-    assert int(got[key + "capacity"]) == int(ref[key + "capacity"])
-    np.testing.assert_array_equal(got[key + "kept"], ref[key + "kept"])
-    np.testing.assert_allclose(got[key + "y"], ref[key + "y"], **Y_TOL)
-    assert abs(float(got[key + "aux"]) - float(ref[key + "aux"])) <= (
-        AUX_TOL * abs(float(ref[key + "aux"])))
+    want = f"{case}/{mesh}/"
+    assert int(got[key + "capacity"]) == int(ref[want + "capacity"])
+    np.testing.assert_array_equal(got[key + "kept"], ref[want + "kept"])
+    np.testing.assert_allclose(got[key + "y"], ref[want + "y"], **Y_TOL)
+    assert abs(float(got[key + "aux"]) - float(ref[want + "aux"])) <= (
+        AUX_TOL * abs(float(ref[want + "aux"])))
     for r in ranks[1:]:
         assert np.array_equal(r[key + "y"], got[key + "y"]), "ranks differ"
     assert all(bool(r[key + "y_again_same"]) for r in ranks)
 
 
-@pytest.mark.parametrize("case,mesh", RUNS)
-def test_gradients_match_jax_grad_through_the_reference(runs, case, mesh):
+def _gradients_match(runs, case, mesh, form):
     got, ref = runs["ranks"][_world(mesh)][0], runs["ref"]
-    key = f"{case}/{mesh}/"
+    key, want = f"{case}/{mesh}/{form}", f"{case}/{mesh}/"
     for leaf in ("x", "router", "wg", "wu", "wd"):
         np.testing.assert_allclose(got[key + "g_" + leaf],
-                                   ref[key + "g_" + leaf], **G_TOL,
+                                   ref[want + "g_" + leaf], **G_TOL,
                                    err_msg=leaf)
+
+
+@pytest.mark.parametrize("case,mesh", RUNS)
+def test_branch_y_aux_and_kept_set_match_the_reference(runs, case, mesh):
+    _branch_matches(runs, case, mesh, "")
+
+
+@pytest.mark.parametrize("case,mesh", RUNS)
+def test_gradients_match_jax_grad_through_the_reference(runs, case, mesh):
+    _gradients_match(runs, case, mesh, "")
+
+
+@pytest.mark.parametrize("case,mesh", RUNS)
+def test_sharded_inputs_y_aux_and_kept_set_match_the_reference(
+        runs, case, mesh):
+    """The same checks on DTensors placed as a sharded model holds them
+    (the worker's ``dtensor/`` runs)."""
+    _branch_matches(runs, case, mesh, "dtensor/")
+
+
+@pytest.mark.parametrize("case,mesh", RUNS)
+def test_sharded_inputs_gradients_match_jax_grad_through_the_reference(
+        runs, case, mesh):
+    _gradients_match(runs, case, mesh, "dtensor/")
 
 
 def test_drop_case_keeps_other_sets_on_other_meshes(runs):

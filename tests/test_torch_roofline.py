@@ -19,6 +19,7 @@
   against the port's plain versions), so the bound is 1%.
 """
 
+import functools
 import importlib.util
 import json
 import os
@@ -44,6 +45,7 @@ from repro_torch.optim import adamw
 
 HERE = Path(__file__).resolve().parent
 FLOPS_RTOL = 1e-2
+BYTES_RATIO = (1.0, 2.0)
 FAMILIES = ("qwen2-1.5b", "qwen3-moe-235b-a22b", "falcon-mamba-7b",
             "zamba2-2.7b", "musicgen-medium", "qwen2-vl-7b")
 REFERENCE_HW = RL.Hardware("repro's constants", peak_flops=JRL.PEAK_FLOPS,
@@ -95,8 +97,10 @@ def test_counter_reads_the_synthetic_step_as_parse_hlo_does():
     assert got["dot_flops"] == costs.dot_flops == 2 * 8 * 16 * 32 * 12
 
 
-@pytest.mark.parametrize("arch", FAMILIES)
-def test_counted_dot_flops_match_parse_hlo_of_the_same_step(arch):
+@functools.lru_cache(maxsize=None)
+def _both_counts(arch):
+    """``parse_hlo``'s costs of ``repro``'s smoke train step compiled on
+    one CPU device, and ``StepCounter`` over the port's same step."""
     jcfg, shape = jsmoke(jget_config(arch)), JSMOKE_SHAPES["train"]
     params = jax.eval_shape(
         lambda: JST.M.init_params(jcfg, jax.random.PRNGKey(0)))
@@ -113,7 +117,22 @@ def test_counted_dot_flops_match_parse_hlo_of_the_same_step(arch):
     counter = RL.StepCounter()
     with counter:
         ST.step_for(cfg, SMOKE_SHAPES["train"])(model, state, batch)
+    return costs, counter
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_counted_dot_flops_match_parse_hlo_of_the_same_step(arch):
+    costs, counter = _both_counts(arch)
     assert counter.dot_flops == pytest.approx(costs.dot_flops,
                                               rel=FLOPS_RTOL)
     assert counter.launches > 0 and counter.buffer_bytes > 0
     assert counter.collectives == {}  # one device: none
+
+
+@pytest.mark.parametrize("arch", FAMILIES)
+def test_counted_buffer_bytes_bound_parse_hlo_of_the_same_step(arch):
+    """The HBM proxy of one eager run against ``parse_hlo``'s of the
+    fused program: never under it, within ``BYTES_RATIO``."""
+    costs, counter = _both_counts(arch)
+    ratio = counter.buffer_bytes / costs.buffer_bytes
+    assert BYTES_RATIO[0] <= ratio <= BYTES_RATIO[1], ratio
